@@ -1,0 +1,23 @@
+"""The Bloom Clock on PyTorch and CUDA (one NVIDIA H100).
+
+A module-for-module port of the JAX package ``repro``.  Plain tensor
+code is PyTorch; every Pallas TPU kernel on the ported path is a CUDA
+C++ kernel for ``sm_90a`` (``repro_torch.kernels.csrc``), built with
+``nvcc`` at first use and bound with ``ctypes``.
+
+Ported so far (the main path):
+
+- ``core``     hashing, the clock, wire frames, history, vector clock,
+               the simulator (loopback gossip only)
+- ``kernels``  tick, fused merge+compare, one-vs-many (u8 and i32)
+- ``causal``   policy, typed results, ``CausalEngine.classify``
+- ``obs``      trace spans, metrics, audit trail
+- ``fleet``    the registry slab, gossip, the loopback transport
+- ``runtime``  ``ClockRuntime``
+- ``convert``  builds the port's objects from the JAX package's state
+
+Entry points (``ClockRuntime``, ``ClockRegistry``, ``run_gossip_sim``)
+run on the card unless the caller passes ``device="cpu"``; functions on
+tensors follow their tensors' device.  This package never imports
+``jax`` or ``repro``.
+"""

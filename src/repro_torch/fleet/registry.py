@@ -1,0 +1,413 @@
+"""ClockRegistry: a fixed-capacity quantized slab of peer bloom clocks.
+
+Peer state lives in four tensors on the registry's device, the §4
+packed layout (``kernels.pack``):
+
+    cells_u8 [N, m] uint8  window-relative residuals per slot
+    base     [N]    int32  per-slot window offset (logical = base + u8)
+    sums     [N]    f32    cached total increments (Eq. 3 inputs)
+    alive    [N]    bool   liveness mask (evicted slots stay allocated)
+
+A row whose residual span cannot fit a byte, or whose base is near the
+int32 wrap, is promoted: its int32 logical cells go to a host side
+store (``_wide``) and ``classify_all`` overlays it through the exact
+int32 kernel.  Mutations update the slab tensors in place (one indexed
+write per batch), which keeps the slab's device memory at one copy.
+
+Slot assignment is host-side (a dict and a free list).  Status codes
+(``FleetView.status``): DEAD < 0; ANCESTOR: peer ≼ local; SAME;
+DESCENDANT: local ≼ peer; FORKED: concurrent (exact, paper §3).
+
+The all-pairs verb, the mesh-sharded slab and the eviction hook of the
+reference are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.causal import CausalEngine, CausalPolicy, PackedSlab
+from repro_torch.core import clock as bc
+from repro_torch.core import wire
+from repro_torch.device import resolve_device
+from repro_torch.kernels import pack
+from repro_torch.obs.observer import resolve
+
+__all__ = [
+    "ClockRegistry",
+    "FleetView",
+    "view_from_classify",
+    "DEAD",
+    "ANCESTOR",
+    "SAME",
+    "DESCENDANT",
+    "FORKED",
+    "STATUS_NAMES",
+    "NEAR_WRAP_MARGIN",
+]
+
+INT32_MAX = np.iinfo(np.int32).max
+
+#: a row whose §4 base lands within this margin of INT32_MAX (or has
+#: already wrapped negative) is promoted to the exact int32 rim: the
+#: packed path's in-kernel float sums are not wrap-safe.
+NEAR_WRAP_MARGIN = 1 << 20
+
+
+def _near_wrap(base: np.ndarray) -> np.ndarray:
+    """Bool mask of §4 bases too close to (or past) the int32 wrap."""
+    base = np.asarray(base, np.int64)
+    return (base > INT32_MAX - NEAR_WRAP_MARGIN) | (base < 0)
+
+
+DEAD = -1
+ANCESTOR = 0
+SAME = 1
+DESCENDANT = 2
+FORKED = 3
+
+STATUS_NAMES = {
+    DEAD: "dead",
+    ANCESTOR: "ancestor",
+    SAME: "same",
+    DESCENDANT: "descendant",
+    FORKED: "forked",
+}
+
+
+@dataclasses.dataclass
+class FleetView:
+    """Host-side result of one ``classify_all`` call (numpy, [capacity])."""
+
+    status: np.ndarray        # int8 status code per slot
+    fp: np.ndarray            # float32 Eq. 3 fp of the claimed direction
+    sums: np.ndarray          # float32 clock sums
+    alive: np.ndarray         # bool liveness mask
+    local_sum: float          # the query clock's total increments
+    engine: str = ""          # dispatch label that produced this view
+
+    def counts(self) -> dict[str, int]:
+        return {name: int(np.sum(self.status == code))
+                for code, name in STATUS_NAMES.items()}
+
+    def confident(self, threshold: float) -> np.ndarray:
+        """The uniform Eq. 3 gate over the claimed direction (SAME,
+        FORKED and DEAD carry fp 0 and are always confident)."""
+        return self.fp <= threshold
+
+
+def view_from_classify(res, alive: np.ndarray, capacity: int,
+                       local_sum: float | None = None) -> FleetView:
+    """Fold a host-side ``ClassifyResult`` into a ``FleetView``: the one
+    place classify flags become status codes + claimed-direction fp."""
+    alive = np.asarray(alive, bool)
+    status = np.full(capacity, FORKED, np.int8)
+    status[res.after()] = ANCESTOR
+    status[res.before()] = DESCENDANT
+    status[res.equal()] = SAME
+    status[~alive] = DEAD
+    fp = np.asarray(res.claimed_fp(), np.float32)
+    fp[~alive] = 0.0
+    return FleetView(
+        status=status,
+        fp=fp,
+        sums=res.sum_p,
+        alive=alive.copy(),
+        local_sum=float(res.sum_q) if local_sum is None else local_sum,
+        engine=res.engine or "",
+    )
+
+
+def _scatter_rows(cells_u8, base, sums, alive, idx, new_u8, new_base,
+                  new_sums) -> None:
+    """Write rows ``idx`` of the slab in place."""
+    cells_u8[idx] = new_u8
+    base[idx] = new_base
+    sums[idx] = new_sums
+    alive[idx] = True
+
+
+def _union_rows_packed(cells_u8, base, mask, local_cells) -> torch.Tensor:
+    """max(local, max over masked logical rows) by the wrap-safe
+    ``local + relu(row - local)`` derivation."""
+    logical = cells_u8.to(torch.int32) + base[:, None]
+    gain = torch.where(mask[:, None], torch.clamp(logical - local_cells, min=0),
+                       0)
+    return local_cells + gain.amax(0)
+
+
+def _broadcast_rows(cells_u8, base, sums, mask, row_u8, row_base,
+                    row_sum) -> None:
+    """Write one packed row into every masked slot, in place."""
+    cells_u8[mask] = row_u8
+    base[mask] = row_base
+    sums[mask] = row_sum
+
+
+class ClockRegistry:
+    """Peer clock registry: one slab on one device."""
+
+    def __init__(self, capacity: int, m: int, k: int = 4, *,
+                 policy: CausalPolicy | None = None, device=None):
+        self.capacity = capacity
+        self.m = m
+        self.k = k
+        self.device = resolve_device(device)
+        self.policy = policy if policy is not None else CausalPolicy()
+        self.engine = CausalEngine(self.policy)
+        self.obs = resolve(self.policy.observer)
+        dev = self.device
+        self.cells_u8 = torch.zeros((capacity, m), dtype=torch.uint8, device=dev)
+        self.base = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+        self.sums = torch.zeros((capacity,), dtype=torch.float32, device=dev)
+        self.alive = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+        self._alive_host = np.zeros(capacity, bool)
+        self._base_host = np.zeros(capacity, np.int64)
+        # per-slot CRC32 of the logical cells, written at every mutation:
+        # the ground truth check_integrity() verifies the slab against
+        self._crc_host = np.zeros(capacity, np.int64)
+        self._wide: dict[int, np.ndarray] = {}   # promoted int32 rows
+        self._mat: torch.Tensor | None = None    # materialized i32 cache
+        self._slot_of: dict = {}
+        self._free: list[int] = list(range(capacity - 1, -1, -1))
+
+    # ---- membership ----
+    def __len__(self) -> int:
+        return len(self._slot_of)
+
+    def __contains__(self, peer_id) -> bool:
+        return peer_id in self._slot_of
+
+    def slot_of(self, peer_id) -> int:
+        return self._slot_of[peer_id]
+
+    def peer_ids(self) -> list:
+        return list(self._slot_of)
+
+    def row_alive(self, peer_id) -> bool:
+        """True when the peer's row is present AND not quarantined."""
+        slot = self._slot_of.get(peer_id)
+        return slot is not None and bool(self._alive_host[slot])
+
+    @property
+    def packed(self) -> bool:
+        """True when every row is in the u8 fast-path representation."""
+        return not self._wide
+
+    def _materialized(self) -> torch.Tensor:
+        if self._mat is None:
+            mat = pack.unpack_rows(self.cells_u8, self.base)
+            if self._wide:
+                widx = sorted(self._wide)
+                mat[torch.as_tensor(widx, device=self.device)] = torch.as_tensor(
+                    np.stack([self._wide[s] for s in widx]), device=self.device)
+            self._mat = mat
+        return self._mat
+
+    def _slab(self) -> PackedSlab:
+        return PackedSlab(self.cells_u8, self.base, wide=self._wide)
+
+    # ---- batched mutation ----
+    def admit_many(self, peers: dict) -> dict:
+        """Admit {peer_id: BloomClock}; one scatter for the whole batch.
+        Re-admitting a known peer overwrites its row.  Returns
+        {peer_id: slot}; raises when capacity is exhausted."""
+        if not peers:
+            return {}
+        fresh = [pid for pid in peers if pid not in self._slot_of]
+        if len(fresh) > len(self._free):
+            raise RuntimeError(
+                f"registry full: {len(fresh)} admits, {len(self._free)} free slots")
+        with self.obs.trace.span("registry.admit", n=len(peers),
+                                 fresh=len(fresh)):
+            slots = {pid: (self._slot_of[pid] if pid in self._slot_of
+                           else self._free.pop()) for pid in peers}
+            self._slot_of.update(slots)
+            self._write(list(slots.values()), list(peers.values()))
+        self.obs.metrics.counter("registry_admits").inc(len(peers))
+        self._note_occupancy()
+        return slots
+
+    def admit(self, peer_id, clock: bc.BloomClock) -> int:
+        return self.admit_many({peer_id: clock})[peer_id]
+
+    def update_many(self, peers: dict) -> None:
+        """Overwrite existing peers' rows; one scatter for the batch."""
+        if not peers:
+            return
+        with self.obs.trace.span("registry.update", n=len(peers)):
+            self._write([self._slot_of[pid] for pid in peers],
+                        list(peers.values()))
+
+    def update(self, peer_id, clock: bc.BloomClock) -> None:
+        self.update_many({peer_id: clock})
+
+    def evict_many(self, peer_ids) -> None:
+        peer_ids = list(dict.fromkeys(peer_ids))   # dedupe, keep order
+        # resolve every slot BEFORE mutating: an unknown peer_id raises
+        # with the registry untouched instead of half-evicted
+        idx = [self._slot_of[pid] for pid in peer_ids]
+        if not idx:
+            return
+        with self.obs.trace.span("registry.evict", n=len(idx)):
+            for pid in peer_ids:
+                del self._slot_of[pid]
+            self.alive[torch.as_tensor(idx, device=self.device)] = False
+            self._alive_host[idx] = False
+            for slot in idx:
+                self._wide.pop(slot, None)
+            self._free.extend(idx)
+        self.obs.metrics.counter("registry_evictions").inc(len(idx))
+        self._note_occupancy()
+
+    def evict(self, peer_id) -> None:
+        self.evict_many([peer_id])
+
+    def _write(self, idx: list, clocks: list) -> None:
+        # logical rows on the host with the mod-2^32 fold (clocks may
+        # live on either device), then one transfer and one scatter
+        logical_h = np.empty((len(clocks), self.m), np.int32)
+        for pos, c in enumerate(clocks):
+            cells = c.cells.cpu().numpy().astype(np.int64)
+            logical_h[pos] = ((cells + int(c.base)) & 0xFFFFFFFF).astype(
+                np.uint32).view(np.int32)
+        logical = torch.as_tensor(logical_h, device=self.device)
+        new_sums = bc.clock_sum(bc.BloomClock(
+            cells=logical, base=torch.zeros(len(clocks), dtype=torch.int32,
+                                            device=self.device),
+            k=clocks[0].k))
+        new_u8, new_base, ok = pack.pack_rows(logical)
+        _scatter_rows(self.cells_u8, self.base, self.sums, self.alive,
+                      torch.as_tensor(idx, device=self.device), new_u8,
+                      new_base, new_sums)
+        ok_h = ok.cpu().numpy()
+        base_h = new_base.cpu().numpy()
+        nw_h = _near_wrap(base_h)
+        self._base_host[idx] = base_h
+        self._alive_host[idx] = True
+        promoted = demoted = 0
+        for pos, slot in enumerate(idx):
+            self._crc_host[slot] = wire.cells_crc(logical_h[pos])
+            if ok_h[pos] and not nw_h[pos]:
+                if self._wide.pop(slot, None) is not None:
+                    demoted += 1               # demotion: row packs again
+            else:                  # promotion: span > U8_MAX or near-wrap
+                if slot not in self._wide:
+                    promoted += 1
+                self._wide[slot] = logical_h[pos].copy()
+        if promoted:
+            self.obs.metrics.counter("registry_promotions").inc(promoted)
+        if demoted:
+            self.obs.metrics.counter("registry_demotions").inc(demoted)
+        self._mat = None
+
+    def _note_occupancy(self) -> None:
+        obs = self.obs
+        if obs:
+            obs.metrics.gauge("registry_occupancy").set(len(self._slot_of))
+            obs.metrics.gauge("registry_wide_rows").set(len(self._wide))
+
+    # ---- self-stabilization: row integrity ----
+    def check_integrity(self) -> list:
+        """Peer ids whose alive row no longer hashes to the CRC recorded
+        when it was written (detection only; see ``quarantine_rows``)."""
+        mat = self._materialized().cpu().numpy()
+        bad = []
+        for pid, slot in self._slot_of.items():
+            if not self._alive_host[slot]:
+                continue
+            if wire.cells_crc(mat[slot]) != int(self._crc_host[slot]):
+                bad.append(pid)
+        if bad:
+            self.obs.metrics.counter("registry_corrupt_rows").inc(len(bad))
+        return bad
+
+    def quarantine_rows(self, peer_ids) -> None:
+        """Mark corrupted rows dead WITHOUT freeing their slots; a later
+        ``update_many`` rewrites the row and revives it."""
+        idx = [self._slot_of[pid] for pid in peer_ids]
+        if not idx:
+            return
+        self.alive[torch.as_tensor(idx, device=self.device)] = False
+        self._alive_host[idx] = False
+        self._mat = None
+
+    def get(self, peer_id) -> bc.BloomClock:
+        slot = self._slot_of[peer_id]
+        if slot in self._wide:
+            return bc.BloomClock(
+                cells=torch.as_tensor(self._wide[slot], device=self.device),
+                base=torch.zeros((), dtype=torch.int32, device=self.device),
+                k=self.k)
+        return bc.BloomClock(cells=self.cells_u8[slot].to(torch.int32),
+                             base=self.base[slot].clone(), k=self.k)
+
+    # ---- batched classification ----
+    def classify_all(self, local: bc.BloomClock) -> FleetView:
+        """Lineage status + Eq. 3 fp for EVERY slot: one packed
+        one-vs-many kernel call, plus one int32 call for promoted rows.
+
+        A peer ≼ the local clock is an ANCESTOR, a peer the local clock
+        is ≼ is a DESCENDANT, incomparable peers are FORKED (exact, §3).
+        """
+        res = self.engine.classify(local, self._slab()).to_host()
+        return view_from_classify(res, self._alive_host, self.capacity)
+
+    # ---- batched merge ----
+    def union(self, mask: np.ndarray, local: bc.BloomClock) -> bc.BloomClock:
+        """Merge the local clock with every masked row (wrap-safe max).
+        With promoted rows present, only the masked rows are gathered."""
+        local_cells = local.logical_cells().to(torch.int32).to(self.device)
+        mask_h = np.asarray(mask, bool)
+        midx = np.flatnonzero(mask_h)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if midx.size == 0:
+            return bc.BloomClock(cells=local_cells, base=zero, k=self.k)
+        if self.packed:
+            merged = _union_rows_packed(
+                self.cells_u8, self.base,
+                torch.as_tensor(mask_h, device=self.device), local_cells)
+        else:
+            jmid = torch.as_tensor(midx, device=self.device)
+            rows = pack.unpack_rows(self.cells_u8[jmid], self.base[jmid])
+            wsel = [(pos, int(s)) for pos, s in enumerate(midx)
+                    if int(s) in self._wide]
+            if wsel:
+                rows[torch.as_tensor([p for p, _ in wsel],
+                                     device=self.device)] = torch.as_tensor(
+                    np.stack([self._wide[s] for _, s in wsel]),
+                    device=self.device)
+            merged = local_cells + torch.clamp(
+                (rows - local_cells).amax(0), min=0)
+        return bc.BloomClock(cells=merged, base=zero, k=self.k)
+
+    def broadcast(self, mask: np.ndarray, clock: bc.BloomClock) -> bool:
+        """Write one clock into every masked row (anti-entropy push-back)
+        as u8 residuals + one base; a row too wide for u8 promotes the
+        masked slots instead.  Returns whether the row went out packed."""
+        logical = clock.logical_cells().to(torch.int32).to(self.device)
+        row_u8, row_base, ok = pack.pack_rows(logical[None])
+        row_sum = bc.clock_sum(bc.BloomClock(
+            cells=clock.cells.to(self.device), base=clock.base.to(self.device),
+            k=clock.k))
+        mask_h = np.asarray(mask, bool)
+        _broadcast_rows(self.cells_u8, self.base, self.sums,
+                        torch.as_tensor(mask_h, device=self.device),
+                        row_u8[0], row_base[0], row_sum)
+        midx = np.flatnonzero(mask_h)
+        base0 = int(row_base[0])
+        self._base_host[midx] = base0
+        row_np = logical.cpu().numpy()
+        self._crc_host[midx] = wire.cells_crc(row_np)
+        # a union row pushed back near the int32 wrap stays on the rim
+        packed_ok = bool(ok[0]) and not bool(_near_wrap(np.asarray([base0]))[0])
+        if packed_ok:
+            for slot in midx:
+                self._wide.pop(int(slot), None)
+        else:
+            for slot in midx:
+                self._wide[int(slot)] = row_np
+        self._mat = None
+        return packed_ok

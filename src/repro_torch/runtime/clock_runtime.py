@@ -1,0 +1,193 @@
+"""ClockRuntime: one process's bloom clock and the decisions taken from it.
+
+Events tick the clock (``tick*``); the pairwise receive path (``lineage``
+/ ``admit_merge``) runs through the fused merge+compare kernel, one
+kernel call and one host transfer per message; fleet paths go through a
+``fleet.ClockRegistry`` (``classify_fleet``, ``gossip``).  All
+decisions are O(m), independent of fleet size.
+
+The runtime lives on one device: the card unless ``device="cpu"`` is
+given.  The checkpoint-directory methods of the reference wait for the
+checkpoint manager's port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.causal import CausalPolicy
+from repro_torch.core import clock as bc
+from repro_torch.core import history as hist
+from repro_torch.core.hashing import stable_event_id
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+__all__ = ["ClockConfig", "ClockRuntime", "LineageStatus"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClockConfig:
+    m: int = 1024            # cells — 4KB/clock on the wire (int32)
+    k: int = 4               # probes/event
+    fp_threshold: float = 1e-4
+    history_window: int = 32
+    straggler_gap: float = 64.0  # clock-sum ticks
+    # full causality policy; None derives one from fp_threshold.  When
+    # set, its fp_threshold is the one the runtime gates on.
+    policy: Optional[CausalPolicy] = None
+
+    def causal_policy(self) -> CausalPolicy:
+        return (self.policy if self.policy is not None
+                else CausalPolicy(fp_threshold=self.fp_threshold))
+
+
+class LineageStatus:
+    ANCESTOR = "ancestor"        # other ≼ mine: other is in my past (safe)
+    SAME = "same"
+    DESCENDANT = "descendant"    # mine ≼ other: other is ahead of me
+    FORKED = "forked"            # concurrent: split brain / missed sync
+
+
+class ClockRuntime:
+    def __init__(self, cfg: ClockConfig, run_id: str = "run0",
+                 observer=None, device=None):
+        self.cfg = cfg
+        self.run_id = run_id
+        self.device = resolve_device(device)
+        self.policy = cfg.causal_policy()
+        if observer is not None:
+            # the engine, every make_registry() slab and every gossip()
+            # session inherit the observer through the policy
+            self.policy = dataclasses.replace(self.policy, observer=observer)
+        self.clock = bc.zeros(cfg.m, cfg.k, device=self.device)
+        self.history = hist.init(cfg.history_window, cfg.m, cfg.k,
+                                 device=self.device)
+
+    # ---- events ----
+    def tick(self, *parts) -> None:
+        hi, lo = stable_event_id(self.run_id, *parts)
+        self.clock = bc.tick(self.clock, hi, lo)
+        self.history = hist.push(self.history, self.clock)
+
+    def tick_step(self, step: int) -> None:
+        self.tick("step", step)
+
+    def tick_batch(self, step: int) -> None:
+        self.tick("batch", step)
+
+    def tick_checkpoint(self, step: int) -> None:
+        self.tick("ckpt", step)
+
+    def tick_scale_event(self, epoch: int, n_members: int) -> None:
+        self.tick("scale", epoch, n_members)
+
+    # ---- comparisons ----
+    def _classify(self, other: bc.BloomClock):
+        """Fused receive-path compare: ONE kernel call (merged cells,
+        dominance flags, sums, Eq. 3 fp) and ONE host transfer.
+
+        Returns (status, fp, merged_cells [m] int32 numpy array).
+        """
+        a = other.logical_cells().to(torch.int32).to(self.device)
+        r = ops.merge_compare(a.reshape(1, -1).contiguous(),
+                              self.clock.logical_cells().reshape(1, -1)
+                              .to(torch.int32).contiguous())
+        h = {key: v.cpu().numpy() for key, v in r.items()}
+        a_le_b = bool(h["a_le_b"][0])     # other ≼ mine
+        b_le_a = bool(h["b_le_a"][0])     # mine ≼ other
+        if a_le_b and b_le_a:
+            return LineageStatus.SAME, 0.0, h["merged"][0]
+        if a_le_b:
+            return LineageStatus.ANCESTOR, float(h["fp_a_before_b"][0]), h["merged"][0]
+        if b_le_a:
+            return LineageStatus.DESCENDANT, float(h["fp_b_before_a"][0]), h["merged"][0]
+        # exact — no false negatives (§3)
+        return LineageStatus.FORKED, 0.0, h["merged"][0]
+
+    def lineage(self, other: bc.BloomClock) -> tuple[str, float]:
+        """Classify another clock against ours + Eq. 3 confidence."""
+        status, fp, _ = self._classify(other)
+        return status, fp
+
+    def classify_fleet(self, registry):
+        """Classify every peer in a ``fleet.ClockRegistry`` against our
+        clock in one kernel call (see ``registry.classify_all``)."""
+        return registry.classify_all(self.clock)
+
+    def make_registry(self, capacity: int):
+        """Fleet registry sized to this runtime's clock config, on its
+        device, carrying its CausalPolicy."""
+        from repro_torch.fleet.registry import ClockRegistry
+        return ClockRegistry(capacity, m=self.cfg.m, k=self.cfg.k,
+                             policy=self.policy, device=self.device)
+
+    def gossip(self, registry, cfg=None, transport=None):
+        """One anti-entropy session (loopback over ``registry`` unless a
+        transport is given); the merged union becomes the runtime clock.
+        The session gates on this runtime's policy unless ``cfg`` is
+        given."""
+        from repro_torch.fleet.gossip import GossipConfig
+        from repro_torch.fleet.transport import LoopbackTransport
+        from repro_torch.fleet.transport.session import anti_entropy_session
+        if cfg is None:
+            cfg = GossipConfig(policy=self.policy,
+                               straggler_gap=self.cfg.straggler_gap)
+        if transport is None:
+            transport = LoopbackTransport(registry)
+        merged, report = anti_entropy_session(
+            registry, self.clock, transport, cfg)
+        self.clock = merged
+        return report
+
+    def refined_fp(self, other: bc.BloomClock) -> float:
+        """§3 history refinement: fp against the closest dominating stored
+        timestamp instead of the newest."""
+        other = bc.BloomClock(cells=other.cells.to(self.device),
+                              base=other.base.to(self.device), k=other.k)
+        fp, _ = hist.best_predecessor_fp(self.history, other)
+        return float(fp)
+
+    def admit_restore(self, ckpt_clock: bc.BloomClock) -> tuple[bool, str, float]:
+        """Is restoring from this checkpoint causally safe?"""
+        status, fp = self.lineage(ckpt_clock)
+        if status == LineageStatus.FORKED:
+            return False, status, fp
+        if status == LineageStatus.ANCESTOR:
+            fp = min(fp, self.refined_fp(ckpt_clock))
+            return (fp <= self.policy.fp_threshold
+                    or float(bc.clock_sum(self.clock)) == 0.0), status, fp
+        return True, status, fp
+
+    def admit_merge(self, peer_clock: bc.BloomClock) -> tuple[bool, str, float]:
+        """Async outer-loop guard: merge a peer's update?
+
+        Comparable (either direction) with confident fp -> merge + clock
+        max; concurrent -> quarantine.  The merged cells come from the
+        same fused kernel call as the decision.
+        """
+        status, fp, merged = self._classify(peer_clock)
+        ok = status != LineageStatus.FORKED and fp <= self.policy.fp_threshold
+        if ok:
+            self.clock = bc.compress(bc.BloomClock(
+                cells=torch.as_tensor(merged, device=self.device),
+                base=torch.zeros((), dtype=torch.int32, device=self.device),
+                k=self.clock.k))
+        return ok, status, fp
+
+    # ---- straggler policy ----
+    def straggler_mask(self, peer_sums: np.ndarray) -> np.ndarray:
+        """True for peers to SKIP this round (too far behind the median)."""
+        med = np.median(peer_sums)
+        return (med - np.asarray(peer_sums)) > self.cfg.straggler_gap
+
+    # ---- wire format ----
+    def snapshot(self) -> dict:
+        """Wire/persist form: §4 compression + u8 residual quantization
+        when the window fits a byte (see ``core.clock.to_wire``)."""
+        return bc.to_wire(self.clock)
+
+    def clock_from_snapshot(self, snap: dict) -> bc.BloomClock:
+        return bc.from_wire(snap, device=self.device)
