@@ -12,8 +12,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel);
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged and near-wrap ones: integers
-   identical, Eq. 3 fp within a relative 5e-2;
+   paths' shapes and at ragged and near-wrap ones: integers, flags and
+   violation counts identical, Eq. 3 fp within a relative 5e-2;
 4. the main path at full size: a ``ClockRuntime`` (m=1024, k=4) ticks,
    65,536 peers are admitted to a registry in batches of 4096,
    ``classify_fleet``, ``lineage``/``admit_merge`` and three loopback
@@ -22,10 +22,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    verdicts, clocks, registry rows and wire bytes must be identical,
    fp within tolerance; then ``run_gossip_sim`` on both devices must
    report fn == 0 and the same verdict counts;
-5. kernel times with CUDA events over many launches, with rotating
-   input buffers larger than the L2 cache, beside the plain version,
-   ``scatter_add_`` for the tick, and the least time the card needs;
-6. one JSON line of kernel records, the card line, then the verdict line.
+5. the all-pairs path: ``fleet_health`` over a 16,384-slot registry
+   (~1% evicted, 8 promoted rows) with the launch counts reset just
+   before and read just after (tri and rect-i32 must have run), its
+   time split into the all-pairs call, the transfer and host work, and
+   once more under the profiler; then ``CausalEngine.pairs`` with the
+   tri, full and mxu engines and the i32 kernel (``pack=False``) on a
+   fully alive 16,384 slab of window span <= 64, which must give
+   identical flags and row sums; then ``fleet_health`` at 2,048 slots
+   on the card and on the CPU, which must agree;
+6. times by one rule for kernels, plain versions and library calls:
+   CUDA events around a loop of calls queued behind a sleep kernel (the
+   card's time, no host gaps), with rotating input buffers larger than
+   the L2 cache where the inputs are small; beside them the least time
+   the card needs, from bytes and from instruction counts (the lower of
+   each function's minimum and the built kernel's hot loop, read from
+   ``cuobjdump -sass``);
+7. one JSON line of kernel records, the card line, then the verdict line.
 
 No JAX and nothing of the JAX package is imported.
 """
@@ -33,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,15 +60,47 @@ FP_RTOL = 5e-2      # Eq. 3 across math libraries (see ROADMAP queue 3)
 FP_FLOOR = 1e-30    # the Eq. 3 clip: values at or below it are all "zero"
 M, K = 1024, 4
 N_PEERS, BATCH = 65536, 4096
+# all-pairs: fleet_health materialises [N, N] flag and fp matrices and
+# copies them to the host (~7 bytes a pair), so its slab is cut to 16,384
+# slots; the card-vs-CPU comparison runs at 2,048 to keep the CPU short
+N_SLOTS, N_SLOTS_CPU = 16384, 2048
 SEED = 0
+#: kernels of the main path (phase 4) and of the all-pairs paths (phase 5)
+MAIN_KERNELS = ("bloom_tick", "bloom_merge_compare", "one_vs_many_packed",
+                "one_vs_many_i32")
+HEALTH_KERNELS = ("matrix_tri", "matrix_rect_i32")
+ENGINE_KERNELS = ("matrix_tri", "matrix_rect_u8", "matrix_mxu",
+                  "matrix_rect_i32")
 L2_BYTES = 50e6
 
 # data-sheet HBM rates (bytes/s), by the card's name
 _HBM = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H200", 4.8e12),
         ("H100", 3.35e12))
-# int32 operations/s outside the tensor cores: 64 INT32 lanes per SM,
-# 132 SMs, 1.98 GHz boost (Hopper architecture white paper)
-INT32_OPS = 64 * 132 * 1.98e9
+# instructions/s outside the tensor cores: an SM issues at most 4 warp
+# instructions (128 lanes) a clock, 132 SMs at 1.98 GHz boost (the
+# guide's 67 TFLOP/s float32 with one FMA counted once).  No mix of
+# instructions issues faster, whichever pipe runs them, so ops / INT_OPS
+# is a time no kernel can beat.
+INT_OPS = 128 * 132 * 1.98e9
+# dense int8 tensor-core operations/s (the guide's table)
+INT8_OPS = 1979e12
+#: fewest instructions per (pair, lane) the all-pairs functions need on
+#: sm_90: u8 flags keep a running max and min of a difference that fits
+#: 16 bits, one DPX add-max or add-min (``__viaddmax_s16x2``) per two
+#: lanes each; int32 wrap differences do not pack, one add-max and one
+#: add-min per lane; the violation count takes one add-relu per two
+#: lanes and one three-input add of two packed 16-bit counts per four.
+#: The bound uses the lower of this and the built kernel's count (SASS).
+MIN_OPS = {"matrix_tri": 1.0, "matrix_rect_u8": 1.0, "matrix_rect_i32": 2.0,
+           "matrix_mxu": 0.75}
+#: kernel symbol in the SASS of each all-pairs record
+_SASS_KERNELS = {"matrix_tri": "tri_flags_kernel",
+                 "matrix_rect_u8": "rect_u8_flags_kernel",
+                 "matrix_rect_i32": "rect_i32_stats_kernel",
+                 "matrix_mxu": "mxu_viol_kernel"}
+# sleep ahead of a timed loop: ~50 ms at boost clock, longer than the
+# host takes to queue the loop, so the card never waits on the host
+SLEEP_CYCLES = 100_000_000
 
 
 class SmokeFailure(AssertionError):
@@ -129,6 +175,62 @@ def build() -> float:
         if log.exists():
             print(f"[build] {name}: {log.read_text().strip()}")
     return time.perf_counter() - t0
+
+
+_SASS_FN = re.compile(r"Function : (\S+)")
+_SASS_INS = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_hot_loop(text: str, symbol: str) -> dict:
+    """Instructions per (pair, lane) in the hot loop of ``symbol`` in
+    ``cuobjdump -sass`` output: the innermost backward-branch loop with
+    the most 16-byte shared loads, where 8 of them (4 lanes of 4 rows and
+    4 cols) feed 4 lanes x 16 pairs.  ``issue`` counts every instruction,
+    ``alu`` all but the shared loads and the branch."""
+    parts = _SASS_FN.split(text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if symbol not in name:
+            continue
+        found = _SASS_INS.findall(body)
+        ins = [(int(a, 16), op) for a, op, _ in found]
+        loops = []
+        for a, op, rest in found:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and target and int(target.group(1), 16) < int(a, 16):
+                loops.append((int(target.group(1), 16), int(a, 16)))
+        best = None
+        for lo, hi in loops:
+            if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in loops):
+                continue                      # not innermost
+            ops = [op for a, op in ins if lo <= a <= hi]
+            n_lds = ops.count("LDS.128")
+            if n_lds and (best is None or n_lds > best.count("LDS.128")):
+                best = ops
+        check(best is not None, f"sass: no shared-load loop in {symbol}")
+        pairs = best.count("LDS.128") / 8 * 64
+        hist: dict = {}
+        for op in best:
+            hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+        alu = sum(1 for op in best if not op.startswith(("LDS", "BRA")))
+        return {"issue": len(best) / pairs, "alu": alu / pairs,
+                "per_pair": {k: v / pairs for k, v in
+                             sorted(hist.items(), key=lambda kv: -kv[1])}}
+    raise SmokeFailure(f"sass: no function {symbol}")
+
+
+def sass_counts() -> dict:
+    """``sass_hot_loop`` of each all-pairs kernel in the built libraries
+    (``cuobjdump`` of the toolkit that built them)."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    paths = _build.build_all()
+    text = {lib: subprocess.run([cuobjdump, "-sass", str(paths[lib])],
+                                capture_output=True, text=True, check=True,
+                                timeout=120).stdout
+            for lib in ("bloom_matrix", "bloom_mxu")}
+    return {rec: sass_hot_loop(text["bloom_mxu" if "mxu" in sym else "bloom_matrix"], sym)
+            for rec, sym in _SASS_KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +334,91 @@ def check_kernels(dev) -> dict:
             err["one_vs_many_i32"],
             compare_ovm(f"i32 N={N} m={m}", out, q, peers, None))
     print("[kernels] one_vs_many i32: identical, fp within tolerance")
+    return err
+
+
+# bases of packed all-pairs rows: mostly one window, some a few steps off,
+# some more than 256 off (the clipped delta decides), some at both ends
+# of the int32 range (the delta is a wrap-subtraction)
+_PAIR_BASES = np.array([5000] * 12 + [5001, 5003, 4800, 5300,
+                                      -2 ** 31, 2 ** 31 - 100], np.int64)
+
+
+def pair_inputs(g, n: int, m: int):
+    """[n, m] u8 residuals around one window row (equal, ancestor,
+    descendant, forked and unrelated rows) and [n] int32 bases."""
+    local = g.integers(2, 200, m)
+    kind = np.arange(n) % 5
+    step = g.integers(-1, 2, (n, m)) * (g.random((n, m)) < 0.02)
+    rows = np.repeat(local[None], n, axis=0)
+    rows[kind == 1] += np.abs(step[kind == 1])
+    rows[kind == 2] -= np.abs(step[kind == 2])
+    rows[kind == 3] += step[kind == 3]
+    rows[kind == 4] = g.integers(0, 256, ((kind == 4).sum(), m))
+    base = g.choice(_PAIR_BASES, n)
+    return rows.astype(np.uint8), base.astype(np.int32)
+
+
+def check_pair_kernels(dev) -> dict:
+    """The four all-pairs kernels against their plain versions, at the
+    slice's 16,384 x 1024 and at a ragged shape; returns name -> largest
+    absolute fp error (flags, sums and violation counts must be
+    identical)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = np.random.default_rng(SEED + 4)
+    err = dict.fromkeys(("matrix_tri", "matrix_rect_u8", "matrix_rect_i32",
+                         "matrix_mxu"), 0.0)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    for N, Mc, m in ((N_SLOTS, N_SLOTS, M), (1000, 777, 640)):
+        rows, rb = (t(x) for x in pair_inputs(g, N, m))
+        cols, cb = (t(x) for x in pair_inputs(g, Mc, m))
+        k = min(N, Mc) // 2
+        cols[:k], cb[:k] = rows[:k], rb[:k]
+        what = f"N={N} M={Mc} m={m}"
+        for with_base in (True, False):
+            got = ops.rect_u8_flags(rows, cols, rb, cb, with_base=with_base)
+            want = ref.rect_u8_flags_ref(rows, cols,
+                                         *((rb, cb) if with_base else ()))
+            torch.cuda.synchronize()
+            for x, y, f in zip(got, want, ("le", "ge")):
+                check(torch.equal(x, y), f"rect_u8 {f} {what}")
+            got = ops.tri_flags(rows, rb, with_base=with_base)
+            want = ref.tri_flags_ref(rows, rb if with_base else None)
+            torch.cuda.synchronize()
+            for x, y, f in zip(got, want, ("le", "ge")):
+                check(torch.equal(x, y), f"tri {f} N={N} m={m}")
+            del got, want
+        # int32 logical rows: the far bases put rows across the wrap point
+        rows32 = rows.to(torch.int32) + rb[:, None]
+        cols32 = cols.to(torch.int32) + cb[:, None]
+        col_sums = ref.wrap_sum_i32(cols32).to(torch.float32)
+        le, ge, sums, fp = ops.rect_i32_stats(rows32, cols32, col_sums)
+        w_le, w_ge, w_sums, w_fp = ref.rect_i32_stats_ref(
+            rows32, cols32, col_sums, bm=ops.tile_width(m, 512))
+        torch.cuda.synchronize()
+        check(torch.equal(le, w_le) and torch.equal(ge, w_ge),
+              f"rect_i32 flags {what}")
+        check(torch.equal(sums, w_sums), f"rect_i32 row sums {what}")
+        check(bool(le.any()), f"rect_i32 {what}: no ordered pair")
+        err["matrix_rect_i32"] = max(err["matrix_rect_i32"],
+                                     check_fp(host(fp), host(w_fp), "rect_i32 fp"))
+        del le, ge, fp, w_le, w_ge, w_fp
+        # mxu: window-relative values in [0, T] around lo != 0
+        T, lo = (64, -123457) if N == N_SLOTS else (8, 77)
+        a, b = rows % (T - 4), cols % (T - 4)
+        ab = t(lo + g.integers(0, 4, N).astype(np.int32))
+        bb = t(lo + g.integers(0, 4, Mc).astype(np.int32))
+        got = ops.mxu_viol(a, b, ab, bb, lo=lo, n_thresholds=T)
+        want = ref.mxu_viol_ref(a, b, ab, bb, lo=lo, n_thresholds=T)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"mxu T={T} lo={lo} {what}")
+        check(bool((got == 0).any()) and bool((got > 0).any()),
+              f"mxu {what}: counts all zero or none zero")
+        del got, want
+    print("[kernels] tri, rect_u8, rect_i32, mxu: identical to their plain "
+          "versions, fp within tolerance")
     return err
 
 
@@ -404,19 +591,204 @@ def sim_check() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 5: the all-pairs path
 # ---------------------------------------------------------------------------
 
-def call_ms(fn, n_buf: int, iters: int = 50, warmup: int = 5) -> float:
-    """Mean ms per call of ``fn(i)`` on the card's clock (CUDA events
-    around ``iters`` calls, cycling ``n_buf`` input buffers, after a
-    warm-up): the cost to a caller, host gaps between kernels included."""
+def pairs_registry(device: str, n_slots: int, observer=None):
+    """A registry of ``n_slots`` peers from ``make_peers`` around a ticked
+    local clock (8 promoted rows), with ~1% of the slots evicted."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.core import clock as bc
+    from repro_torch.fleet import ClockRegistry
+    from repro_torch.runtime import ClockConfig, ClockRuntime
+
+    rt = ClockRuntime(ClockConfig(m=M, k=K), device=device)
+    for s in range(256):
+        rt.tick_step(s)
+    rows = make_peers(host(rt.clock.logical_cells()), n_slots, SEED + 3)
+    zero = torch.zeros((), dtype=torch.int32)
+    reg = ClockRegistry(n_slots, M, K, policy=CausalPolicy(observer=observer),
+                        device=device)
+    for lo in range(0, n_slots, BATCH):
+        reg.admit_many({f"p{i}": bc.BloomClock(torch.from_numpy(rows[i]), zero, K)
+                        for i in range(lo, min(lo + BATCH, n_slots))})
+    reg.evict_many([f"p{i}" for i in range(50, n_slots, 100)])
+    return reg
+
+
+def health_record(h) -> dict:
+    return {"n_alive": h.n_alive, "n_components": h.n_components,
+            "comparable_fraction": h.comparable_fraction,
+            "stragglers": int(h.straggler_mask.sum()),
+            "mean_strict_fp": h.mean_strict_fp, "fp_hist": h.fp_hist.tolist()}
+
+
+def drive_health(dev) -> dict:
+    """``fleet_health`` over the 16,384-slot registry on the card: the
+    launch counts of that one call, its wall time and spans, the same
+    all-pairs call timed alone (synchronised) and its transfer, then one
+    more call under the profiler for device time and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fleet import fleet_health
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observer, Tracer
+
+    tracer = Tracer()
+    reg = pairs_registry("cuda", N_SLOTS, Observer(trace=tracer))
+    check(len(reg._wide) == 8, f"{len(reg._wide)} promoted rows, expected 8")
+    n_ev = len(tracer.events())
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    health = fleet_health(reg)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    spans = {}
+    for ev in tracer.events()[n_ev:]:
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur_us"] / 1e3
+    for name in HEALTH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by fleet_health")
+    check(health.n_alive == N_SLOTS - len(range(50, N_SLOTS, 100)),
+          "fleet_health alive count")
+    check(health.fp_hist.sum() > 0, "fleet_health fp profile is empty")
+
+    t0 = time.perf_counter()
+    res = reg.all_pairs()
+    torch.cuda.synchronize()
+    all_pairs_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    res.to_host()
+    to_host_ms = (time.perf_counter() - t0) * 1e3
+    engine = res.engine
+    del res
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet_health(reg)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    copy_ms = sum(ms for k, ms in device if k.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(ms for _, ms in device) - copy_ms
+    top = sorted(device, key=lambda kv: -kv[1])[:6]
+    return {"launches": launches, "engine": engine, "wall_ms": wall_ms,
+            "spans_ms": spans, "all_pairs_ms": all_pairs_ms,
+            "to_host_ms": to_host_ms, "profiled_wall_ms": prof_wall_ms,
+            "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+            "idle_share": 1.0 - kernel_ms / prof_wall_ms,
+            "idle_share_with_copies": 1.0 - (kernel_ms + copy_ms) / prof_wall_ms,
+            "top_device_ms": [[k[:60], ms] for k, ms in top],
+            "health": health_record(health)}
+
+
+def narrow_rows(n: int) -> np.ndarray:
+    """[n, M] int32 logical rows whose global value span is <= 64 (the
+    mxu engine's window): equal, ancestor, descendant, forked and
+    unrelated rows around one clock, offset from 0.  Row sums stay below
+    2^24, where float32 is exact, so the packed engines' full-row sums
+    and the int32 kernel's tile-ordered sums are identical."""
+    g = np.random.default_rng(SEED + 5)
+    local = g.integers(2, 60, M)
+    kind = np.arange(n) % 5
+    step = g.integers(-1, 2, (n, M)) * (g.random((n, M)) < 0.01)
+    rows = np.repeat(local[None], n, axis=0)
+    rows[kind == 1] += np.abs(step[kind == 1])
+    rows[kind == 2] -= np.abs(step[kind == 2])
+    rows[kind == 3] += step[kind == 3]
+    rows[kind == 4] = g.integers(0, 62, ((kind == 4).sum(), M))
+    return (rows + 7000).astype(np.int32)
+
+
+def engines_check(dev) -> dict:
+    """``CausalEngine.pairs`` with the tri, full and mxu engines on a fully
+    alive 16,384 slab of span <= 64, and the i32 kernel (``pack=False``)
+    on its int32 rows: flags and row sums must be identical.  Returns
+    the launch counts of these four calls and the engines' wall ms."""
+    import torch
+    from repro_torch.causal import CausalEngine, CausalPolicy, PackedSlab
+    from repro_torch.kernels import ops, pack
+
+    rows = torch.as_tensor(narrow_rows(N_SLOTS), device=dev)
+    u8, base, ok = pack.pack_rows(rows)
+    check(bool(ok.all()), "narrow rows must pack")
+    slab = PackedSlab(u8, base, base_host=host(base).astype(np.int64))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got, times = {}, {}
+    for name, pol, arg in (("tri", CausalPolicy(engine="tri"), slab),
+                           ("full", CausalPolicy(engine="full"), slab),
+                           ("mxu", CausalPolicy(engine="mxu"), slab),
+                           ("i32", CausalPolicy(pack=False), rows)):
+        t0 = time.perf_counter()
+        res = CausalEngine(pol).pairs(arg)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        check(res.engine == name, f"pairs asked for {name}, ran {res.engine}")
+        got[name] = (res.le, res.ge, res.row_sums)
+        del res
+    launches = dict(ops.LAUNCHES)
+    for name in ENGINE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by pairs")
+    le, ge, sums = got["tri"]
+    check(bool(le.any()) and not bool(le.all()), "tri flags degenerate")
+    for name, (le2, ge2, sums2) in got.items():
+        check(torch.equal(le, le2) and torch.equal(ge, ge2),
+              f"pairs flags: {name} differs from tri")
+        check(torch.equal(sums, sums2), f"pairs row sums: {name} differs from tri")
+    return {"launches": launches, "ms": times,
+            "ordered_fraction": float((le | ge).float().mean())}
+
+
+def health_cpu_check() -> dict:
+    """``fleet_health`` at 2,048 slots on the card and on the CPU."""
+    from repro_torch.fleet import fleet_health
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        reg = pairs_registry(device, N_SLOTS_CPU)
+        t0 = time.perf_counter()
+        health = fleet_health(reg)
+        ms = (time.perf_counter() - t0) * 1e3
+        out[device] = (health, reg.all_pairs().to_host(), ms)
+    (gh, gp, gms), (ch, cp, cms) = out["cuda"], out["cpu"]
+    check(gp.engine == cp.engine, f"engine {gp.engine} vs {cp.engine}")
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
+        check_equal(gp[key], cp[key], f"all_pairs {key} at {N_SLOTS_CPU}")
+    check_fp(gp.fp, cp.fp, f"all_pairs fp at {N_SLOTS_CPU}")
+    check_equal(gh.component, ch.component, "fork component labels")
+    check(gh.n_components == ch.n_components, "n_components")
+    check_equal(gh.straggler_mask, ch.straggler_mask, "straggler mask")
+    check_equal(gh.sums, ch.sums, "health sums")
+    check(gh.comparable_fraction == ch.comparable_fraction, "comparable fraction")
+    check_fp([gh.mean_strict_fp], [ch.mean_strict_fp], "mean strict fp")
+    return {"cuda_ms": gms, "cpu_ms": cms, "engine": gp.engine,
+            "health": health_record(gh)}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times
+# ---------------------------------------------------------------------------
+
+def events_ms(fn, n_buf: int, *, queued: bool, iters: int = 50,
+              warmup: int = 5) -> float:
+    """Mean ms per call of ``fn(i)`` on the card's clock: CUDA events
+    around ``iters`` calls cycling ``n_buf`` input buffers, after a
+    warm-up.  ``queued`` puts a sleep kernel ahead of the loop, so the
+    host has queued every call before the card reaches the first and the
+    time is the card's alone; without it, host gaps between calls count
+    (the cost to a caller)."""
     import torch
     for i in range(warmup):
         fn(i % n_buf)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for i in range(iters):
         fn(i % n_buf)
@@ -425,34 +797,12 @@ def call_ms(fn, n_buf: int, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n_buf: int, kernel: str | None = None,
-              iters: int = 20) -> float | None:
-    """Mean device ms per call of ``fn(i)`` from ``torch.profiler``: the
-    summed time of the CUDA kernels whose name contains ``kernel`` (all
-    of the call's kernels when None).  None when the profiler recorded
-    no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_buf)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (kernel is None or kernel in e.key))
-    return us / iters / 1e3 if us > 0 else None
-
-
-def measure(fn, n_buf: int, kernel: str | None = None,
-            iters: int = 50) -> dict:
-    """Device time (profiler; CUDA events when the profiler sees no
-    device time) and call time (CUDA events) of one function."""
-    call = call_ms(fn, n_buf, iters=iters)
-    dev = device_ms(fn, n_buf, kernel, iters=min(iters, 20))
-    return {"ms": dev if dev is not None else call, "call_ms": call,
-            "method": "profiler" if dev is not None else "cuda-events"}
+def measure(fn, n_buf: int, iters: int = 50, warmup: int = 5) -> dict:
+    """Device ms (queued) and call ms (not queued) of one function: the
+    one rule for kernels, plain versions and library calls alike."""
+    return {"ms": events_ms(fn, n_buf, queued=True, iters=iters, warmup=warmup),
+            "call_ms": events_ms(fn, n_buf, queued=False, iters=iters,
+                                 warmup=0)}
 
 
 def n_buffers(nbytes: float) -> int:
@@ -472,13 +822,12 @@ def time_kernels(dev, n_wide: int) -> dict:
     bm = ops.tile_width(M, 512)
     rec = {}
 
-    def entry(kernel_fn, kernel_name, plain_fn, nb, nbytes, n_ops,
-              library_fn=None, **extra):
-        k = measure(kernel_fn, nb, kernel_name)
+    def entry(kernel_fn, plain_fn, nb, nbytes, n_ops, library_fn=None, **extra):
+        k = measure(kernel_fn, nb)
         p = measure(plain_fn, nb, iters=10)
         lib = measure(library_fn, nb) if library_fn is not None else None
-        return dict(ms=k["ms"], call_ms=k["call_ms"], method=k["method"],
-                    plain_ms=p["ms"], plain_call_ms=p["call_ms"],
+        return dict(ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"],
+                    plain_call_ms=p["call_ms"],
                     library_ms=lib["ms"] if lib else None,
                     bytes=nbytes, ops=n_ops, **extra)
 
@@ -494,7 +843,7 @@ def time_kernels(dev, n_wide: int) -> dict:
     probes64 = [p.to(torch.int64) for p in probes]
     ones = torch.ones((B, P), dtype=torch.int32, device=dev)
     rec["bloom_tick"] = entry(
-        lambda i: ops.tick_probes(cells[i], probes[i]), "bloom_tick_kernel",
+        lambda i: ops.tick_probes(cells[i], probes[i]),
         lambda i: ref.bloom_tick_ref(cells[i], probes[i]), nb, nbytes,
         B * M + B * P,
         library_fn=lambda i: cells[i].scatter_add_(1, probes64[i], ones))
@@ -508,7 +857,7 @@ def time_kernels(dev, n_wide: int) -> dict:
            torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev))
           for _ in range(nb)]
     rec["bloom_merge_compare"] = entry(
-        lambda i: ops.merge_compare(*ab[i]), "bloom_compare_kernel",
+        lambda i: ops.merge_compare(*ab[i]),
         lambda i: ref.bloom_merge_compare_ref(*ab[i], bm=bm), nb, nbytes,
         B * M * 5)
     del ab
@@ -523,7 +872,6 @@ def time_kernels(dev, n_wide: int) -> dict:
              for _ in range(nb)]
     rec["one_vs_many_packed"] = entry(
         lambda i: ops._classify_vs_many_packed(q, *slabs[i]),
-        "one_vs_many_kernel<unsigned char",
         lambda i: ref.one_vs_many_ref(q, *slabs[i], bm=bm), nb, nbytes,
         N * M * 5)
     del slabs
@@ -534,9 +882,85 @@ def time_kernels(dev, n_wide: int) -> dict:
     nbytes = N * M * 4 + M * 4 + N * 2 * 4 * 3
     rows = torch.as_tensor(g.integers(0, 400, (N, M)), dtype=torch.int32, device=dev)
     rec["one_vs_many_i32"] = entry(
-        lambda i: ops._classify_vs_many(q, rows), "one_vs_many_kernel<int",
+        lambda i: ops._classify_vs_many(q, rows),
         lambda i: ref.one_vs_many_ref(q, rows, bm=bm), 1, nbytes, N * M * 4,
         rows=N)
+    return rec
+
+
+def time_pair_kernels(dev, sass: dict) -> dict:
+    """The all-pairs kernels at the slice's N = M = 16,384, m = 1024: device
+    time, the plain version's, and for mxu a bf16 tensor-core product of
+    the thermometer-encoded operands with float32 output (the TPU
+    kernel's formulation, computing the same counts), with the bytes and
+    instructions each function needs: per (pair, lane) the lower of
+    ``MIN_OPS`` and the built kernel's hot loop (``sass``), and for mxu
+    the tensor-core formulation's operations beside them."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = np.random.default_rng(SEED + 6)
+    N, m = N_SLOTS, M
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    slabs = [tuple(t(x) for x in pair_inputs(g, N, m)) for _ in range(2)]
+    rec = {}
+
+    def entry(name, kernel_fn, plain_fn, nbytes, lane_pairs, extra_ops=0,
+              library_fn=None, tensor_ops=None):
+        k = measure(kernel_fn, 2, iters=5, warmup=1)
+        p = measure(plain_fn, 2, iters=2, warmup=1)
+        lib = (measure(library_fn, 1, iters=3, warmup=1)
+               if library_fn is not None else None)
+        per_pair = min(sass[name]["alu"], MIN_OPS[name])
+        rec[name] = dict(ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"],
+                         plain_call_ms=p["call_ms"],
+                         library_ms=lib["ms"] if lib else None, bytes=nbytes,
+                         ops=lane_pairs * per_pair + extra_ops,
+                         ops_per_pair=per_pair, tensor_ops=tensor_ops)
+
+    flags = 2 * N * N
+    entry("matrix_tri", lambda i: ops.tri_flags(*slabs[i]),
+          lambda i: ref.tri_flags_ref(*slabs[i]), N * m + N * 4 + flags,
+          N * (N + 1) // 2 * m)
+    entry("matrix_rect_u8",
+          lambda i: ops.rect_u8_flags(slabs[i][0], slabs[1 - i][0], slabs[i][1],
+                                      slabs[1 - i][1]),
+          lambda i: ref.rect_u8_flags_ref(slabs[i][0], slabs[1 - i][0],
+                                          slabs[i][1], slabs[1 - i][1]),
+          2 * N * m + 2 * N * 4 + flags, N * N * m)
+    i32 = [c.to(torch.int32) + b[:, None] for c, b in slabs]
+    sums = [ref.wrap_sum_i32(x).to(torch.float32) for x in i32]
+    bm = ops.tile_width(m, 512)
+    entry("matrix_rect_i32",
+          lambda i: ops.rect_i32_stats(i32[i], i32[1 - i], sums[1 - i]),
+          lambda i: ref.rect_i32_stats_ref(i32[i], i32[1 - i], sums[1 - i], bm=bm),
+          2 * N * m * 4 + N * 4 + flags + N * 4 + N * N * 4, N * N * m,
+          extra_ops=N * m)
+    del i32, sums
+    T, lo = 64, -123457
+    win = [(c % (T - 4), t(lo + g.integers(0, 4, N).astype(np.int32)))
+           for c, _ in slabs]
+    thr = torch.arange(1, T + 1, device=dev, dtype=torch.int32)
+    vals = [(c.to(torch.int32) + (b - lo)[:, None]) for c, b in win]
+    enc_a = (vals[0][:, :, None] >= thr).reshape(N, -1).to(torch.bfloat16)
+    enc_b = (vals[1][:, :, None] < thr).reshape(N, -1).to(torch.bfloat16)
+    del vals
+    viol = ops.mxu_viol(win[0][0], win[1][0], win[0][1], win[1][1], lo=lo,
+                        n_thresholds=T)
+    lib = torch.mm(enc_a, enc_b.T, out_dtype=torch.float32)
+    check(torch.equal(lib, viol), "mxu: the thermometer product's counts "
+          "differ from the kernel's")
+    del lib, viol
+    # the TPU kernel's formulation on int8 tensor cores: one multiply-add
+    # per pair, lane and threshold
+    entry("matrix_mxu",
+          lambda i: ops.mxu_viol(win[i][0], win[1 - i][0], win[i][1],
+                                 win[1 - i][1], lo=lo, n_thresholds=T),
+          lambda i: ref.mxu_viol_ref(win[i][0], win[1 - i][0], win[i][1],
+                                     win[1 - i][1], lo=lo, n_thresholds=T),
+          2 * N * m + 2 * N * 4 + N * N * 4, N * N * m,
+          library_fn=lambda i: torch.mm(enc_a, enc_b.T, out_dtype=torch.float32),
+          tensor_ops=2 * N * N * m * T)
     return rec
 
 
@@ -549,6 +973,14 @@ _SOURCES = {
                            "src/repro/kernels/template.py:578"),
     "one_vs_many_i32": ("src/repro_torch/kernels/csrc/one_vs_many.cu",
                         "src/repro/kernels/template.py:578"),
+    "matrix_tri": ("src/repro_torch/kernels/csrc/bloom_matrix.cu",
+                   "src/repro/kernels/template.py:316"),
+    "matrix_rect_u8": ("src/repro_torch/kernels/csrc/bloom_matrix.cu",
+                       "src/repro/kernels/template.py:375"),
+    "matrix_rect_i32": ("src/repro_torch/kernels/csrc/bloom_matrix.cu",
+                        "src/repro/kernels/template.py:425"),
+    "matrix_mxu": ("src/repro_torch/kernels/csrc/bloom_mxu.cu",
+                   "src/repro/kernels/template.py:506"),
 }
 
 
@@ -578,12 +1010,17 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
 
     print(f"[build] all kernels built in {build():.1f} s")
+    sass = sass_counts()
+    for kname, c in sass.items():
+        print(f"[sass] {kname}: hot loop, instructions per (pair, lane): "
+              f"{json.dumps(c)}")
 
     errs = check_kernels(dev)
+    errs.update(check_pair_kernels(dev))
 
     ops.reset_launches()
     gpu = drive("cuda")
-    launches = dict(ops.LAUNCHES)
+    launches = {k: ops.LAUNCHES[k] for k in MAIN_KERNELS}
     print(f"[main] launches on the main path: {json.dumps(launches)}")
     for kname, n in launches.items():
         check(n > 0, f"kernel {kname} was not launched on the main path")
@@ -601,12 +1038,30 @@ def main() -> int:
           f"{json.dumps(profile_round(gpu['rt'], gpu['reg']))}")
     del gpu["rt"], gpu["reg"], cpu
 
+    health = drive_health(dev)
+    print(f"[pairs] fleet_health at {N_SLOTS} slots on the card: "
+          f"{json.dumps(health)}")
+    engines = engines_check(dev)
+    print(f"[pairs] tri, full, mxu and i32 engines at {N_SLOTS} slots: "
+          f"identical flags and row sums: {json.dumps(engines)}")
+    small = health_cpu_check()
+    print(f"[pairs] fleet_health at {N_SLOTS_CPU} slots: card and CPU agree "
+          f"(flags, sums, components, stragglers; fp within tolerance): "
+          f"{json.dumps(small)}")
+    launches.update({k: health["launches"][k] for k in HEALTH_KERNELS})
+    launches.update({k: engines["launches"][k] for k in ENGINE_KERNELS
+                     if k not in HEALTH_KERNELS})
+
     rate = hbm_rate(name)
     timed = time_kernels(dev, gpu["n_wide"])
+    timed.update(time_pair_kernels(dev, sass))
     records = []
     for kname, t in timed.items():
         t_bytes = t["bytes"] / rate * 1e3
-        t_ops = t["ops"] / INT32_OPS * 1e3
+        t_ops = t["ops"] / INT_OPS * 1e3
+        ops_by = "issue"
+        if t.get("tensor_ops") and t["tensor_ops"] / INT8_OPS * 1e3 < t_ops:
+            t_ops, ops_by = t["tensor_ops"] / INT8_OPS * 1e3, "int8 tensor cores"
         src, replaces = _SOURCES[kname]
         records.append({
             "name": kname, "route": "cuda", "source": src,
@@ -615,15 +1070,22 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"]})
-        print(f"[time] {kname}: kernel {t['ms']} ms ({t['method']}; "
-              f"wrapper call {t['call_ms']} ms), plain {t['plain_ms']} ms "
-              f"(call {t['plain_call_ms']} ms), library {t['library_ms']} ms, "
-              f"{t['bytes']} bytes, bound {max(t_bytes, t_ops)} ms "
-              f"(bytes {t_bytes}, ops {t_ops}) at {rate / 1e12} TB/s"
+        print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
+              f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
+              f"{t['plain_call_ms']} ms), library {t['library_ms']} ms, "
+              f"{t['bytes']} bytes, {t['ops']} ops"
+              + (f" ({t['ops_per_pair']} per pair and lane)"
+                 if "ops_per_pair" in t else "")
+              + f", bound {max(t_bytes, t_ops)} ms (bytes {t_bytes} at "
+              f"{rate / 1e12} TB/s, ops {t_ops} at the {ops_by} rate)"
+              + (f", tensor-core ops {t['tensor_ops']}" if t.get("tensor_ops") else "")
               + (f", rows={t['rows']}" if "rows" in t else ""))
     print(f"[time] classify_all {gpu['times']['classify_all_ms']} ms, "
           f"gossip rounds {gpu['times']['gossip_round_ms']} ms (end to end, "
-          f"65,536 peers)")
+          f"65,536 peers); fleet_health {health['wall_ms']} ms ({N_SLOTS} "
+          f"slots: all_pairs {health['all_pairs_ms']} ms, transfer "
+          f"{health['to_host_ms']} ms, host "
+          f"{health['spans_ms'].get('fleet.health.host')} ms)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

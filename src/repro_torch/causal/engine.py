@@ -2,24 +2,34 @@
 
     engine = CausalEngine(CausalPolicy(...))
     engine.classify(query, peers)   # one-vs-many -> ClassifyResult
+    engine.pairs(clocks)            # all-pairs   -> ComparisonMatrix
     causal.compare(a, b)            # pairwise    -> Comparison
 
 ``classify`` takes a ``PackedSlab`` (the registry's u8 residual + int32
 base layout; promoted rows are overlaid through the exact int32 kernel)
 or an ``[N, m]`` int32 slab / batched ``BloomClock`` (int32 kernel).
-The all-pairs verb, the hybrid hot-set branch and the sharded branch of
-the reference are not ported yet.
+``pairs`` takes the same inputs: a slab is compared symmetrically, with
+dead slots compacted away and promoted rows patched in through the
+exact int32 rim; an int32 slab is packed on the fly when its value span
+fits a byte.  The hybrid hot-set branch and the sharded paths of the
+reference are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
 from repro_torch.causal.policy import CausalPolicy
-from repro_torch.causal.results import ClassifyResult, Comparison
+from repro_torch.causal.results import (
+    ClassifyResult,
+    Comparison,
+    ComparisonMatrix,
+)
 from repro_torch.core import clock as bc
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, pack
 from repro_torch.obs.observer import resolve
 
 __all__ = ["CausalEngine", "PackedSlab", "compare"]
@@ -39,16 +49,27 @@ class PackedSlab:
 
     u8 window residuals plus a per-slot int32 base.  ``wide`` maps a
     promoted slot (span beyond a byte, or a near-wrap base) to its host
-    int32 logical row; those rows are re-classified exactly.
+    int32 logical row; those rows are compared exactly.  ``base_host``
+    (optional) lets ``pairs`` probe base uniformity without a device
+    sync.
     """
 
     cells_u8: torch.Tensor                    # [N, m] uint8 residuals
     base: torch.Tensor                        # [N] int32 offsets
+    base_host: Optional[np.ndarray] = None    # host copy of ``base``
     wide: dict = dataclasses.field(default_factory=dict)
 
     @property
     def capacity(self) -> int:
         return self.cells_u8.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.cells_u8.shape[1]
+
+    @property
+    def packed(self) -> bool:
+        return not self.wide
 
 
 def _dispatch_label(fallback: str) -> tuple[str, tuple | None]:
@@ -116,3 +137,216 @@ class CausalEngine:
         kw = {k: v for k, v in (("bn", bn), ("bm", bm)) if v is not None}
         out = ops._classify_vs_many(q, cells, **kw)
         return ClassifyResult.from_dict(out, engine="i32")
+
+    # ------------------------------------------------------------------
+    # verb 2: all-pairs compare
+    # ------------------------------------------------------------------
+    def pairs(self, clocks, cols=None, *, alive: np.ndarray | None = None,
+              engine: str | None = None, bi: int | None = None,
+              bj: int | None = None, bm: int | None = None,
+              uniform_base: bool | None = None) -> ComparisonMatrix:
+        """All-pairs partial order + Eq. 3 fp over a batch of clocks.
+
+        ``clocks``: a ``PackedSlab`` (symmetric; ``alive`` masks slots,
+        promoted rows go through the exact int32 rim) or an ``[N, m]``
+        int32 slab / batched ``BloomClock``, optionally against a second
+        ``cols`` slab, packed on the fly when the value span fits a byte
+        and compared by the int32 kernel otherwise.
+
+        ``alive``: host bool mask over slab slots; dead slots cost no
+        compute and report all-False flags, zero fp and zero sums.
+        """
+        obs = self.obs
+        kw = dict(alive=alive, engine=engine, bi=bi, bj=bj, bm=bm,
+                  uniform_base=uniform_base)
+        if not obs:
+            return self._pairs(clocks, cols, **kw)
+        packed = isinstance(clocks, PackedSlab)
+        with obs.trace.span("causal.pairs",
+                            pack="slab" if packed else "i32") as sp:
+            res = self._pairs(clocks, cols, **kw)
+            sp.set(engine=res.engine, n=int(res.le.shape[0]),
+                   blocks=dict(res.blocks) if res.blocks else None)
+            obs.metrics.counter("engine_dispatch", verb="pairs",
+                                engine=res.engine).inc()
+        return res
+
+    def _pairs(self, clocks, cols=None, *, alive=None, engine=None, bi=None,
+               bj=None, bm=None, uniform_base=None) -> ComparisonMatrix:
+        pol = self.policy
+        engine = engine if engine is not None else pol.engine
+        bi = bi if bi is not None else pol.bi
+        bj = bj if bj is not None else pol.bj
+        bm = bm if bm is not None else pol.bm
+        ops.LAST_DISPATCH.clear()
+        if isinstance(clocks, PackedSlab):
+            if getattr(clocks, "hot_meta", None) is not None:
+                raise ValueError(
+                    "hot-carrying slabs are classify-only here; the fused "
+                    "hybrid all-pairs sweep (HybridEngine.pairs) is not "
+                    "ported yet")
+            if cols is not None:
+                raise ValueError(
+                    "PackedSlab pairs are symmetric; cols is not supported")
+            return self._pairs_slab(clocks, alive, engine, bi, bj, bm,
+                                    uniform_base)
+        if alive is not None:
+            raise ValueError("alive masking needs a PackedSlab input")
+        rows = _as_cells(clocks)
+        if engine is None and not pol.pack:
+            engine = "i32"
+        cols_c = rows if cols is None else _as_cells(cols).to(rows.device)
+        out = ops._compare_matrix(rows, cols_c, engine=engine, bi=bi, bj=bj,
+                                  bm=bm)
+        eng, blocks = _dispatch_label(engine or "auto")
+        return ComparisonMatrix.from_dict(out, engine=eng, blocks=blocks)
+
+    # ---- packed-slab assembly (compaction, promoted rims, masking) ----
+    def _pairs_slab(self, slab: PackedSlab, alive, engine, bi, bj, bm,
+                    uniform_base) -> ComparisonMatrix:
+        cap = slab.capacity
+        dev = slab.cells_u8.device
+        alive = (np.ones(cap, bool) if alive is None
+                 else np.asarray(alive, bool))
+        aidx = np.flatnonzero(alive)
+        kw = dict(engine=engine, bi=bi, bj=bj, bm=bm)
+        if aidx.size == 0:
+            false = torch.zeros((cap, cap), dtype=torch.bool, device=dev)
+            zeros = torch.zeros((cap,), dtype=torch.float32, device=dev)
+            return ComparisonMatrix(
+                le=false, ge=false, conc=false,
+                fp=torch.zeros((cap, cap), dtype=torch.float32, device=dev),
+                row_sums=zeros, col_sums=zeros, engine="empty")
+        if uniform_base is None:
+            uniform_base = self._uniform_base(slab, alive)
+        if aidx.size == cap and slab.packed:
+            out = ops._compare_matrix_packed(slab.cells_u8, slab.base,
+                                             uniform_base=uniform_base, **kw)
+            eng, blocks = _dispatch_label("tri")
+            return ComparisonMatrix.from_dict(out, engine=eng, blocks=blocks)
+        if slab.packed:
+            # gather the alive rows into a dense sub-slab: dead slots
+            # cost no compute, results scatter back to full capacity
+            jidx = torch.as_tensor(aidx, device=dev)
+            sub = ops._compare_matrix_packed(
+                slab.cells_u8.index_select(0, jidx),
+                slab.base.index_select(0, jidx),
+                uniform_base=uniform_base, **kw)
+            eng, blocks = _dispatch_label("tri")
+            return ComparisonMatrix.from_dict(
+                _expand_alive(sub, jidx, cap), engine=eng, blocks=blocks)
+        return self._host_pairs(slab, alive, aidx, **kw)
+
+    @staticmethod
+    def _uniform_base(slab: PackedSlab, alive: np.ndarray) -> bool | None:
+        """Host-side base-uniformity probe over the alive rows; None
+        (a device probe in ``ops``) when no host base copy is carried."""
+        if slab.base_host is None:
+            return None
+        b = np.asarray(slab.base_host)[alive]
+        return bool(b.size == 0 or (b == b[0]).all())
+
+    @staticmethod
+    def _alive_widx(slab: PackedSlab, aidx: np.ndarray) -> np.ndarray:
+        """Promoted slots restricted to the given alive index set."""
+        keep = set(int(s) for s in aidx)
+        return np.asarray(sorted(s for s in slab.wide if s in keep), np.int64)
+
+    def _wide_rim(self, slab: PackedSlab, aidx: np.ndarray,
+                  widx: np.ndarray, **kw) -> dict:
+        """Exact int32 compare of the promoted rows against every alive
+        row ([P, A]).  Unpacks only the gathered alive rows and patches
+        the promoted rows' true values over their clipped residuals.  A
+        promoted row's span exceeds a byte by definition, so the int32
+        engine is named outright; block shapes carry over."""
+        dev = slab.cells_u8.device
+        rim_kw = {k: v for k, v in kw.items() if k in ("bi", "bj", "bm")}
+        wide_rows = torch.as_tensor(
+            np.stack([slab.wide[int(s)] for s in widx]), device=dev)
+        jaidx = torch.as_tensor(aidx, device=dev)
+        alive_i32 = pack.unpack_rows(slab.cells_u8.index_select(0, jaidx),
+                                     slab.base.index_select(0, jaidx))
+        wpos = {int(s): i for i, s in enumerate(aidx)}
+        alive_i32[torch.as_tensor([wpos[int(s)] for s in widx],
+                                  device=dev)] = wide_rows
+        return ops._compare_matrix(wide_rows, alive_i32, engine="i32",
+                                   **rim_kw)
+
+    def _host_pairs(self, slab: PackedSlab, alive: np.ndarray,
+                    aidx: np.ndarray, **kw) -> ComparisonMatrix:
+        """Sparse promoted-row assembly: the packed engines over the
+        still-packed alive rows plus the exact int32 rim for the promoted
+        handful, stitched together on the slab's device.  fp is
+        re-finalized from the corrected sums through the engines' Eq. 3
+        expression (``ops.eq3_outer``)."""
+        cap, m = slab.capacity, slab.m
+        dev = slab.cells_u8.device
+        widx = self._alive_widx(slab, aidx)
+        le = torch.zeros((cap, cap), dtype=torch.bool, device=dev)
+        ge = torch.zeros((cap, cap), dtype=torch.bool, device=dev)
+        sums = torch.zeros((cap,), dtype=torch.float32, device=dev)
+        pidx = np.asarray([s for s in aidx if s not in slab.wide], np.int64)
+        eng = "none"
+        if pidx.size:
+            uniform = None            # no host copy: ``ops`` probes
+            if slab.base_host is not None:
+                b = np.asarray(slab.base_host)[pidx]
+                uniform = bool((b == b[0]).all())
+            jp = torch.as_tensor(pidx, device=dev)
+            sub = ops._compare_matrix_packed(
+                slab.cells_u8.index_select(0, jp),
+                slab.base.index_select(0, jp), uniform_base=uniform, **kw)
+            eng, _ = _dispatch_label("tri")
+            _put_block(le, jp, jp, sub["a_le_b"])
+            _put_block(ge, jp, jp, sub["b_le_a"])
+            sums[jp] = sub["row_sums"]
+        if widx.size:
+            rim = self._wide_rim(slab, aidx, widx, **kw)
+            eng += "+wide_rim"
+            jw = torch.as_tensor(widx, device=dev)
+            ja = torch.as_tensor(aidx, device=dev)
+            _put_block(le, jw, ja, rim["a_le_b"])
+            _put_block(ge, jw, ja, rim["b_le_a"])
+            _put_block(le, ja, jw, rim["b_le_a"].T)
+            _put_block(ge, ja, jw, rim["a_le_b"].T)
+            sums[jw] = rim["row_sums"]
+        # only alive pairs were written: dead rows/cols stay False / 0
+        al = torch.as_tensor(alive, device=dev)
+        pair = al[:, None] & al[None, :]
+        conc = ~(le | ge) & pair
+        fp = torch.where(pair, ops.eq3_outer(sums, sums, m), 0.0)
+        return ComparisonMatrix(le=le, ge=ge, conc=conc, fp=fp,
+                                row_sums=sums, col_sums=sums, engine=eng)
+
+
+def _put_block(mat: torch.Tensor, ridx: torch.Tensor, cidx: torch.Tensor,
+               block: torch.Tensor) -> None:
+    """``mat[ridx][:, cidx] = block`` in place, by two index copies (no
+    [R, C] index tensors)."""
+    rows = mat.index_select(0, ridx)
+    rows.index_copy_(1, cidx, block.to(mat.dtype))
+    mat.index_copy_(0, ridx, rows)
+
+
+def _expand_alive(sub: dict, jidx: torch.Tensor, cap: int) -> dict:
+    """Scatter an alive-compacted result back to [capacity, capacity]:
+    dead rows/cols report all-False flags and zero fp / sums."""
+    dev = jidx.device
+
+    def mat(x, dtype):
+        out = torch.zeros((cap, cap), dtype=dtype, device=dev)
+        _put_block(out, jidx, jidx, x)
+        return out
+
+    def vec(x):
+        return torch.zeros((cap,), dtype=x.dtype, device=dev).index_copy_(
+            0, jidx, x)
+
+    return {
+        "a_le_b": mat(sub["a_le_b"], torch.bool),
+        "b_le_a": mat(sub["b_le_a"], torch.bool),
+        "concurrent": mat(sub["concurrent"], torch.bool),
+        "fp": mat(sub["fp"], torch.float32),
+        "row_sums": vec(sub["row_sums"]),
+        "col_sums": vec(sub["col_sums"]),
+    }

@@ -4,7 +4,8 @@ partial order plus an Eq. 3 false-positive rate.
 Plain dataclasses over tensors (or numpy arrays after ``to_host``);
 accessors never re-derive flags, so values stay those the kernels
 produced, and every consumer applies the Eq. 3 gate through
-``.confident(threshold)``.
+``.confident(threshold)``.  ``ComparisonMatrix`` also answers the
+reference's result-dict keys (``res["a_le_b"]``, ``.items()``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["Comparison", "ClassifyResult"]
+__all__ = ["Comparison", "ComparisonMatrix", "ClassifyResult"]
 
 
 def _where(cond, a, b):
@@ -58,6 +59,66 @@ class Comparison:
     def confident(self, threshold: float):
         """"A -> B" holds AND its Eq. 3 fp is within ``threshold``."""
         return self.a_le_b & (self.fp_ab <= threshold)
+
+
+@dataclasses.dataclass(frozen=True)
+class ComparisonMatrix:
+    """All-pairs comparison: [N, M] flag/fp matrices + per-row/col sums.
+
+    ``conc`` is carried, not derived: dead slots report all-False across
+    every flag kind, which ``~(le | ge)`` could not represent.
+    """
+
+    le: torch.Tensor           # bool[N, M]: row clock ≼ col clock
+    ge: torch.Tensor           # bool[N, M]
+    conc: torch.Tensor         # bool[N, M]: exact concurrency
+    fp: torch.Tensor           # float32[N, M]: Eq. 3 fp of "row -> col"
+    row_sums: torch.Tensor     # float32[N]
+    col_sums: torch.Tensor     # float32[M]
+    engine: Optional[str] = None      # dispatch metadata
+    blocks: Optional[tuple] = None    # resolved block shapes
+
+    # the reference's result-dict keys -> fields
+    _KEYS = {"a_le_b": "le", "b_le_a": "ge", "concurrent": "conc",
+             "fp": "fp", "row_sums": "row_sums", "col_sums": "col_sums"}
+
+    @classmethod
+    def from_dict(cls, d: dict, *, engine: str | None = None,
+                  blocks: tuple | None = None) -> "ComparisonMatrix":
+        return cls(**{f: d[k] for k, f in cls._KEYS.items()}, engine=engine,
+                   blocks=blocks)
+
+    def to_host(self) -> "ComparisonMatrix":
+        """The same result with numpy leaves (one transfer per leaf)."""
+        return dataclasses.replace(
+            self, **{f: _host(getattr(self, f)) for f in self._KEYS.values()})
+
+    def __getitem__(self, key):
+        if key not in self._KEYS:
+            raise KeyError(key)
+        return getattr(self, self._KEYS[key])
+
+    def keys(self):
+        return iter(self._KEYS)
+
+    def items(self):
+        return ((k, self[k]) for k in self._KEYS)
+
+    def before(self):
+        return self.le
+
+    def after(self):
+        return self.ge
+
+    def concurrent(self):
+        return self.conc
+
+    def equal(self):
+        return self.le & self.ge
+
+    def confident(self, threshold: float):
+        """"row -> col" claims whose Eq. 3 fp is within ``threshold``."""
+        return self.le & (self.fp <= threshold)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,6 +37,7 @@ __all__ = [
     "to_wire",
     "from_wire",
     "happened_before",
+    "comparability_matrix",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -205,3 +206,16 @@ def happened_before(a: BloomClock, b: BloomClock, threshold: float = 0.01):
     """Where "A -> B" holds with Eq. 3 fp within ``threshold``."""
     o = ordering(a, b)
     return o.a_le_b & (o.fp_a_before_b <= threshold)
+
+
+def comparability_matrix(clocks: BloomClock) -> dict:
+    """All-pairs comparison of a batch of clocks [n, m] by broadcasting:
+    [n, n] ``a_le_b``, ``concurrent`` and ``fp`` (of "row -> col").  The
+    O(n^2 * m) yardstick the tiled all-pairs engines are held against."""
+    a = BloomClock(cells=clocks.cells[:, None, :], base=clocks.base[:, None],
+                   k=clocks.k)
+    b = BloomClock(cells=clocks.cells[None, :, :], base=clocks.base[None, :],
+                   k=clocks.k)
+    o = ordering(a, b)
+    return {"a_le_b": o.a_le_b, "concurrent": o.concurrent,
+            "fp": o.fp_a_before_b}

@@ -1,10 +1,12 @@
 """Fleet causality subsystem: bulk bloom-clock tracking for whole fleets.
 
 - ``registry``  — fixed-capacity slab of peer clocks with batched
-  admit/evict/update and a one-kernel-call ``classify_all``;
+  admit/evict/update, a one-kernel-call ``classify_all`` and
+  ``all_pairs``;
 - ``gossip``    — anti-entropy round config/report + the loopback round;
 - ``transport`` — the session protocol over the loopback transport;
-- ``monitor``   — the Eq. 3 band check.
+- ``monitor``   — fleet health (fork components, stragglers, the fp
+  profile) from one all-pairs call, ``watch`` and the Eq. 3 band check.
 """
 from repro_torch.fleet.registry import (
     ANCESTOR,
@@ -18,6 +20,13 @@ from repro_torch.fleet.registry import (
     view_from_classify,
 )
 from repro_torch.fleet.gossip import GossipConfig, GossipReport, gossip_round
+from repro_torch.fleet.monitor import (
+    FleetHealth,
+    fleet_health,
+    fork_components,
+    record_health,
+    watch,
+)
 from repro_torch.fleet.transport import (
     LoopbackTransport,
     Transport,
@@ -40,4 +49,9 @@ __all__ = [
     "FORKED",
     "DEAD",
     "STATUS_NAMES",
+    "FleetHealth",
+    "fleet_health",
+    "fork_components",
+    "record_health",
+    "watch",
 ]

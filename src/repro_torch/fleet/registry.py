@@ -18,8 +18,8 @@ Slot assignment is host-side (a dict and a free list).  Status codes
 (``FleetView.status``): DEAD < 0; ANCESTOR: peer ≼ local; SAME;
 DESCENDANT: local ≼ peer; FORKED: concurrent (exact, paper §3).
 
-The all-pairs verb, the mesh-sharded slab and the eviction hook of the
-reference are not ported yet.
+The mesh-sharded slab and the eviction hook of the reference are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -207,7 +207,8 @@ class ClockRegistry:
         return self._mat
 
     def _slab(self) -> PackedSlab:
-        return PackedSlab(self.cells_u8, self.base, wide=self._wide)
+        return PackedSlab(self.cells_u8, self.base, base_host=self._base_host,
+                          wide=self._wide)
 
     # ---- batched mutation ----
     def admit_many(self, peers: dict) -> dict:
@@ -354,6 +355,17 @@ class ClockRegistry:
         """
         res = self.engine.classify(local, self._slab()).to_host()
         return view_from_classify(res, self._alive_host, self.capacity)
+
+    def all_pairs(self, **kw):
+        """Tiled all-pairs compare -> ``causal.ComparisonMatrix``; dead
+        slots report all-False flags and ``fp = row_sums = 0``.
+
+        One ``engine.pairs`` call over the packed slab: dead slots are
+        compacted away (they cost no compute) and promoted rows are
+        patched in through the exact int32 rim.  ``**kw`` carries
+        per-call dispatch overrides (engine, block shapes).
+        """
+        return self.engine.pairs(self._slab(), alive=self._alive_host, **kw)
 
     # ---- batched merge ----
     def union(self, mask: np.ndarray, local: bc.BloomClock) -> bc.BloomClock:

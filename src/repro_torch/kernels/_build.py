@@ -40,6 +40,17 @@ SOURCES = {
                                _I, _P],
         "one_vs_many_i32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     }),
+    "bloom_matrix": ("bloom_matrix.cu", {
+        "matrix_tri_flags": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "matrix_rect_u8_flags": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _P],
+        "matrix_rect_i32_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _F, _P],
+    }),
+    "bloom_mxu": ("bloom_mxu.cu", {
+        "matrix_mxu_viol": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    }),
 }
 
 _LOCK = threading.Lock()

@@ -1,5 +1,6 @@
 // Shared device helpers for the bloom-clock kernels.
 #pragma once
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -24,6 +25,101 @@ __device__ __forceinline__ uint32_t warp_sum_u32(uint32_t v) {
 // A tile's int32 sum (wrapped) as the float the reference adds.
 __device__ __forceinline__ float tile_sum_f32(uint32_t s) {
   return static_cast<float>(static_cast<int32_t>(s));
+}
+
+// ---------------------------------------------------------------------------
+// All-pairs tiles (bloom_matrix.cu, bloom_mxu.cu)
+//
+// One CTA owns a tile of bi x bj pairs (bi, bj in {32, 64, 128}, at most
+// PAIR_MAX_PAIRS pairs); each of its (bi / 4) * (bj / 4) threads owns
+// 4 x 4 pairs: rows ty + r * bi/4 and cols tx + c * bj/4.  The m lanes stream through shared memory in
+// chunks of PAIR_KC, both row tiles stored row-major as 32-bit words with
+// PAIR_LDK words per row: 16-byte reads of 4 lanes at a time, and since
+// PAIR_LDK is 4 words past a multiple of 32, the 8 threads of a quarter
+// warp that read 8 consecutive rows hit 8 disjoint bank groups.
+// ---------------------------------------------------------------------------
+
+constexpr int PAIR_KC = 64;             // m lanes per staged chunk
+constexpr int PAIR_LDK = PAIR_KC + 4;   // words per staged row
+constexpr int PAIR_RT = 4;              // pairs per thread along rows
+constexpr int PAIR_CT = 4;              // pairs per thread along cols
+
+// Pairs a tile may hold: (bi / 4) * (bj / 4) = 512 threads at ~75
+// registers each fit the SM's 65,536 registers; 1024 threads do not.
+constexpr int PAIR_MAX_PAIRS = 128 * 64;
+
+__host__ __device__ inline bool pair_edge_ok(int b) {
+  return b == 32 || b == 64 || b == 128;
+}
+
+__host__ __device__ inline bool pair_tiles_ok(int bi, int bj) {
+  return pair_edge_ok(bi) && pair_edge_ok(bj) && bi * bj <= PAIR_MAX_PAIRS;
+}
+
+// Shared memory for two staged row tiles and the row-sum scratch.
+__host__ __device__ inline size_t pair_smem_bytes(int bi, int bj) {
+  return static_cast<size_t>(bi + bj) * PAIR_LDK * sizeof(uint32_t) +
+         static_cast<size_t>(bi) * (sizeof(uint32_t) + sizeof(float));
+}
+
+// Stage lanes [k0, k0 + kc) of rows [r0, r0 + tile_rows) into s as 32-bit
+// words, each passed through f(row, value).  Consecutive threads take
+// consecutive lanes of one row: coalesced loads, conflict-free stores.
+// Rows past n_rows and lanes past kc are stored as 0 and never compared.
+template <typename T, class F>
+__device__ __forceinline__ void stage_rows(uint32_t* __restrict__ s,
+                                           const T* __restrict__ src,
+                                           int n_rows, int r0, int tile_rows,
+                                           int m, int k0, int kc, const F& f) {
+  for (int idx = threadIdx.x; idx < tile_rows * PAIR_KC; idx += blockDim.x) {
+    const int r = idx / PAIR_KC, k = idx % PAIR_KC, row = r0 + r;
+    uint32_t v = 0;
+    if (row < n_rows && k < kc)
+      v = f(row, static_cast<uint32_t>(src[static_cast<size_t>(row) * m + k0 + k]));
+    s[r * PAIR_LDK + k] = v;
+  }
+}
+
+// The identity staging transform.
+struct AsWord {
+  __device__ __forceinline__ uint32_t operator()(int, uint32_t v) const { return v; }
+};
+
+// One staged chunk through a thread's 4 x 4 pairs: acc(r, c, a, b) for
+// every lane, four lanes per 16-byte read.
+template <class Acc>
+__device__ __forceinline__ void sweep_chunk(const uint32_t* __restrict__ As,
+                                            const uint32_t* __restrict__ Bs,
+                                            int kc, int ty, int tx, int rstep,
+                                            int cstep, Acc& acc) {
+  int k = 0;
+  for (; k + 4 <= kc; k += 4) {
+    uint4 a[PAIR_RT], b[PAIR_CT];
+#pragma unroll
+    for (int r = 0; r < PAIR_RT; ++r)
+      a[r] = *reinterpret_cast<const uint4*>(As + (ty + r * rstep) * PAIR_LDK + k);
+#pragma unroll
+    for (int c = 0; c < PAIR_CT; ++c)
+      b[c] = *reinterpret_cast<const uint4*>(Bs + (tx + c * cstep) * PAIR_LDK + k);
+#pragma unroll
+    for (int r = 0; r < PAIR_RT; ++r) {
+#pragma unroll
+      for (int c = 0; c < PAIR_CT; ++c) {
+        acc(r, c, a[r].x, b[c].x);
+        acc(r, c, a[r].y, b[c].y);
+        acc(r, c, a[r].z, b[c].z);
+        acc(r, c, a[r].w, b[c].w);
+      }
+    }
+  }
+  for (; k < kc; ++k) {
+#pragma unroll
+    for (int r = 0; r < PAIR_RT; ++r) {
+#pragma unroll
+      for (int c = 0; c < PAIR_CT; ++c)
+        acc(r, c, As[(ty + r * rstep) * PAIR_LDK + k], Bs[(tx + c * cstep) * PAIR_LDK + k]);
+    }
+  }
 }
 
 }  // namespace bloom

@@ -1,4 +1,4 @@
-"""Wrappers around the CUDA kernels of the main path.
+"""Wrappers around the CUDA kernels.
 
 Each wrapper launches its hand-written kernel (``csrc/``) when given
 CUDA tensors and raises if the launch fails; it runs the plain PyTorch
@@ -7,8 +7,8 @@ fallback from the card to the plain version.
 
 Every launch adds one to ``LAUNCHES[name]``, so a run can show that it
 went through the kernels.  ``LAST_DISPATCH`` records the most recent
-one-vs-many dispatch (engine and blocks), which ``CausalEngine`` copies
-into its results.
+one-vs-many or all-pairs dispatch (op, engine and blocks), which
+``CausalEngine`` copies into its results.
 
 The m-tile width follows the JAX wrappers' tile plan (``tile_width``):
 m is padded to the 128-lane grain and the tile is the largest multiple
@@ -21,16 +21,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import bloom_indices
-from repro_torch.kernels import ref
+from repro_torch.kernels import pack, ref
 from repro_torch.kernels._build import library
 
 __all__ = [
     "LAUNCHES",
     "LAST_DISPATCH",
+    "MXU_SPAN_MAX",
+    "PAIR_TILES",
     "pick_block",
     "tile_width",
     "tick",
     "merge_compare",
+    "eq3_outer",
+    "tri_flags",
+    "rect_u8_flags",
+    "rect_i32_stats",
+    "mxu_viol",
 ]
 
 LANE = 128  # the reference's lane grain; fixes its m-tile widths
@@ -41,9 +48,24 @@ LAUNCHES: dict[str, int] = {
     "bloom_merge_compare": 0,
     "one_vs_many_packed": 0,
     "one_vs_many_i32": 0,
+    "matrix_tri": 0,
+    "matrix_rect_u8": 0,
+    "matrix_rect_i32": 0,
+    "matrix_mxu": 0,
 }
 
-#: the most recent one-vs-many dispatch: op, engine and blocks
+#: widest value span (max - min logical cell) the mxu engine accepts,
+#: and the thermometer widths T it rounds a span up to (the reference's)
+MXU_SPAN_MAX = 64
+_MXU_SPAN_BUCKETS = (8, 16, 32, 64)
+
+#: tile edges (pairs) an all-pairs CUDA block may take: bi, bj, with at
+#: most _PAIR_MAX pairs a block (common.cuh: PAIR_MAX_PAIRS)
+PAIR_TILES = (32, 64, 128)
+_PAIR_MAX = 128 * 64
+_PAIR_TILE_DEFAULT = 64
+
+#: the most recent one-vs-many or all-pairs dispatch: op, engine, blocks
 LAST_DISPATCH: dict = {}
 
 # largest dynamic shared memory a block may take on Hopper (bytes)
@@ -258,3 +280,319 @@ def _overlay_wide_classify(out: dict, q: torch.Tensor, wide_idx,
                 "fp_p_before_q"):
         patched[key] = out[key].index_put((idx,), wout[key])
     return patched
+
+
+# ---------------------------------------------------------------------------
+# all-pairs kernels
+# ---------------------------------------------------------------------------
+
+def _check_tiles(bi: int, bj: int) -> None:
+    if bi not in PAIR_TILES or bj not in PAIR_TILES or bi * bj > _PAIR_MAX:
+        raise ValueError(f"all-pairs tile bi={bi} bj={bj}: each must be one "
+                         f"of {PAIR_TILES}, and bi * bj at most {_PAIR_MAX}")
+
+
+def _flag_pair(N: int, M: int, dev):
+    return (torch.empty((N, M), dtype=torch.bool, device=dev),
+            torch.empty((N, M), dtype=torch.bool, device=dev))
+
+
+def tri_flags(cells: torch.Tensor, base: torch.Tensor, *, bt: int = 64,
+              with_base: bool = True):
+    """Symmetric packed all-pairs flags over one u8 slab [N, m] with
+    bases [N]: (le, ge) bool [N, N], the kernel writing the mirror of
+    its upper-triangle tiles itself.  ``with_base=False`` ignores the
+    bases (a uniform window), as the reference does."""
+    N, m = cells.shape
+    _check_tiles(bt, bt)
+    if not cells.is_cuda:
+        return ref.tri_flags_ref(cells, base if with_base else None)
+    _check(cells, "matrix_tri cells", torch.uint8, (N, m))
+    _check(base, "matrix_tri base", torch.int32, (N,))
+    le, ge = _flag_pair(N, N, cells.device)
+    if N:
+        with torch.cuda.device(cells.device):
+            err = library("bloom_matrix").matrix_tri_flags(
+                cells.data_ptr(), base.data_ptr(), le.data_ptr(),
+                ge.data_ptr(), N, m, bt, int(with_base), _stream(cells))
+        _launched(err, "matrix_tri")
+    return le, ge
+
+
+def rect_u8_flags(rows: torch.Tensor, cols: torch.Tensor,
+                  row_base: torch.Tensor, col_base: torch.Tensor, *,
+                  bi: int = 64, bj: int = 64, with_base: bool = True):
+    """Packed all-pairs flags over a full rectangle: rows [N, m] and cols
+    [M, m] u8 with bases [N], [M] -> (le, ge) bool [N, M]."""
+    N, m = rows.shape
+    M = cols.shape[0]
+    _check_tiles(bi, bj)
+    if not rows.is_cuda:
+        if with_base:
+            return ref.rect_u8_flags_ref(rows, cols, row_base, col_base)
+        return ref.rect_u8_flags_ref(rows, cols)
+    _check(rows, "matrix_rect_u8 rows", torch.uint8, (N, m))
+    _check(cols, "matrix_rect_u8 cols", torch.uint8, (M, m))
+    _check(row_base, "matrix_rect_u8 row_base", torch.int32, (N,))
+    _check(col_base, "matrix_rect_u8 col_base", torch.int32, (M,))
+    le, ge = _flag_pair(N, M, rows.device)
+    if N and M:
+        with torch.cuda.device(rows.device):
+            err = library("bloom_matrix").matrix_rect_u8_flags(
+                rows.data_ptr(), cols.data_ptr(), row_base.data_ptr(),
+                col_base.data_ptr(), le.data_ptr(), ge.data_ptr(), N, M, m,
+                bi, bj, int(with_base), _stream(rows))
+        _launched(err, "matrix_rect_u8")
+    return le, ge
+
+
+def rect_i32_stats(rows: torch.Tensor, cols: torch.Tensor,
+                   col_sums: torch.Tensor, *, bi: int = 64, bj: int = 64,
+                   bm: int = 512):
+    """int32 all-pairs: rows [N, m], cols [M, m] logical cells, col_sums
+    [M] float32 -> (le, ge) bool [N, M], row sums [N] float32 (per
+    bm-wide m-tile, the reference's order) and fp(row -> col) [N, M]."""
+    N, m = rows.shape
+    M = cols.shape[0]
+    _check_tiles(bi, bj)
+    bm = tile_width(m, bm)
+    if not rows.is_cuda:
+        return ref.rect_i32_stats_ref(rows, cols, col_sums, bm=bm)
+    _check(rows, "matrix_rect_i32 rows", torch.int32, (N, m))
+    _check(cols, "matrix_rect_i32 cols", torch.int32, (M, m))
+    _check(col_sums, "matrix_rect_i32 col_sums", torch.float32, (M,))
+    if N and not M:
+        raise ValueError("matrix_rect_i32: row sums need at least one column")
+    dev = rows.device
+    le, ge = _flag_pair(N, M, dev)
+    row_sums = torch.empty((N,), dtype=torch.float32, device=dev)
+    fp = torch.empty((N, M), dtype=torch.float32, device=dev)
+    if N:
+        with torch.cuda.device(dev):
+            err = library("bloom_matrix").matrix_rect_i32_stats(
+                rows.data_ptr(), cols.data_ptr(), col_sums.data_ptr(),
+                le.data_ptr(), ge.data_ptr(), row_sums.data_ptr(),
+                fp.data_ptr(), N, M, m, bi, bj, bm, _log_q(m), _stream(rows))
+        _launched(err, "matrix_rect_i32")
+    return le, ge, row_sums, fp
+
+
+def mxu_viol(rows: torch.Tensor, cols: torch.Tensor, row_base: torch.Tensor,
+             col_base: torch.Tensor, *, lo: int, n_thresholds: int,
+             bi: int = 64, bj: int = 64) -> torch.Tensor:
+    """Violation counts ``sum_m relu(a - b)`` float32 [N, M] over packed
+    rows/cols on window-relative values in [0, T] (T = n_thresholds).
+    Refuses ``m * T >= 2^24``, where float32 counts stop being exact, as
+    the reference does."""
+    N, m = rows.shape
+    M = cols.shape[0]
+    _check_tiles(bi, bj)
+    if m * n_thresholds >= 2 ** 24:
+        raise ValueError(f"mxu: m={m} x T={n_thresholds} exceeds the float32 "
+                         f"exactness bound 2^24")
+    if not rows.is_cuda:
+        return ref.mxu_viol_ref(rows, cols, row_base, col_base, lo=lo,
+                                n_thresholds=n_thresholds)
+    _check(rows, "matrix_mxu rows", torch.uint8, (N, m))
+    _check(cols, "matrix_mxu cols", torch.uint8, (M, m))
+    _check(row_base, "matrix_mxu row_base", torch.int32, (N,))
+    _check(col_base, "matrix_mxu col_base", torch.int32, (M,))
+    viol = torch.empty((N, M), dtype=torch.float32, device=rows.device)
+    if N and M:
+        with torch.cuda.device(rows.device):
+            err = library("bloom_mxu").matrix_mxu_viol(
+                rows.data_ptr(), cols.data_ptr(), row_base.data_ptr(),
+                col_base.data_ptr(), viol.data_ptr(), N, M, m, bi, bj, lo,
+                n_thresholds, _stream(rows))
+        _launched(err, "matrix_mxu")
+    return viol
+
+
+# ---------------------------------------------------------------------------
+# all-pairs compare: dispatch and finalize
+# ---------------------------------------------------------------------------
+
+def eq3_outer(row_sums: torch.Tensor, col_sums: torch.Tensor,
+              m: int) -> torch.Tensor:
+    """Eq. 3 fp of "row happened-before col" as an [N, M] outer product,
+    the expression of every engine's finalize."""
+    return ref.eq3_fp(row_sums[:, None], col_sums[None, :], m)
+
+
+def _packed_row_sums(cells: torch.Tensor, base: torch.Tensor,
+                     m: int) -> torch.Tensor:
+    s = ref.wrap_sum_i32(cells).to(torch.float32)
+    return s + base.reshape(-1).to(torch.int32).to(torch.float32) * m
+
+
+def _matrix_dict(le, ge, row_sums, col_sums, m: int) -> dict:
+    return {
+        "a_le_b": le,
+        "b_le_a": ge,
+        "concurrent": ~(le | ge),
+        "fp": eq3_outer(row_sums, col_sums, m),
+        "row_sums": row_sums,
+        "col_sums": col_sums,
+    }
+
+
+def _matrix_blocks(bi, bj, bm) -> tuple[int, int, int]:
+    """Blocks: explicit values, else the port's defaults (64 x 64 pairs a
+    CUDA block; bm 512, which fixes the i32 engine's sum order)."""
+    bi = bi or _PAIR_TILE_DEFAULT
+    bj = bj or _PAIR_TILE_DEFAULT
+    _check_tiles(bi, bj)
+    return bi, bj, bm or 512
+
+
+def _span_bucket(span: int) -> int:
+    for b in _MXU_SPAN_BUCKETS:
+        if span <= b:
+            return b
+    raise ValueError(f"value span {span} exceeds MXU_SPAN_MAX={MXU_SPAN_MAX}")
+
+
+def _logical_bounds(cells, base, cols, col_base) -> tuple[int, int]:
+    """Global (lo, span) of the logical values of both slabs, in one
+    host transfer."""
+    b = base.reshape(-1).to(torch.int32)
+    cb = col_base.reshape(-1).to(torch.int32)
+    lo = torch.minimum(b.min(), cb.min())
+    hi = torch.maximum((cells.amax(1).to(torch.int32) + b).max(),
+                       (cols.amax(1).to(torch.int32) + cb).max())
+    lo, hi = torch.stack([lo, hi]).tolist()
+    return lo, hi - lo
+
+
+def _mxu_finalize(viol, cells, base, cols, col_base, row_sums, col_sums,
+                  m: int, lo: int) -> dict:
+    """le = no violations; ge from the rank-1 identity
+    viol_ge = viol - Σa + Σb over window-shifted sums (< 2^24, so the
+    float32 zero tests are exact; the shift cancels)."""
+    sa = _packed_row_sums(cells, base.reshape(-1) - lo, m)
+    sb = _packed_row_sums(cols, col_base.reshape(-1) - lo, m)
+    le = viol == 0.0
+    ge = (viol - sa[:, None] + sb[None, :]) == 0.0
+    return _matrix_dict(le, ge, row_sums, col_sums, m)
+
+
+def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
+                           cols: torch.Tensor | None = None,
+                           col_base: torch.Tensor | None = None, *,
+                           engine: str | None = None, bi: int | None = None,
+                           bj: int | None = None, bm: int | None = None,
+                           uniform_base: bool | None = None) -> dict:
+    """Tiled all-pairs compare over packed u8 slab(s) (rows [N, m] +
+    bases; ``cols`` None means symmetric).
+
+    Without an autotune table, dispatch resolves as the reference's
+    does when its table is silent: "tri" for a symmetric slab, "full"
+    when cols are given; "mxu" only when asked for and only while the
+    logical span is at most ``MXU_SPAN_MAX`` (else "tri"); "i32" is not
+    a packed engine and resolves to auto.  Returns the dict of
+    ``_compare_matrix``.
+    """
+    symmetric = cols is None
+    if symmetric:
+        cols, col_base = cells, base
+    N, m = cells.shape
+    base = base.reshape(-1)
+    col_base = col_base.reshape(-1)
+    if engine == "i32":
+        engine = None
+    engine = engine or "tri"
+    if engine not in ("tri", "full", "mxu"):
+        raise ValueError(f"unknown packed engine: {engine}")
+    bounds = None
+    if engine == "mxu":
+        bounds = _logical_bounds(cells, base, cols, col_base)
+        if bounds[1] > MXU_SPAN_MAX:
+            engine = "tri"
+    if engine == "tri" and not symmetric:
+        engine = "full"
+    if uniform_base is None:
+        b0 = base[:1]
+        uniform_base = bool(((base == b0).all() & (col_base == b0).all()).item())
+    bi, bj, bm = _matrix_blocks(bi, bj, bm)
+    _note_dispatch("matrix", engine, bi=bi, bj=bj, bm=bm)
+
+    row_sums = _packed_row_sums(cells, base, m)
+    col_sums = row_sums if symmetric else _packed_row_sums(cols, col_base, m)
+    if engine == "tri":
+        le, ge = tri_flags(cells, base, bt=max(bi, bj),
+                           with_base=not uniform_base)
+        return _matrix_dict(le, ge, row_sums, row_sums, m)
+    if engine == "full":
+        le, ge = rect_u8_flags(cells, cols, base, col_base, bi=bi, bj=bj,
+                               with_base=not uniform_base)
+        return _matrix_dict(le, ge, row_sums, col_sums, m)
+    lo, span = bounds
+    viol = mxu_viol(cells, cols, base, col_base, lo=lo,
+                    n_thresholds=_span_bucket(span), bi=bi, bj=bj)
+    return _mxu_finalize(viol, cells, base, cols, col_base, row_sums,
+                         col_sums, m, lo)
+
+
+def _shift_pack(x: torch.Tensor, lo: int) -> torch.Tensor:
+    return (x.to(torch.int32) - lo).to(torch.uint8)
+
+
+def _span_probe(rows: torch.Tensor,
+                cols: torch.Tensor | None = None) -> tuple[int, int]:
+    """(lo, hi) over one or two slabs, fetched in one host transfer."""
+    lo, hi = rows.min(), rows.max()
+    if cols is not None:
+        lo = torch.minimum(lo, cols.min())
+        hi = torch.maximum(hi, cols.max())
+    lo, hi = torch.stack([lo, hi]).tolist()
+    return lo, hi
+
+
+def _compare_matrix(rows: torch.Tensor, cols: torch.Tensor, *,
+                    engine: str | None = None, bi: int | None = None,
+                    bj: int | None = None, bm: int | None = None) -> dict:
+    """Tiled all-pairs compare of int32 logical rows [N, m] vs cols
+    [M, m] (``rows is cols`` means symmetric).
+
+    Unless the i32 engine is asked for, the slabs are packed on the fly
+    when their global value span fits a byte (one shared window base)
+    and go to the packed engines; wider spans take the int32 kernel, and
+    a packed engine asked for by name then raises.  Returns [N, M]
+    ``a_le_b`` / ``b_le_a`` / ``concurrent`` bool matrices, ``fp`` of
+    "row before col", and per-row / per-col float32 sums.
+    """
+    symmetric = rows is cols
+    N, m = rows.shape
+    M, mc = cols.shape
+    if m != mc:
+        raise ValueError(f"rows {tuple(rows.shape)} vs cols {tuple(cols.shape)}")
+    if engine != "i32":
+        lo, hi = _span_probe(rows, None if symmetric else cols)
+        if hi - lo <= pack.U8_MAX:
+            packed_rows = _shift_pack(rows, lo)
+            base = torch.full((N,), lo, dtype=torch.int32, device=rows.device)
+            kw = dict(engine=engine, bi=bi, bj=bj, bm=bm, uniform_base=True)
+            if symmetric:
+                return _compare_matrix_packed(packed_rows, base, **kw)
+            return _compare_matrix_packed(
+                packed_rows, base, _shift_pack(cols, lo),
+                torch.full((M,), lo, dtype=torch.int32, device=rows.device),
+                **kw)
+        if engine is not None:
+            raise ValueError(f"engine={engine} needs value span <= "
+                             f"{pack.U8_MAX}, got {hi - lo}")
+    bi, bj, bm = _matrix_blocks(bi, bj, bm)
+    _note_dispatch("matrix", "i32", bi=bi, bj=bj, bm=bm)
+    rows = rows.to(torch.int32).contiguous()
+    cols = rows if symmetric else cols.to(torch.int32).contiguous()
+    col_sums = ref.wrap_sum_i32(cols).to(torch.float32)   # wrapping int32 sum
+    le, ge, row_sums, fp = rect_i32_stats(rows, cols, col_sums, bi=bi, bj=bj,
+                                          bm=bm)
+    return {
+        "a_le_b": le,
+        "b_le_a": ge,
+        "concurrent": ~(le | ge),
+        "fp": fp,
+        "row_sums": row_sums,
+        "col_sums": col_sums,
+    }

@@ -25,7 +25,17 @@ __all__ = [
     "bloom_tick_ref",
     "bloom_merge_compare_ref",
     "one_vs_many_ref",
+    "wrap_sum_i32",
+    "tri_flags_ref",
+    "rect_u8_flags_ref",
+    "rect_i32_stats_ref",
+    "mxu_viol_ref",
 ]
+
+# elements of the largest [rows, cols, m] intermediate the all-pairs
+# plain versions build at once; rows are taken in chunks below it, so
+# they also run at the card's full slab sizes
+_CHUNK_ELEMS = 1 << 28
 
 EQ3_CLIP = 1e-30
 _MASK32 = 0xFFFFFFFF
@@ -38,7 +48,9 @@ def eq3_log_q(m: int) -> torch.Tensor:
 
 def eq3_fp(sum_x: torch.Tensor, sum_y: torch.Tensor, m: int) -> torch.Tensor:
     """Eq. 3 fp of "X -> Y": (1 - (1 - 1/m)^ΣY)^ΣX, log-stable, float32."""
-    log_q = eq3_log_q(m).to(sum_y.device)
+    # a Python float holding the float32 value: exact as a scalar operand,
+    # and no host-to-device copy (which would synchronise the stream)
+    log_q = float(eq3_log_q(m))
     inner = (-torch.expm1(sum_y * log_q)).clamp(EQ3_CLIP, 1.0)
     return torch.exp(sum_x * torch.log(inner))
 
@@ -109,3 +121,106 @@ def one_vs_many_ref(q: torch.Tensor, peers: torch.Tensor,
     sq = tile_sums(q, bm).expand_as(sp)
     fp = torch.stack([eq3_fp(sq, sp, m), eq3_fp(sp, sq, m)], -1)
     return flags.to(torch.int32), torch.stack([sq, sp], -1), fp
+
+
+# ---------------------------------------------------------------------------
+# all-pairs
+# ---------------------------------------------------------------------------
+
+def wrap_sum_i32(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of [..., m] integers with int32 wrap-around (int64 values
+    in the int32 range), as the reference's int32 ``jnp.sum``."""
+    return _wrap_i32(x.to(torch.int64).sum(-1))
+
+
+def _row_chunks(n_rows: int, n_cols: int, m: int):
+    step = max(1, _CHUNK_ELEMS // max(1, n_cols * m))
+    return range(0, n_rows, step), step
+
+
+def _diff_bounds(rows: torch.Tensor, cols: torch.Tensor, dtype):
+    """(max, min) over m of ``a_i - b_j`` for every pair, [N, M] int32 each;
+    the difference is taken in ``dtype`` (int32 wraps)."""
+    N, M = rows.shape[0], cols.shape[0]
+    hi = torch.empty((N, M), dtype=torch.int32, device=rows.device)
+    lo = torch.empty_like(hi)
+    b = cols.to(dtype)
+    starts, step = _row_chunks(N, M, rows.shape[1])
+    for r0 in starts:
+        d = rows[r0:r0 + step].to(dtype)[:, None, :] - b[None, :, :]
+        mn, mx = torch.aminmax(d, dim=-1)
+        hi[r0:r0 + step] = mx
+        lo[r0:r0 + step] = mn
+    return hi, lo
+
+
+def rect_u8_flags_ref(rows: torch.Tensor, cols: torch.Tensor,
+                      row_base: torch.Tensor | None = None,
+                      col_base: torch.Tensor | None = None):
+    """Packed all-pairs flags (``template.py::_pair_flags_u8``): rows
+    [N, m] and cols [M, m] u8 residuals, optional int32 bases [N], [M].
+
+    Per pair ``d = a - b + clip(row_base - col_base, -256, 256)`` (the
+    base delta an int32 wrap-subtraction before the clip, 0 without
+    bases); le = max(d) <= 0, ge = min(d) >= 0, as bool [N, M].  The
+    delta is constant over the m lanes, so it is added to max(a - b) and
+    min(a - b).
+    """
+    hi, lo = _diff_bounds(rows, cols, torch.int16)
+    if row_base is not None:
+        delta = _wrap_i32(row_base.to(torch.int64)[:, None]
+                          - col_base.to(torch.int64)[None, :])
+        delta = delta.clamp(-256, 256).to(torch.int32)
+        hi = hi + delta
+        lo = lo + delta
+    return hi <= 0, lo >= 0
+
+
+def tri_flags_ref(cells: torch.Tensor, base: torch.Tensor | None = None):
+    """Symmetric packed all-pairs flags over one slab: pairs i <= j as
+    ``rect_u8_flags_ref`` computes them, pairs i > j by the mirror
+    le(i, j) = ge(j, i) (the TPU kernel sweeps the upper triangle only)."""
+    le, ge = rect_u8_flags_ref(cells, cells, base, base)
+    n = cells.shape[0]
+    idx = torch.arange(n, device=cells.device)
+    upper = idx[:, None] <= idx[None, :]
+    return torch.where(upper, le, ge.T), torch.where(upper, ge, le.T)
+
+
+def rect_i32_stats_ref(rows: torch.Tensor, cols: torch.Tensor,
+                       col_sums: torch.Tensor, *, bm: int):
+    """int32 all-pairs (``template.py::_emit_rect_i32_stats``): rows
+    [N, m], cols [M, m] int32 logical cells, col_sums [M] float32.
+
+    ``d = a - b`` by int32 wrap-subtraction; le = all(d <= 0), ge =
+    all(d >= 0) as bool [N, M]; row sums [N] float32 per bm-wide m-tile
+    (``tile_sums``); fp [N, M] = Eq. 3 of "row -> col" from the row sums
+    and ``col_sums``.
+    """
+    hi, lo = _diff_bounds(rows, cols, torch.int32)
+    row_sums = tile_sums(rows, bm)
+    fp = eq3_fp(row_sums[:, None], col_sums[None, :], rows.shape[1])
+    return hi <= 0, lo >= 0, row_sums, fp
+
+
+def mxu_viol_ref(rows: torch.Tensor, cols: torch.Tensor,
+                 row_base: torch.Tensor, col_base: torch.Tensor, *,
+                 lo: int, n_thresholds: int) -> torch.Tensor:
+    """Violation counts (``template.py::_emit_mxu``): float32 [N, M] of
+    ``sum_m #{t in 1..T: b < t <= a}`` with a = u8 + (row_base - lo) and
+    b = u8 + (col_base - lo) (int32 wrap), which is
+    ``relu(min(a, T) - max(b, 0))`` per lane: the thermometer product
+    without the encoding.  a is clamped to [-1, T] and b to [0, T + 1],
+    which keeps every count."""
+    T = n_thresholds
+    a = (rows.to(torch.int32) + (row_base.to(torch.int32) - lo)[:, None])
+    b = (cols.to(torch.int32) + (col_base.to(torch.int32) - lo)[:, None])
+    a = a.clamp(-1, T)
+    b = b.clamp(0, T + 1)
+    N, M = rows.shape[0], cols.shape[0]
+    viol = torch.empty((N, M), dtype=torch.float32, device=rows.device)
+    starts, step = _row_chunks(N, M, rows.shape[1])
+    for r0 in starts:
+        d = (a[r0:r0 + step, None, :] - b[None, :, :]).clamp_(min=0)
+        viol[r0:r0 + step] = d.sum(-1).to(torch.float32)
+    return viol

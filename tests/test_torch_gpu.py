@@ -1,17 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here carries the ``gpu`` marker and skips without a
-CUDA device (decided in a fixture, never at import time).
+card: tick, merge-compare, one-vs-many, and the all-pairs tri, rect-u8,
+rect-i32-stats and mxu kernels.  Every test here carries the ``gpu``
+marker and skips without a CUDA device (decided in a fixture, never at
+import time).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
 
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: cells, flags, merged rows and float32 sums identical (same
-bm tiling, integer tile sums, float adds in tile order); Eq. 3 fp within
-a relative 5e-2 (libm ulps), values at or below the 1e-30 clip floor
-counted as equal, and infinities (wrapped negative sums) equal to
-themselves.
+Tolerances: cells, flags, merged rows, violation counts and float32 sums
+identical (same bm tiling, integer tile sums, float adds in tile order);
+Eq. 3 fp within a relative 5e-2 (libm ulps), values at or below the
+1e-30 clip floor counted as equal, and infinities (wrapped negative
+sums) equal to themselves.
 """
 import numpy as np
 import pytest
@@ -169,3 +171,138 @@ def test_cuda_main_path_matches_cpu(cuda):
     assert torch.equal(gclock, cclock)
     assert torch.equal(greg.cells_u8.cpu(), creg.cells_u8)
     assert torch.equal(greg.base.cpu(), creg.base)
+
+
+# ---------------------------------------------------------------------------
+# all-pairs kernels
+# ---------------------------------------------------------------------------
+
+def packed_slab(n, m, seed, bases):
+    rng = np.random.default_rng(seed)
+    local = rng.integers(1, 38, m)
+    rows = np.repeat(local[None], n, axis=0)
+    rows += rng.integers(-1, 2, (n, m)) * (rng.random((n, m)) < 0.03)
+    rows[::4] = rng.integers(0, 40, (len(rows[::4]), m))
+    return (torch.as_tensor(np.clip(rows, 0, 255), dtype=torch.uint8),
+            torch.as_tensor(as_i32(rng.choice(np.asarray(bases), n))))
+
+
+_FAR = (-2 ** 31, -70000, 1000, 1300, 5000, I32_MAX - 100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,mc,m,bi,bj", [(1000, 777, 640, 64, 64),
+                                           (130, 70, 1, 32, 32),
+                                           (200, 300, 1024, 128, 64),
+                                           (33, 100, 67, 32, 128)])
+def test_cuda_tri_and_rect_u8_match_plain(cuda, n, mc, m, bi, bj):
+    rows, rb = packed_slab(n, m, 11, _FAR)
+    cols, cb = packed_slab(mc, m, 12, _FAR)
+    cols[: min(n, mc) // 2] = rows[: min(n, mc) // 2]
+    rows, rb, cols, cb = (t.to(cuda) for t in (rows, rb, cols, cb))
+    for with_base in (True, False):
+        n0 = ops.LAUNCHES["matrix_rect_u8"]
+        le, ge = ops.rect_u8_flags(rows, cols, rb, cb, bi=bi, bj=bj,
+                                   with_base=with_base)
+        assert ops.LAUNCHES["matrix_rect_u8"] == n0 + 1
+        want = ref.rect_u8_flags_ref(rows, cols, *((rb, cb) if with_base else ()))
+        assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
+        n0 = ops.LAUNCHES["matrix_tri"]
+        le, ge = ops.tri_flags(rows, rb, bt=min(bi, bj), with_base=with_base)
+        assert ops.LAUNCHES["matrix_tri"] == n0 + 1
+        want = ref.tri_flags_ref(rows, rb if with_base else None)
+        assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,mc,m,bi,bj", [(300, 77, 1024, 64, 64),
+                                           (77, 300, 1000, 32, 32),
+                                           (65, 129, 520, 128, 64)])
+def test_cuda_rect_i32_stats_matches_plain(cuda, n, mc, m, bi, bj):
+    _, rows = query_and_peers(n, m, 13, near_wrap=True)
+    _, cols = query_and_peers(mc, m, 14, near_wrap=True)
+    rows = rows.astype(np.int64)
+    rows[1, 5] += 1000                       # span beyond a byte, wraps
+    rows = as_i32(rows)
+    rows = torch.as_tensor(rows, device=cuda)
+    cols = torch.as_tensor(cols, device=cuda)
+    col_sums = ref.wrap_sum_i32(cols).to(torch.float32)
+    n0 = ops.LAUNCHES["matrix_rect_i32"]
+    le, ge, sums, fp = ops.rect_i32_stats(rows, cols, col_sums, bi=bi, bj=bj)
+    assert ops.LAUNCHES["matrix_rect_i32"] == n0 + 1
+    w_le, w_ge, w_sums, w_fp = ref.rect_i32_stats_ref(
+        rows, cols, col_sums, bm=ops.tile_width(m, 512))
+    assert torch.equal(le, w_le) and torch.equal(ge, w_ge)
+    assert torch.equal(sums, w_sums)
+    assert_fp_close(fp, w_fp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,lo", [(8, -5), (64, 0), (16, I32_MAX - 20)])
+def test_cuda_mxu_matches_plain(cuda, T, lo):
+    rng = np.random.default_rng(15)
+    rows = torch.as_tensor(rng.integers(0, T - 3, (300, 640)), dtype=torch.uint8,
+                           device=cuda)
+    cols = torch.as_tensor(rng.integers(0, T - 3, (77, 640)), dtype=torch.uint8,
+                           device=cuda)
+    cols[:10] = rows[:10]
+    rb = torch.as_tensor(as_i32(lo + rng.integers(0, 3, 300)), device=cuda)
+    cb = torch.as_tensor(as_i32(lo + rng.integers(0, 3, 77)), device=cuda)
+    n0 = ops.LAUNCHES["matrix_mxu"]
+    got = ops.mxu_viol(rows, cols, rb, cb, lo=lo, n_thresholds=T)
+    assert ops.LAUNCHES["matrix_mxu"] == n0 + 1
+    assert torch.equal(got, ref.mxu_viol_ref(rows, cols, rb, cb, lo=lo,
+                                             n_thresholds=T))
+
+
+@pytest.mark.gpu
+def test_cuda_pair_wrappers_reject_bad_inputs(cuda):
+    u8 = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
+    base = torch.zeros((8,), dtype=torch.int32, device=cuda)
+    i32 = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
+    sums = torch.zeros((8,), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.tri_flags(i32, base)
+    with pytest.raises(ValueError):
+        ops.tri_flags(u8, base[:4])
+    with pytest.raises(ValueError):
+        ops.rect_u8_flags(u8, u8.cpu(), base, base)
+    with pytest.raises(ValueError):
+        ops.rect_u8_flags(u8, u8, base, base, bi=48)
+    with pytest.raises(ValueError):
+        ops.tri_flags(u8, base, bt=128)           # 1024 threads a block
+    with pytest.raises(TypeError):
+        ops.rect_i32_stats(i32, i32, sums.to(torch.float64))
+    with pytest.raises(ValueError):
+        ops.rect_i32_stats(i32, i32[:, ::2], sums)
+    with pytest.raises(TypeError):
+        ops.mxu_viol(u8, u8, base, base.to(torch.int64), lo=0, n_thresholds=8)
+    with pytest.raises(ValueError):
+        ops.mxu_viol(u8, u8, base.cpu(), base, lo=0, n_thresholds=8)
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_health_matches_cpu(cuda):
+    from repro_torch.core import clock as bc
+    from repro_torch.fleet import ClockRegistry, fleet_health
+
+    q, peers = query_and_peers(250, 256, 16)
+    peers[0, 3] += 400                       # promoted: span beyond a byte
+    peers[1] = as_i32(peers[1].astype(np.int64) + 2 ** 31 - 2000)   # near wrap
+    zero = torch.zeros((), dtype=torch.int32)
+
+    def run(device):
+        reg = ClockRegistry(256, 256, 4, device=device)
+        reg.admit_many({i: bc.BloomClock(torch.as_tensor(r), zero, 4)
+                        for i, r in enumerate(peers)})
+        reg.evict_many([5, 17])
+        return reg.all_pairs().to_host(), fleet_health(reg)
+
+    (gp, gh), (cp, ch) = run(cuda), run("cpu")
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
+        np.testing.assert_array_equal(gp[key], cp[key])
+    assert gp.engine == cp.engine == "tri+wide_rim"
+    np.testing.assert_array_equal(gh.component, ch.component)
+    np.testing.assert_array_equal(gh.straggler_mask, ch.straggler_mask)
+    assert gh.n_components == ch.n_components
+    assert_fp_close(torch.as_tensor(gp.fp), torch.as_tensor(cp.fp))
