@@ -31,14 +31,24 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    fully alive 16,384 slab of window span <= 64, which must give
    identical flags and row sums; then ``fleet_health`` at 2,048 slots
    on the card and on the CPU, which must agree;
-6. times by one rule for kernels, plain versions and library calls:
+6. the hybrid path: a ``HybridEngine`` (m=1024, k=4, fp budget 1e-4)
+   admits 4,088 tiny head sessions and 65,540 tail sessions (4 of them
+   wide), promotes the head with Zipf churn and head sweeps, classifies
+   through the fused hybrid kernel, then folds once to m=512 under an
+   ``AdaptivePolicy`` and replays the fold from its audit trail — once
+   on the card with the launch counts reset just before and read just
+   after, once on the CPU; fn == 0, measured hot fp == 0, tail rows
+   bit-identical to a flat packed slab, and the two runs agree; then
+   ``HybridEngine.pairs`` at 16,384 sessions on the card (exact hot-hot
+   block) and at 2,048 on the card and the CPU, which must agree;
+7. times by one rule for kernels, plain versions and library calls:
    CUDA events around a loop of calls queued behind a sleep kernel (the
    card's time, no host gaps), with rotating input buffers larger than
    the L2 cache where the inputs are small; beside them the least time
    the card needs, from bytes and from instruction counts (the lower of
    each function's minimum and the built kernel's hot loop, read from
    ``cuobjdump -sass``);
-7. one JSON line of kernel records, the card line, then the verdict line.
+8. one JSON line of kernel records, the card line, then the verdict line.
 
 No JAX and nothing of the JAX package is imported.
 """
@@ -69,6 +79,9 @@ SEED = 0
 MAIN_KERNELS = ("bloom_tick", "bloom_merge_compare", "one_vs_many_packed",
                 "one_vs_many_i32")
 HEALTH_KERNELS = ("matrix_tri", "matrix_rect_i32")
+#: kernels of the hybrid path (phase 6): the fused sweep, and the exact
+#: int32 overlay of the wide tail rows
+HYBRID_KERNELS = ("hybrid", "one_vs_many_i32")
 ENGINE_KERNELS = ("matrix_tri", "matrix_rect_u8", "matrix_mxu",
                   "matrix_rect_i32")
 L2_BYTES = 50e6
@@ -98,6 +111,17 @@ _SASS_KERNELS = {"matrix_tri": "tri_flags_kernel",
                  "matrix_rect_u8": "rect_u8_flags_kernel",
                  "matrix_rect_i32": "rect_i32_stats_kernel",
                  "matrix_mxu": "mxu_viol_kernel"}
+# the hybrid path (phase 6): the bench generator of
+# benchmarks/bench_hybrid.py:76-96 scaled to the serving tiers' defaults
+# (hot tier 4,096 sessions, warm tier 65,536: src/repro/serve/churn.py:72-73)
+# with its FULL chain length V = 384; hot capacity is the head plus the
+# bench's margin of 8; the launcher's fp budget (src/repro/launch/serve.py:53)
+HYB_V, HYB_HEAD, HYB_TAIL, HYB_WIDE = 384, 4088, 65536, 4
+HYB_TAIL_V_MIN, HYB_MARGIN, HYB_BUDGET = 64, 8, 1e-4
+HYB_DRAWS, HYB_ROUNDS = 2048, 6
+# HybridEngine.pairs materialises [N, N] matrices: 16,384 sessions on the
+# card (256 in the head), 2,048 (32 in the head) on the card and the CPU
+HYB_PAIRS = ((16384, 256), (2048, 32))
 # sleep ahead of a timed loop: ~50 ms at boost clock, longer than the
 # host takes to queue the loop, so the card never waits on the host
 SLEEP_CYCLES = 100_000_000
@@ -422,6 +446,76 @@ def check_pair_kernels(dev) -> dict:
     return err
 
 
+def hybrid_inputs(g, H: int, T: int, m: int, dev, near_wrap: bool = False):
+    """A query, the chain version V, hot metadata [H, 2] and sums [H],
+    and a packed tail [T, m] around the query (equal, ancestor,
+    descendant, forked and unrelated rows; some bases far away, at the
+    int32 wrap point with ``near_wrap``)."""
+    import torch
+    q_res = g.integers(0, 200, m)
+    q_base = 2 ** 31 - 1 - 150 if near_wrap else 5000
+    V = HYB_V
+    meta = np.stack([g.integers(0, 2 * V, H), g.integers(0, 3, H)], 1)
+    meta[: min(H, 4), 0] = V
+    kind = np.arange(T) % 5
+    step = g.integers(-1, 2, (T, m)) * (g.random((T, m)) < 0.03)
+    rows = np.repeat(q_res[None], T, axis=0)
+    rows[kind == 1] += np.abs(step[kind == 1])
+    rows[kind == 2] -= np.abs(step[kind == 2])
+    rows[kind == 3] += step[kind == 3]
+    rows[kind == 4] = g.integers(0, 256, ((kind == 4).sum(), m))
+    base = np.full(T, q_base, np.int64)
+    base[kind == 4] = g.integers(-2 ** 31, 2 ** 31 - 256, (kind == 4).sum())
+    t = lambda x, d: torch.as_tensor(x, dtype=d, device=dev)  # noqa: E731
+    q = ((q_res + q_base) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return (t(q, torch.int32), V, t(meta, torch.int32),
+            t(K * meta.sum(1), torch.float32),
+            t(np.clip(rows, 0, 255), torch.uint8),
+            t((base & 0xFFFFFFFF).astype(np.uint32).view(np.int32), torch.int32))
+
+
+def check_hybrid_kernel(dev) -> dict:
+    """The hybrid kernel against its plain version at the path's shapes
+    (H = 4,096 hot rows over T = 65,540 tail rows, m = 1024 and 512) and
+    at ragged ones (H and T not multiples of bn, m = 200 and 1000,
+    near-wrap bases): flags and sums identical, fp within tolerance, hot
+    fp exactly 0; and its tail rows bit-identical to the packed
+    one-vs-many kernel on the same tail."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = np.random.default_rng(SEED + 7)
+    T_path = HYB_TAIL + HYB_WIDE
+    err = 0.0
+    for H, T, m, near_wrap in ((HYB_HEAD + HYB_MARGIN, T_path, M, False),
+                               (HYB_HEAD + HYB_MARGIN, T_path, M // 2, True),
+                               (13, 1001, 200, True), (4095, 77, 1000, True),
+                               (1, 9, 520, False)):
+        q, V, meta, hs, tail, base = hybrid_inputs(g, H, T, m, dev, near_wrap)
+        what = f"hybrid H={H} T={T} m={m}"
+        flags, sums, fp = ops.hybrid(q, V, meta, hs, tail, base)
+        w_flags, w_sums, w_fp = ref.hybrid_classify_ref(
+            q, V, meta, hs, tail, base, bm=ops.tile_width(m, 512))
+        torch.cuda.synchronize()
+        check(torch.equal(flags, w_flags), f"{what}: flags")
+        check(torch.equal(sums, w_sums), f"{what}: sums")
+        check(bool((fp[:H] == 0).all()), f"{what}: hot fp not exactly 0")
+        err = max(err, check_fp(host(fp), host(w_fp), what))
+        flat = ops._classify_vs_many_packed(q, tail, base)
+        out = ops._classify_dict(flags, sums, fp)
+        for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
+                    "fp_p_before_q"):
+            check(torch.equal(out[key][H:], flat[key]),
+                  f"{what}: tail {key} differs from one_vs_many_packed")
+        check(torch.equal(out["sum_q"], flat["sum_q"]), f"{what}: sum_q")
+        check(bool(out["q_le_p"][:H].any()) and bool(out["p_le_q"][H:].any()),
+              f"{what}: degenerate verdicts")
+    print("[kernels] hybrid: identical to the plain version, fp within "
+          "tolerance, hot fp exactly 0, tail rows bit-identical to "
+          "one_vs_many_packed")
+    return {"hybrid": err}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path, on the card and on the CPU
 # ---------------------------------------------------------------------------
@@ -548,6 +642,32 @@ def profile_round(rt, reg) -> dict:
             "top_kernels_ms": [[k[:60], ms] for k, ms in top]}
 
 
+def profiled(fn) -> dict:
+    """``fn()`` once on the card under ``torch.profiler``: wall ms (host
+    clock, synchronised), kernel and copy ms summed over the device
+    events, the card's idle share without and with the copies, and the
+    device events that took the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    copy_ms = sum(ms for k, ms in device if k.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(ms for _, ms in device) - copy_ms
+    top = sorted(device, key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+            "idle_share": 1.0 - kernel_ms / wall_ms,
+            "idle_share_with_copies": 1.0 - (kernel_ms + copy_ms) / wall_ms,
+            "top_device_ms": [[k[:60], ms] for k, ms in top]}
+
+
 def compare_runs(gpu: dict, cpu: dict) -> None:
     check_equal(gpu["view0"][0], cpu["view0"][0], "classify_fleet statuses")
     check_fp(gpu["view0"][1], cpu["view0"][1], "classify_fleet fp")
@@ -630,7 +750,6 @@ def drive_health(dev) -> dict:
     all-pairs call timed alone (synchronised) and its transfer, then one
     more call under the profiler for device time and the idle share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.fleet import fleet_health
     from repro_torch.kernels import ops
     from repro_torch.obs import Observer, Tracer
@@ -664,25 +783,11 @@ def drive_health(dev) -> dict:
     engine = res.engine
     del res
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fleet_health(reg)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    copy_ms = sum(ms for k, ms in device if k.startswith(("Memcpy", "Memset")))
-    kernel_ms = sum(ms for _, ms in device) - copy_ms
-    top = sorted(device, key=lambda kv: -kv[1])[:6]
+    prof = profiled(lambda: fleet_health(reg))
+    prof["profiled_wall_ms"] = prof.pop("wall_ms")
     return {"launches": launches, "engine": engine, "wall_ms": wall_ms,
             "spans_ms": spans, "all_pairs_ms": all_pairs_ms,
-            "to_host_ms": to_host_ms, "profiled_wall_ms": prof_wall_ms,
-            "kernel_ms": kernel_ms, "copy_ms": copy_ms,
-            "idle_share": 1.0 - kernel_ms / prof_wall_ms,
-            "idle_share_with_copies": 1.0 - (kernel_ms + copy_ms) / prof_wall_ms,
-            "top_device_ms": [[k[:60], ms] for k, ms in top],
-            "health": health_record(health)}
+            "to_host_ms": to_host_ms, **prof, "health": health_record(health)}
 
 
 def narrow_rows(n: int) -> np.ndarray:
@@ -770,7 +875,250 @@ def health_cpu_check() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 6: the hybrid path
+# ---------------------------------------------------------------------------
+
+def hybrid_population(rng, n_head: int, n_tail: int, n_wide: int) -> list:
+    """(sid, v, events) per session in Zipf-popularity order, as
+    ``benchmarks/bench_hybrid.py:_population`` builds it: one session
+    equal to the local chain, tiny head sessions (v in [1, 9), 0-2
+    private events), ``tail/0`` at the binding point v = 64, then
+    ``n_wide`` tail sessions with 300 copies of one private event (their
+    span exceeds a byte: the int32 side dict) and the other tail
+    sessions (v in [64, V), 0-2 private events)."""
+    from repro_torch.core.hashing import stable_event_id
+
+    pop = [("hot/0", HYB_V, ())]
+    for i in range(1, n_head):
+        v, npriv = int(rng.integers(1, 9)), int(rng.integers(0, 3))
+        pop.append((f"hot/{i}", v, tuple(
+            stable_event_id(b"hybrid/bench-priv", i, j) for j in range(npriv))))
+    pop.append(("tail/0", HYB_TAIL_V_MIN, ()))
+    for w in range(n_wide):
+        pop.append((f"wide/{w}", int(rng.integers(HYB_TAIL_V_MIN, HYB_V)),
+                    (stable_event_id(b"hybrid/wide", w),) * 300))
+    for i in range(1, n_tail):
+        v, npriv = int(rng.integers(HYB_TAIL_V_MIN, HYB_V)), int(rng.integers(0, 3))
+        pop.append((f"tail/{i}", v, tuple(
+            stable_event_id(b"hybrid/bench-priv", n_head + i, j)
+            for j in range(npriv))))
+    return pop
+
+
+def verify_view(view, idx_of: dict, v: np.ndarray, npriv: np.ndarray) -> dict:
+    """Violations of one classify against the ground truth of
+    ``bench_hybrid.py:_truth``/``_verify_view`` (a session is a v-long
+    prefix of the V-long chain plus private events), vectorised.
+    ``*_claimed_max`` is the largest fp of a strict verdict's claimed
+    direction (what the fp budget binds); ``*_any_max`` the bench's
+    larger fp of the two directions of every row, claimed or not."""
+    idx = np.fromiter((idx_of[s] for s in view.sids), np.int64, len(view.sids))
+    t_le, t_ge = v[idx] >= HYB_V, npriv[idx] == 0
+    le, ge, hot = view.q_le_p, view.p_le_q, view.hot
+    wrong = (le & ~t_le) | (ge & ~t_ge)
+    claimed = np.where(le ^ ge, np.where(le, view.fp_q_before_p,
+                                         view.fp_p_before_q), 0.0)
+    any_dir = np.maximum(view.fp_q_before_p, view.fp_p_before_q)
+    return {"fn": int(((t_le & ~le) | (t_ge & ~ge)).sum()),
+            "hot_fp": int(wrong[hot].sum()), "tail_fp": int(wrong[~hot].sum()),
+            "hot_any_max": float(any_dir[hot].max(initial=0.0)),
+            "tail_claimed_max": float(claimed[~hot].max(initial=0.0)),
+            "tail_any_max": float(any_dir[~hot].max(initial=0.0))}
+
+
+_VIEW_FIELDS = ("sids", "hot", "q_le_p", "p_le_q", "sum_p", "sum_q",
+                "fp_q_before_p", "fp_p_before_q", "engine")
+
+
+def drive_hybrid(device: str) -> dict:
+    """The hybrid path through its entry points at the slice's size (see
+    the module docstring): admission, Zipf churn that promotes the head,
+    fused classifies, the adaptive fold and its replay, the check against
+    the ground truth and against a flat packed slab.  The launch counts
+    are read before the flat-slab comparison."""
+    import torch
+    from repro_torch.causal import PackedSlab
+    from repro_torch.hybrid import (AdaptiveConfig, AdaptivePolicy,
+                                    HybridConfig, HybridEngine, derive_mk,
+                                    replay_resize)
+    from repro_torch.kernels import ops
+    from repro_torch.obs.audit import AuditTrail
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 8)
+    pop = hybrid_population(rng, HYB_HEAD, HYB_TAIL, HYB_WIDE)
+    sids = [sid for sid, _, _ in pop]
+    head = sids[:HYB_HEAD]
+    N = len(pop)
+    idx_of = {sid: i for i, sid in enumerate(sids)}
+    v_arr = np.array([v for _, v, _ in pop])
+    np_arr = np.array([len(ev) for _, _, ev in pop])
+    out: dict = {"times": {}, "views": [], "checks": []}
+    trail = AuditTrail(store_frames=True)
+    eng = HybridEngine(
+        HybridConfig(m=M, k=K, hot_capacity=HYB_HEAD + HYB_MARGIN,
+                     tail_capacity=1 << (N - 1).bit_length(),
+                     promote_after=3, min_residency=0,
+                     max_migrations_per_window=1 << 30, window=1 << 30),
+        audit=trail, device=device)
+    ops.reset_launches()
+    eng.advance_local(HYB_V)
+    t0 = time.perf_counter()
+    eng.admit_many(pop)
+    out["times"]["admit_s"] = time.perf_counter() - t0
+
+    def churn_round():
+        z = rng.zipf(1.1, HYB_DRAWS)
+        for i in np.minimum(z - 1, N - 1):
+            eng.touch(sids[i])
+        for _ in range(6):
+            for sid in head:
+                eng.touch(sid)
+
+    def classify(key=None):
+        sync()
+        t0 = time.perf_counter()
+        view = eng.classify()
+        if key:
+            out["times"].setdefault(key, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        out["views"].append({f: getattr(view, f) for f in _VIEW_FIELDS})
+        out["checks"].append(verify_view(view, idx_of, v_arr, np_arr))
+        return view
+
+    t0 = time.perf_counter()
+    for _ in range(2):
+        churn_round()
+        view = classify()
+        check(view.engine.startswith("fused_hot_tail"),
+              f"hybrid classify ran {view.engine}")
+    for _ in range(10_000):
+        if all(eng.sessions[s].hot for s in head):
+            break
+        for sid in head:
+            eng.touch(sid)
+    check(all(eng.sessions[s].hot for s in head), "head never fully promoted")
+    out["times"]["promote_s"] = time.perf_counter() - t0
+    for _ in range(3):
+        classify("classify_m1024_ms")
+    out["m0"] = eng.m
+    out["hot_rows"], out["tail_rows"] = len(eng._hot), len(eng._t_order)
+
+    m_want, _ = derive_mk(HYB_BUDGET, K * HYB_V, K * HYB_TAIL_V_MIN, m_max=M,
+                          k=K)
+    eng.adaptive = AdaptivePolicy(eng, AdaptiveConfig(fp_budget=HYB_BUDGET,
+                                                      window=3))
+    for _ in range(HYB_ROUNDS):
+        churn_round()
+        classify("classify_churn_ms")
+    check(eng.resizes == 1, f"expected one adaptive resize, got {eng.resizes}")
+    check(eng.m == m_want, f"resized to m={eng.m}, derived {m_want}")
+    check(all(eng.sessions[s].hot for s in head), "churn displaced the head")
+    rows = json.loads(next(r for r in trail.records if r.kind == "resize").detail)["rows"]
+    t0 = time.perf_counter()
+    rep = replay_resize(trail)
+    out["times"]["replay_s"] = time.perf_counter() - t0
+    check(rep.ok and rep.matched == rep.checked == rows,
+          f"resize replay: {rep.summary()} of {rows} rows")
+    out["replay"] = rep.summary()
+    for _ in range(3):
+        classify("classify_m512_ms")
+    sync()
+    out["launches"] = dict(ops.LAUNCHES)
+    out["n_classify"] = len(out["views"])
+
+    acc = {key: (sum if key.endswith("fp") or key == "fn" else max)(
+        c[key] for c in out["checks"]) for key in out["checks"][0]}
+    check(acc["fn"] == 0, f"hybrid false negatives: {acc}")
+    check(acc["hot_fp"] == 0 and acc["hot_any_max"] == 0.0,
+          f"hybrid hot rows not exact: {acc}")
+    check(acc["tail_claimed_max"] <= HYB_BUDGET * 1.01,
+          f"hybrid tail claims above the budget: {acc}")
+    out["acc"] = acc
+
+    # the tail rows against the same tail as a flat packed slab
+    slab = eng.slab()
+    H = slab.hot_count
+    flat = eng.engine.classify(eng.local_clock(), PackedSlab(
+        slab.cells_u8, slab.base, wide=slab.wide)).to_host()
+    last = out["views"][-1]
+    for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
+                "fp_p_before_q"):
+        check_equal(last[key][H:], getattr(flat, key),
+                    f"hybrid tail {key} vs flat packed slab")
+    out["m"], out["resizes"] = eng.m, eng.resizes
+    out["tail_u8"] = host(slab.cells_u8)
+    out["tail_base"] = host(slab.base)
+    out["eng"] = eng
+    return out
+
+
+def compare_hybrid(gpu: dict, cpu: dict) -> None:
+    check(len(gpu["views"]) == len(cpu["views"]), "hybrid classify counts")
+    for r, (g, c) in enumerate(zip(gpu["views"], cpu["views"])):
+        for key in ("sids", "sum_q", "engine"):
+            check(g[key] == c[key], f"hybrid view {r}: {key}")
+        for key in ("hot", "q_le_p", "p_le_q", "sum_p"):
+            check_equal(g[key], c[key], f"hybrid view {r} {key}")
+        for key in ("fp_q_before_p", "fp_p_before_q"):
+            check_fp(g[key], c[key], f"hybrid view {r} {key}")
+    check(gpu["m"] == cpu["m"] and gpu["resizes"] == cpu["resizes"],
+          "hybrid post-resize geometry")
+    check_equal(gpu["tail_u8"], cpu["tail_u8"], "hybrid tail rows")
+    check_equal(gpu["tail_base"], cpu["tail_base"], "hybrid tail bases")
+
+
+def hybrid_pairs(device: str, n: int, n_head: int) -> dict:
+    """``HybridEngine.pairs`` over ``n`` sessions of the same generator
+    (``n_head`` in the head, 4 wide tail rows), the head promoted by
+    sweeps; checks the hot-hot block against set containment computed
+    here, with fp exactly 0."""
+    import torch
+    from repro_torch.hybrid import HybridConfig, HybridEngine
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 9)
+    pop = hybrid_population(rng, n_head, n - n_head - HYB_WIDE, HYB_WIDE)
+    eng = HybridEngine(
+        HybridConfig(m=M, k=K, hot_capacity=n_head + HYB_MARGIN,
+                     tail_capacity=1 << (n - 1).bit_length(), promote_after=3,
+                     min_residency=0, max_migrations_per_window=1 << 30,
+                     window=1 << 30), device=device)
+    eng.advance_local(HYB_V)
+    eng.admit_many(pop)
+    head = pop[:n_head]
+    for _ in range(3):
+        for sid, _, _ in head:
+            eng.touch(sid)
+    check(list(eng._hot) == [sid for sid, _, _ in head], "pairs: head not hot")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res, order = eng.pairs()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    H = n_head
+    vs = [v for _, v, _ in head]
+    ev = [set(e) for _, _, e in head]
+    want = np.array([[vs[a] <= vs[b] and ev[a] <= ev[b] for b in range(H)]
+                     for a in range(H)])
+    check_equal(host(res.le[:H, :H]), want, f"pairs at {n}: hot-hot le")
+    check_equal(host(res.ge[:H, :H]), want.T, f"pairs at {n}: hot-hot ge")
+    check(bool((res.fp[:H, :H] == 0).all()), f"pairs at {n}: hot-hot fp")
+    check(res.engine.endswith("+hot_exact") and "wide_rim" in res.engine,
+          f"pairs at {n}: engine {res.engine}")
+    return {"res": res, "order": order, "ms": ms, "launches": launches,
+            "engine": res.engine}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times
 # ---------------------------------------------------------------------------
 
 def events_ms(fn, n_buf: int, *, queued: bool, iters: int = 50,
@@ -964,6 +1312,30 @@ def time_pair_kernels(dev, sass: dict) -> dict:
     return rec
 
 
+def time_hybrid(dev, H: int, T: int) -> dict:
+    """The hybrid kernel at the path's H hot and T tail rows, m = 1024:
+    its device time, the plain version's, and the packed one-vs-many
+    kernel's on the same tail, with the bytes the function must move
+    (tail T·m + 4T, hot metadata and sums 12H, outputs 24(H+T), query
+    4m)."""
+    from repro_torch.kernels import ops, ref
+
+    g = np.random.default_rng(SEED + 10)
+    bm = ops.tile_width(M, 512)
+    nbytes = T * M + 4 * T + 12 * H + 24 * (H + T) + 4 * M
+    nb = n_buffers(nbytes)
+    bufs = [hybrid_inputs(g, H, T, M, dev) for _ in range(nb)]
+    k = measure(lambda i: ops.hybrid(*bufs[i]), nb)
+    p = measure(lambda i: ref.hybrid_classify_ref(*bufs[i], bm=bm), nb,
+                iters=10)
+    o = measure(lambda i: ops._classify_vs_many_packed(bufs[i][0], bufs[i][4],
+                                                       bufs[i][5]), nb)
+    return dict(ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"],
+                plain_call_ms=p["call_ms"], library_ms=None, bytes=nbytes,
+                ops=T * M * 5, packed_ms=o["ms"], packed_call_ms=o["call_ms"],
+                hot=H, tail=T)
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -973,6 +1345,8 @@ _SOURCES = {
                            "src/repro/kernels/template.py:578"),
     "one_vs_many_i32": ("src/repro_torch/kernels/csrc/one_vs_many.cu",
                         "src/repro/kernels/template.py:578"),
+    "hybrid": ("src/repro_torch/kernels/csrc/one_vs_many.cu",
+               "src/repro/kernels/template.py:639"),
     "matrix_tri": ("src/repro_torch/kernels/csrc/bloom_matrix.cu",
                    "src/repro/kernels/template.py:316"),
     "matrix_rect_u8": ("src/repro_torch/kernels/csrc/bloom_matrix.cu",
@@ -1017,6 +1391,7 @@ def main() -> int:
 
     errs = check_kernels(dev)
     errs.update(check_pair_kernels(dev))
+    errs.update(check_hybrid_kernel(dev))
 
     ops.reset_launches()
     gpu = drive("cuda")
@@ -1052,8 +1427,54 @@ def main() -> int:
     launches.update({k: engines["launches"][k] for k in ENGINE_KERNELS
                      if k not in HEALTH_KERNELS})
 
+    hyb = drive_hybrid("cuda")
+    hyb_launches = {k: hyb["launches"][k] for k in HYBRID_KERNELS}
+    for kname, n in hyb_launches.items():
+        check(n > 0, f"kernel {kname} was not launched on the hybrid path")
+    print(f"[hybrid] cuda: {hyb['hot_rows']} hot + {hyb['tail_rows']} tail "
+          f"rows, m {hyb['m0']} -> {hyb['m']} ({hyb['resizes']} resize, "
+          f"{hyb['replay']}), launches {json.dumps(hyb_launches)} over "
+          f"{hyb['n_classify']} classifies, checks {json.dumps(hyb['acc'])}, "
+          f"times {json.dumps(hyb['times'])}")
+    print(f"[hybrid] tail rows bit-identical to a flat packed slab; one more "
+          f"classify under the profiler: "
+          f"{json.dumps(profiled(hyb['eng'].classify))}")
+    del hyb["eng"]
+    hyb_cpu = drive_hybrid("cpu")
+    del hyb_cpu["eng"]
+    print(f"[hybrid] cpu: checks {json.dumps(hyb_cpu['acc'])}, times "
+          f"{json.dumps(hyb_cpu['times'])}")
+    compare_hybrid(hyb, hyb_cpu)
+    print("[hybrid] card and CPU runs agree: sid order, hot and tail flags, "
+          "sums, post-resize m and tail rows identical; fp within tolerance")
+    del hyb_cpu
+    n_big, head_big = HYB_PAIRS[0]
+    big = hybrid_pairs("cuda", n_big, head_big)
+    for kname in HEALTH_KERNELS:
+        check(big["launches"][kname] > 0,
+              f"kernel {kname} was not launched by HybridEngine.pairs")
+    print(f"[hybrid] pairs at {n_big} sessions ({head_big} hot) on the card: "
+          f"{big['ms']} ms, engine {big['engine']}, launches "
+          f"{json.dumps({k: big['launches'][k] for k in HEALTH_KERNELS})}; "
+          f"hot-hot block exact, fp 0")
+    del big
+    n_small, head_small = HYB_PAIRS[1]
+    gp, cp = (hybrid_pairs(d, n_small, head_small) for d in ("cuda", "cpu"))
+    check(gp["order"] == cp["order"] and gp["engine"] == cp["engine"],
+          "hybrid pairs order or engine differs between devices")
+    gres, cres = gp["res"].to_host(), cp["res"].to_host()
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
+        check_equal(gres[key], cres[key], f"hybrid pairs {key} at {n_small}")
+    check_fp(gres.fp, cres.fp, f"hybrid pairs fp at {n_small}")
+    print(f"[hybrid] pairs at {n_small} sessions: card ({gp['ms']} ms) and "
+          f"CPU ({cp['ms']} ms) agree: flags and sums identical, fp within "
+          f"tolerance")
+    del gp, cp, gres, cres
+    launches["hybrid"] = hyb_launches["hybrid"]
+
     rate = hbm_rate(name)
     timed = time_kernels(dev, gpu["n_wide"])
+    timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
     timed.update(time_pair_kernels(dev, sass))
     records = []
     for kname, t in timed.items():
@@ -1080,6 +1501,14 @@ def main() -> int:
               f"{rate / 1e12} TB/s, ops {t_ops} at the {ops_by} rate)"
               + (f", tensor-core ops {t['tensor_ops']}" if t.get("tensor_ops") else "")
               + (f", rows={t['rows']}" if "rows" in t else ""))
+    th = timed["hybrid"]
+    print(f"[time] hybrid at H={th['hot']} T={th['tail']} m={M}: kernel "
+          f"{th['ms']} ms, one_vs_many_packed on the same tail "
+          f"{th['packed_ms']} ms (call {th['packed_call_ms']} ms), "
+          f"{launches['hybrid'] / hyb['n_classify']} launches per classify; "
+          f"fused classify end to end at m={hyb['m0']} "
+          f"{hyb['times']['classify_m1024_ms']} ms, at m={hyb['m']} "
+          f"{hyb['times']['classify_m512_ms']} ms")
     print(f"[time] classify_all {gpu['times']['classify_all_ms']} ms, "
           f"gossip rounds {gpu['times']['gossip_round_ms']} ms (end to end, "
           f"65,536 peers); fleet_health {health['wall_ms']} ms ({N_SLOTS} "

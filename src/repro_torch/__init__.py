@@ -5,19 +5,24 @@ code is PyTorch; every Pallas TPU kernel on the ported path is a CUDA
 C++ kernel for ``sm_90a`` (``repro_torch.kernels.csrc``), built with
 ``nvcc`` at first use and bound with ``ctypes``.
 
-Ported so far (the main path):
+Ported so far (the main path, all-pairs, hybrid):
 
 - ``core``     hashing, the clock, wire frames, history, vector clock,
                the simulator (loopback gossip only)
-- ``kernels``  tick, fused merge+compare, one-vs-many (u8 and i32)
-- ``causal``   policy, typed results, ``CausalEngine.classify``
+- ``kernels``  tick, fused merge+compare, one-vs-many (u8 and i32), the
+               fused hybrid sweep, the all-pairs tri, rect-u8,
+               rect-i32-stats and mxu kernels
+- ``causal``   policy, typed results, ``CausalEngine.classify``/``pairs``
 - ``obs``      trace spans, metrics, audit trail
-- ``fleet``    the registry slab, gossip, the loopback transport
+- ``fleet``    the registry slab, gossip, the loopback transport, the
+               fleet monitor
+- ``hybrid``   ``HybridEngine`` (exact hot set over the packed tail) and
+               the fp-budget ``AdaptivePolicy``
 - ``runtime``  ``ClockRuntime``
 - ``convert``  builds the port's objects from the JAX package's state
 
-Entry points (``ClockRuntime``, ``ClockRegistry``, ``run_gossip_sim``)
-run on the card unless the caller passes ``device="cpu"``; functions on
-tensors follow their tensors' device.  This package never imports
+Entry points (``ClockRuntime``, ``ClockRegistry``, ``HybridEngine``,
+``run_gossip_sim``) run on the card unless the caller passes
+``device="cpu"``; functions on tensors follow their tensors' device.  This package never imports
 ``jax`` or ``repro``.
 """

@@ -8,11 +8,13 @@
 ``classify`` takes a ``PackedSlab`` (the registry's u8 residual + int32
 base layout; promoted rows are overlaid through the exact int32 kernel)
 or an ``[N, m]`` int32 slab / batched ``BloomClock`` (int32 kernel).
-``pairs`` takes the same inputs: a slab is compared symmetrically, with
-dead slots compacted away and promoted rows patched in through the
-exact int32 rim; an int32 slab is packed on the fly when its value span
-fits a byte.  The hybrid hot-set branch and the sharded paths of the
-reference are not ported yet.
+A hot-carrying slab (``repro_torch.hybrid.HybridSlab``, duck typed on
+``hot_meta``) classifies through the fused hybrid kernel.  ``pairs``
+takes the same inputs but hot-carrying slabs: a slab is compared
+symmetrically, with dead slots compacted away and promoted rows patched
+in through the exact int32 rim; an int32 slab is packed on the fly when
+its value span fits a byte.  The sharded paths of the reference are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -122,6 +124,9 @@ class CausalEngine:
         ops.LAST_DISPATCH.clear()
         if isinstance(peers, PackedSlab):
             q = _as_cells(query).to(peers.cells_u8.device).contiguous()
+            hot_meta = getattr(peers, "hot_meta", None)
+            if hot_meta is not None and np.shape(hot_meta)[0] > 0:
+                return self._classify_hybrid(q, peers, bn, bm)
             out = ops._classify_vs_many_packed(
                 q, peers.cells_u8, peers.base, bn=bn, bm=bm)
             engine, blocks = _dispatch_label("packed")
@@ -137,6 +142,32 @@ class CausalEngine:
         kw = {k: v for k, v in (("bn", bn), ("bm", bm)) if v is not None}
         out = ops._classify_vs_many(q, cells, **kw)
         return ClassifyResult.from_dict(out, engine="i32")
+
+    def _classify_hybrid(self, q, peers, bn, bm) -> ClassifyResult:
+        """Hot-carrying slab: one fused kernel sweep covers the exact hot
+        rows and the packed tail; hot verdicts come back with fp = 0,
+        tail verdicts bit-identical to a flat packed slab at the same
+        blocks.  Result rows are hot first: [0, H) hot, then the tail."""
+        dev = q.device
+        hot_meta = torch.as_tensor(np.asarray(peers.hot_meta, np.int32),
+                                   device=dev)
+        hot_sums = torch.as_tensor(
+            np.asarray(peers.hot_sums, np.float32).reshape(-1), device=dev)
+        out = ops._classify_hybrid(q, int(peers.local_version), hot_meta,
+                                   hot_sums, peers.cells_u8, peers.base,
+                                   bn=bn, bm=bm)
+        engine, blocks = _dispatch_label("hybrid")
+        if peers.wide:
+            # wide keys index tail slots; result rows shift by the hot
+            # block, so the overlay patches the shifted positions
+            H = hot_meta.shape[0]
+            widx = sorted(peers.wide)
+            rows = torch.as_tensor(np.stack([peers.wide[s] for s in widx]),
+                                   device=dev)
+            out = ops._overlay_wide_classify(out, q, [H + s for s in widx],
+                                             rows)
+            engine += "+wide_overlay"
+        return ClassifyResult.from_dict(out, engine=engine, blocks=blocks)
 
     # ------------------------------------------------------------------
     # verb 2: all-pairs compare
@@ -182,9 +213,9 @@ class CausalEngine:
         if isinstance(clocks, PackedSlab):
             if getattr(clocks, "hot_meta", None) is not None:
                 raise ValueError(
-                    "hot-carrying slabs are classify-only here; the fused "
-                    "hybrid all-pairs sweep (HybridEngine.pairs) is not "
-                    "ported yet")
+                    "hot-carrying slabs are classify-only here; use "
+                    "repro_torch.hybrid.HybridEngine.pairs for the fused "
+                    "all-pairs sweep")
             if cols is not None:
                 raise ValueError(
                     "PackedSlab pairs are symmetric; cols is not supported")

@@ -7,7 +7,7 @@ fallback from the card to the plain version.
 
 Every launch adds one to ``LAUNCHES[name]``, so a run can show that it
 went through the kernels.  ``LAST_DISPATCH`` records the most recent
-one-vs-many or all-pairs dispatch (op, engine and blocks), which
+one-vs-many, hybrid or all-pairs dispatch (op, engine and blocks), which
 ``CausalEngine`` copies into its results.
 
 The m-tile width follows the JAX wrappers' tile plan (``tile_width``):
@@ -33,6 +33,7 @@ __all__ = [
     "tile_width",
     "tick",
     "merge_compare",
+    "hybrid",
     "eq3_outer",
     "tri_flags",
     "rect_u8_flags",
@@ -48,6 +49,7 @@ LAUNCHES: dict[str, int] = {
     "bloom_merge_compare": 0,
     "one_vs_many_packed": 0,
     "one_vs_many_i32": 0,
+    "hybrid": 0,
     "matrix_tri": 0,
     "matrix_rect_u8": 0,
     "matrix_rect_i32": 0,
@@ -65,7 +67,8 @@ PAIR_TILES = (32, 64, 128)
 _PAIR_MAX = 128 * 64
 _PAIR_TILE_DEFAULT = 64
 
-#: the most recent one-vs-many or all-pairs dispatch: op, engine, blocks
+#: the most recent one-vs-many, hybrid or all-pairs dispatch: op, engine,
+#: blocks
 LAST_DISPATCH: dict = {}
 
 # largest dynamic shared memory a block may take on Hopper (bytes)
@@ -283,6 +286,79 @@ def _overlay_wide_classify(out: dict, q: torch.Tensor, wide_idx,
 
 
 # ---------------------------------------------------------------------------
+# hybrid classify (exact hot rows + packed tail, one fused kernel)
+# ---------------------------------------------------------------------------
+
+def hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
+           hot_sums: torch.Tensor, tail: torch.Tensor,
+           tail_base: torch.Tensor, *, bn: int = 8, bm: int = 512):
+    """(flags, sums, fp), each [H + T, 2], of one query [m] int32 against
+    H exact hot rows (``hot_meta`` [H, 2] int32 ``(v, n_private)``,
+    ``hot_sums`` [H] float32) and T packed tail rows (``tail`` [T, m] u8,
+    ``tail_base`` [T] int32), hot first: the kernel for CUDA tensors,
+    its plain version for CPU tensors.  Both H and T must be positive."""
+    (m,) = q.shape
+    H = hot_meta.shape[0]
+    T = tail.shape[0]
+    if H == 0 or T == 0:
+        raise ValueError(f"hybrid needs both a hot set and a tail, got "
+                         f"H={H} T={T}")
+    if tuple(tail.shape) != (T, m):
+        raise ValueError(f"query {tuple(q.shape)} vs tail {tuple(tail.shape)}")
+    bm = tile_width(m, bm)
+    hot_sums = hot_sums.reshape(-1)
+    tail_base = tail_base.reshape(-1)
+    if not tail.is_cuda:
+        return ref.hybrid_classify_ref(q, v_local, hot_meta, hot_sums, tail,
+                                       tail_base, bm=bm)
+    _check(q, "hybrid query", torch.int32, (m,))
+    _check(hot_meta, "hybrid hot_meta", torch.int32, (H, 2))
+    _check(hot_sums, "hybrid hot_sums", torch.float32, (H,))
+    _check(tail, "hybrid tail", torch.uint8, (T, m))
+    _check(tail_base, "hybrid tail_base", torch.int32, (T,))
+    if not 1 <= bn <= 32:
+        raise ValueError(f"hybrid: bn={bn} rows per block must be in [1, 32]")
+    if 4 * 16 * ((-(-m // 16)) | 1) > _SMEM_MAX:
+        raise ValueError(f"hybrid: m={m} query row does not fit shared memory")
+    vec_ok = int(m % 16 == 0 and tail.data_ptr() % 16 == 0)
+    dev = tail.device
+    flags = torch.empty((H + T, 2), dtype=torch.int32, device=dev)
+    sums = torch.empty((H + T, 2), dtype=torch.float32, device=dev)
+    fp = torch.empty((H + T, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library("one_vs_many").hybrid_classify(
+            q.data_ptr(), int(v_local), hot_meta.data_ptr(),
+            hot_sums.data_ptr(), tail.data_ptr(), tail_base.data_ptr(),
+            flags.data_ptr(), sums.data_ptr(), fp.data_ptr(), H, T, m, bn, bm,
+            _log_q(m), vec_ok, _stream(tail))
+    _launched(err, "hybrid")
+    return flags, sums, fp
+
+
+def _classify_hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
+                     hot_sums: torch.Tensor, tail: torch.Tensor,
+                     tail_base: torch.Tensor, *, bn: int | None = None,
+                     bm: int | None = None) -> dict:
+    """One query vs an exact hot set plus a packed bloom tail, fused.
+
+    Hot verdicts are integer compares of ``(v, n_private)`` against the
+    local chain version ``v_local`` with fp = 0; tail rows are
+    bit-identical to ``_classify_vs_many_packed`` at the same bm.  Blocks
+    default to the reference's built-in bn=8, bm=512.  Returns the
+    ``_classify_dict`` layout over H + T rows, hot first."""
+    (m,) = q.shape
+    H, T = hot_meta.shape[0], tail.shape[0]
+    assert H > 0 and T > 0, "hybrid needs both a hot set and a tail " \
+        "(route single-representation slabs through the plain engines)"
+    bn = bn or 8
+    bm = bm or 512
+    _note_dispatch("hybrid", "fused_hot_tail", bn=bn, bm=tile_width(m, bm),
+                   hot=H, tail=T)
+    return _classify_dict(*hybrid(q, v_local, hot_meta, hot_sums, tail,
+                                  tail_base, bn=bn, bm=bm))
+
+
+# ---------------------------------------------------------------------------
 # all-pairs kernels
 # ---------------------------------------------------------------------------
 
@@ -487,9 +563,9 @@ def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
 
     Without an autotune table, dispatch resolves as the reference's
     does when its table is silent: "tri" for a symmetric slab, "full"
-    when cols are given; "mxu" only when asked for and only while the
-    logical span is at most ``MXU_SPAN_MAX`` (else "tri"); "i32" is not
-    a packed engine and resolves to auto.  Returns the dict of
+    when cols are given; "mxu" only when asked for, and then a logical
+    span above ``MXU_SPAN_MAX`` raises, as in the reference; "i32" is
+    not a packed engine and resolves to auto.  Returns the dict of
     ``_compare_matrix``.
     """
     symmetric = cols is None
@@ -503,11 +579,6 @@ def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
     engine = engine or "tri"
     if engine not in ("tri", "full", "mxu"):
         raise ValueError(f"unknown packed engine: {engine}")
-    bounds = None
-    if engine == "mxu":
-        bounds = _logical_bounds(cells, base, cols, col_base)
-        if bounds[1] > MXU_SPAN_MAX:
-            engine = "tri"
     if engine == "tri" and not symmetric:
         engine = "full"
     if uniform_base is None:
@@ -526,7 +597,7 @@ def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
         le, ge = rect_u8_flags(cells, cols, base, col_base, bi=bi, bj=bj,
                                with_base=not uniform_base)
         return _matrix_dict(le, ge, row_sums, col_sums, m)
-    lo, span = bounds
+    lo, span = _logical_bounds(cells, base, cols, col_base)
     viol = mxu_viol(cells, cols, base, col_base, lo=lo,
                     n_thresholds=_span_bucket(span), bi=bi, bj=bj)
     return _mxu_finalize(viol, cells, base, cols, col_base, row_sums,

@@ -25,6 +25,7 @@ __all__ = [
     "bloom_tick_ref",
     "bloom_merge_compare_ref",
     "one_vs_many_ref",
+    "hybrid_classify_ref",
     "wrap_sum_i32",
     "tri_flags_ref",
     "rect_u8_flags_ref",
@@ -121,6 +122,33 @@ def one_vs_many_ref(q: torch.Tensor, peers: torch.Tensor,
     sq = tile_sums(q, bm).expand_as(sp)
     fp = torch.stack([eq3_fp(sq, sp, m), eq3_fp(sp, sq, m)], -1)
     return flags.to(torch.int32), torch.stack([sq, sp], -1), fp
+
+
+def hybrid_classify_ref(q: torch.Tensor, v_local: int,
+                        hot_meta: torch.Tensor, hot_sums: torch.Tensor,
+                        tail: torch.Tensor, tail_base: torch.Tensor, *,
+                        bm: int):
+    """One query [m] int32 vs H exact hot rows and T packed tail rows
+    (``template.py::_emit_hybrid``); outputs stacked hot first, each
+    [H + T, 2] as in ``one_vs_many_ref``.
+
+    Hot row ``(v, n_private)`` of ``hot_meta`` [H, 2] int32: flags =
+    (V <= v, v <= V and n_private == 0) against the local chain version
+    V = ``v_local``; sums = (Σq per bm-wide tile as the tail rows take
+    it, its ``hot_sums`` [H] value); fp = 0.  Tail rows: exactly
+    ``one_vs_many_ref`` on ``tail`` [T, m] u8 with ``tail_base`` [T].
+    """
+    t_flags, t_sums, t_fp = one_vs_many_ref(q, tail, tail_base, bm=bm)
+    H = hot_meta.shape[0]
+    v = hot_meta[:, 0].to(torch.int32)
+    n_private = hot_meta[:, 1].to(torch.int32)
+    h_flags = torch.stack([v_local <= v, (v <= v_local) & (n_private == 0)],
+                          -1).to(torch.int32)
+    sq = tile_sums(q, bm).expand(H)
+    h_sums = torch.stack([sq, hot_sums.reshape(-1).to(torch.float32)], -1)
+    h_fp = torch.zeros((H, 2), dtype=torch.float32, device=q.device)
+    return (torch.cat([h_flags, t_flags]), torch.cat([h_sums, t_sums]),
+            torch.cat([h_fp, t_fp]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: tick, merge-compare, one-vs-many, and the all-pairs tri, rect-u8,
-rect-i32-stats and mxu kernels.  Every test here carries the ``gpu``
-marker and skips without a CUDA device (decided in a fixture, never at
-import time).
+card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
+all-pairs tri, rect-u8, rect-i32-stats and mxu kernels.  Every test
+here carries the ``gpu`` marker and skips without a CUDA device
+(decided in a fixture, never at import time).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -306,3 +306,105 @@ def test_cuda_fleet_health_matches_cpu(cuda):
     np.testing.assert_array_equal(gh.straggler_mask, ch.straggler_mask)
     assert gh.n_components == ch.n_components
     assert_fp_close(torch.as_tensor(gp.fp), torch.as_tensor(cp.fp))
+
+
+# ---------------------------------------------------------------------------
+# the hybrid kernel
+# ---------------------------------------------------------------------------
+
+def hybrid_case(H, T, m, seed, near_wrap, device):
+    """A query, V, [H, 2] hot metadata and [H] sums, and a packed tail of
+    T rows around the query, on ``device``."""
+    q, peers = query_and_peers(T, m, seed, near_wrap)
+    rng = np.random.default_rng(seed)
+    V = 20
+    meta = np.stack([rng.integers(0, 40, H), rng.integers(0, 3, H)], 1)
+    meta[: min(H, 2), 0] = V
+    hot_sums = (4.0 * meta.sum(1)).astype(np.float32)
+    tp = torch.as_tensor(peers, device=device)
+    u8, base, _ = pack.pack_rows(tp)
+    return (torch.as_tensor(q, device=device), V,
+            torch.as_tensor(meta.astype(np.int32), device=device),
+            torch.as_tensor(hot_sums, device=device), u8, base)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,T,m,near_wrap", [(4096, 2000, 1024, False),
+                                             (13, 1001, 200, True),
+                                             (4095, 77, 1000, True),
+                                             (1, 9, 520, False)])
+def test_cuda_hybrid_matches_plain_and_packed(cuda, H, T, m, near_wrap):
+    q, V, meta, hs, u8, base = hybrid_case(H, T, m, 11, near_wrap, cuda)
+    bm = ops.tile_width(m, 512)
+    n0 = ops.LAUNCHES["hybrid"]
+    flags, sums, fp = ops.hybrid(q, V, meta, hs, u8, base)
+    assert ops.LAUNCHES["hybrid"] == n0 + 1
+    w_flags, w_sums, w_fp = ref.hybrid_classify_ref(q, V, meta, hs, u8, base,
+                                                    bm=bm)
+    assert torch.equal(flags, w_flags)
+    assert torch.equal(sums, w_sums)
+    assert_fp_close(fp, w_fp)
+    assert bool((fp[:H] == 0).all())
+    # the tail rows are the packed one-vs-many kernel's, bit for bit
+    flat = ops._classify_vs_many_packed(q, u8, base)
+    out = ops._classify_dict(flags, sums, fp)
+    for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
+                "fp_p_before_q"):
+        assert torch.equal(out[key][H:], flat[key]), key
+    assert torch.equal(out["sum_q"], flat["sum_q"])
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_rejects_bad_inputs(cuda):
+    q, V, meta, hs, u8, base = hybrid_case(8, 16, 256, 12, False, cuda)
+    with pytest.raises(ValueError):
+        ops.hybrid(q, V, meta[:0], hs[:0], u8, base)
+    with pytest.raises(ValueError):
+        ops.hybrid(q, V, meta, hs, u8[:0], base[:0])
+    with pytest.raises(TypeError):
+        ops.hybrid(q, V, meta.to(torch.int64), hs, u8, base)
+    with pytest.raises(ValueError):
+        ops.hybrid(q, V, meta, hs, u8, base, bn=64)
+    with pytest.raises(ValueError):
+        ops.hybrid(q.cpu(), V, meta, hs, u8, base)
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_engine_matches_cpu(cuda):
+    from repro_torch.core.hashing import stable_event_id
+    from repro_torch.hybrid import HybridConfig, HybridEngine
+
+    def run(device):
+        eng = HybridEngine(HybridConfig(m=512, k=4, hot_capacity=16,
+                                        tail_capacity=256, promote_after=2,
+                                        min_residency=0), device=device)
+        eng.advance_local(96)
+        rng = np.random.default_rng(13)
+        eng.admit_many(
+            [(f"s{i}", int(rng.integers(0, 96)),
+              [stable_event_id(b"gpu/priv", i, j)
+               for j in range(rng.integers(0, 3))]) for i in range(200)]
+            + [("wide", 3, [stable_event_id(b"gpu/priv", 0, 0)] * 300)])
+        for i in range(12):
+            eng.touch(f"s{i}")
+            eng.touch(f"s{i}")
+        views = [eng.classify()]
+        res, order = eng.pairs()
+        eng.resize_tail(256)
+        views.append(eng.classify())
+        return views, res.to_host(), order
+
+    n0 = ops.LAUNCHES["hybrid"]
+    gviews, gres, gorder = run(cuda)
+    assert ops.LAUNCHES["hybrid"] == n0 + 2
+    cviews, cres, corder = run("cpu")
+    assert gorder == corder
+    for g, c in zip(gviews, cviews):
+        assert g.sids == c.sids and g.engine == c.engine
+        assert g.engine == "fused_hot_tail+wide_overlay"
+        for key in ("hot", "q_le_p", "p_le_q", "sum_p"):
+            np.testing.assert_array_equal(getattr(g, key), getattr(c, key))
+        assert g.sum_q == c.sum_q
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
+        np.testing.assert_array_equal(gres[key], cres[key])
+    assert gres.engine == cres.engine

@@ -264,17 +264,22 @@ def test_pairs_packed_slab_engines(engine, bases):
 
 
 def test_pairs_asked_for_mxu_on_a_wide_span_takes_tri():
-    """Where the reference raises (its mxu branch takes no span above
-    64), the port dispatches as the reference's own viability gate
-    does: to the triangle."""
+    """An asked-for mxu engine over a logical span above 64 takes no
+    other engine in either package: both raise ``MXU_SPAN_MAX``.  Left
+    to itself (no engine asked for), the same slab takes tri in both."""
     cells, base = slab_rows(20, M, 8, span=200)
     jslab, tslab = _slab(cells, base)
     with pytest.raises(ValueError, match="MXU_SPAN_MAX"):
         jcausal.CausalEngine(jpolicy(engine="mxu")).pairs(jslab)
-    tres = tcausal.CausalEngine(tpolicy(engine="mxu")).pairs(tslab)
-    assert tres.engine == "tri"
-    want = tcausal.CausalEngine(tpolicy()).pairs(tslab)
-    assert torch.equal(tres.le, want.le) and torch.equal(tres.ge, want.ge)
+    with pytest.raises(ValueError, match="MXU_SPAN_MAX"):
+        tcausal.CausalEngine(tpolicy(engine="mxu")).pairs(tslab)
+    with pytest.raises(ValueError, match="MXU_SPAN_MAX"):
+        tops._compare_matrix_packed(torch.as_tensor(cells),
+                                    torch.as_tensor(base), engine="mxu")
+    jres = jcausal.CausalEngine(jpolicy()).pairs(jslab)
+    tres = tcausal.CausalEngine(tpolicy()).pairs(tslab)
+    assert tres.engine == jres.engine == "tri"
+    assert_matrix_equal(tres, jres)
 
 
 @pytest.mark.parametrize("case", ["span_le_255", "span_gt_255", "pack_off",
