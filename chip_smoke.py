@@ -47,7 +47,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the L2 cache where the inputs are small; beside them the least time
    the card needs, from bytes and from instruction counts (the lower of
    each function's minimum and the built kernel's hot loop, read from
-   ``cuobjdump -sass``);
+   ``cuobjdump -sass`` with the lanes each 32-bit word holds: 2 for
+   mxu's 16-bit lanes, 1 for the other three).  The tick at the batched
+   B=4096, P=64 (the record) and the main path's B=1, P=4, each against
+   in-place ``scatter_add_`` and out-of-place ``torch.scatter_add``; mxu
+   against the bf16 thermometer ``torch.mm`` and the int8
+   ``torch._int_mm``; a record's library time is the faster call;
 8. one JSON line of kernel records, the card line, then the verdict line.
 
 No JAX and nothing of the JAX package is imported.
@@ -103,14 +108,18 @@ INT8_OPS = 1979e12
 #: lanes each; int32 wrap differences do not pack, one add-max and one
 #: add-min per lane; the violation count takes one add-relu per two
 #: lanes and one three-input add of two packed 16-bit counts per four.
+#: These count issue slots; the integer ALU pipe, which runs the DPX and
+#: IADD3 instructions, takes half the issue rate (PERF.md §3).
 #: The bound uses the lower of this and the built kernel's count (SASS).
 MIN_OPS = {"matrix_tri": 1.0, "matrix_rect_u8": 1.0, "matrix_rect_i32": 2.0,
            "matrix_mxu": 0.75}
-#: kernel symbol in the SASS of each all-pairs record
-_SASS_KERNELS = {"matrix_tri": "tri_flags_kernel",
-                 "matrix_rect_u8": "rect_u8_flags_kernel",
-                 "matrix_rect_i32": "rect_i32_stats_kernel",
-                 "matrix_mxu": "mxu_viol_kernel"}
+#: kernel symbol in the SASS of each all-pairs record (for mxu the
+#: default 64 x 64 tile's instance), and the m lanes a 32-bit word of
+#: its staged tiles holds: 2 for mxu's packed 16-bit lanes
+_SASS_KERNELS = {"matrix_tri": ("tri_flags_kernel", 1),
+                 "matrix_rect_u8": ("rect_u8_flags_kernel", 1),
+                 "matrix_rect_i32": ("rect_i32_stats_kernel", 1),
+                 "matrix_mxu": ("mxu_viol_s16x2_kernelILi64ELi64E", 2)}
 # the hybrid path (phase 6): the bench generator of
 # benchmarks/bench_hybrid.py:76-96 scaled to the serving tiers' defaults
 # (hot tier 4,096 sessions, warm tier 65,536: src/repro/serve/churn.py:72-73)
@@ -206,12 +215,13 @@ _SASS_INS = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def sass_hot_loop(text: str, symbol: str) -> dict:
+def sass_hot_loop(text: str, symbol: str, lanes_per_word: int = 1) -> dict:
     """Instructions per (pair, lane) in the hot loop of ``symbol`` in
     ``cuobjdump -sass`` output: the innermost backward-branch loop with
-    the most 16-byte shared loads, where 8 of them (4 lanes of 4 rows and
-    4 cols) feed 4 lanes x 16 pairs.  ``issue`` counts every instruction,
-    ``alu`` all but the shared loads and the branch."""
+    the most 16-byte shared loads, where 8 of them (4 words of 4 rows and
+    4 cols) feed 4 words x 16 pairs, that is 4 x ``lanes_per_word`` lanes
+    x 16 pairs.  ``issue`` counts every instruction, ``alu`` all but the
+    shared loads and the branch."""
     parts = _SASS_FN.split(text)
     for name, body in zip(parts[1::2], parts[2::2]):
         if symbol not in name:
@@ -232,7 +242,7 @@ def sass_hot_loop(text: str, symbol: str) -> dict:
             if n_lds and (best is None or n_lds > best.count("LDS.128")):
                 best = ops
         check(best is not None, f"sass: no shared-load loop in {symbol}")
-        pairs = best.count("LDS.128") / 8 * 64
+        pairs = best.count("LDS.128") / 8 * 64 * lanes_per_word
         hist: dict = {}
         for op in best:
             hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
@@ -253,8 +263,9 @@ def sass_counts() -> dict:
                                 capture_output=True, text=True, check=True,
                                 timeout=120).stdout
             for lib in ("bloom_matrix", "bloom_mxu")}
-    return {rec: sass_hot_loop(text["bloom_mxu" if "mxu" in sym else "bloom_matrix"], sym)
-            for rec, sym in _SASS_KERNELS.items()}
+    return {rec: dict(sass_hot_loop(text["bloom_mxu" if "mxu" in rec else "bloom_matrix"],
+                                    sym, lanes), lanes_per_word=lanes)
+            for rec, (sym, lanes) in _SASS_KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +297,21 @@ def check_kernels(dev) -> dict:
         want = ref.bloom_tick_ref(cells, probes)
         torch.cuda.synchronize()
         check_equal(host(got), host(want), f"tick B={B} m={m} {dtype}")
+    # ragged: one row, more rows than the grid has warps, rows that are
+    # not 16-byte aligned (scalar cells), 16-bit cells wrapping, probes
+    # at -1 and m that hit nothing, and up to 1000 probes a row
+    for B, m, dtype, P in ((1, 1024, torch.int32, 4), (3, 1001, torch.int16, 1000),
+                           (4101, 1001, torch.int32, 64), (4101, 7, torch.int16, 4),
+                           (3, 7, torch.int32, 1000), (4101, 1000, torch.int16, 64)):
+        info = torch.iinfo(dtype)
+        cells = torch.as_tensor(g.integers(info.max - 300, info.max + 1, (B, m)),
+                                dtype=dtype, device=dev)
+        probes = torch.as_tensor(g.integers(-1, m + 1, (B, P)), dtype=torch.int32,
+                                 device=dev)
+        got = ops.tick_probes(cells, probes)
+        want = ref.bloom_tick_ref(cells, probes)
+        torch.cuda.synchronize()
+        check_equal(host(got), host(want), f"tick B={B} m={m} P={P} {dtype}")
     print("[kernels] tick: identical to the plain version")
 
     # merge_compare: main shape, ragged m, rows near INT32_MAX
@@ -383,6 +409,30 @@ def pair_inputs(g, n: int, m: int):
     return rows.astype(np.uint8), base.astype(np.int32)
 
 
+def mxu_inputs(g, n: int, mc: int, m: int, T: int, lo: int):
+    """[n, m] and [mc, m] u8 with int32 bases around ``lo``: half in the
+    window, the rest far below or above it, at the edges of the mxu
+    kernel's [-257, T + 1] offset cut, or where u8 + base - lo wraps in
+    int32; the first quarter of cols equal to rows."""
+    far = np.array([-2 ** 30, -300, -258, -257, -256, -2, T + 1, T + 2, 300, 2 ** 30]
+                   + [2 ** 31 - 1 - k for k in (0, 1, 100, 200, 254, 255, 256)], np.int64)
+
+    def side(k):
+        res = g.integers(0, T - 3, (k, m))
+        res[1::2] = g.integers(0, 256, (len(res[1::2]), m))
+        off = g.integers(0, 3, k).astype(np.int64)
+        pick = g.random(k) < 0.5
+        off[pick] = g.choice(far, int(pick.sum()))
+        base = ((lo + off) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        return res.astype(np.uint8), base
+
+    rows, rb = side(n)
+    cols, cb = side(mc)
+    k = min(n, mc) // 4
+    cols[:k], cb[:k] = rows[:k], rb[:k]
+    return rows, cols, rb, cb
+
+
 def check_pair_kernels(dev) -> dict:
     """The four all-pairs kernels against their plain versions, at the
     slice's 16,384 x 1024 and at a ragged shape; returns name -> largest
@@ -440,6 +490,24 @@ def check_pair_kernels(dev) -> dict:
         check(torch.equal(got, want), f"mxu T={T} lo={lo} {what}")
         check(bool((got == 0).any()) and bool((got > 0).any()),
               f"mxu {what}: counts all zero or none zero")
+        del got, want
+    # mxu on its 16-bit lanes: ragged m (byte reads where rows are not
+    # 4-byte aligned), N and M ragged against each tile, lo near both
+    # ends of int32, bases far outside the window on both sides and where
+    # u8 + base - lo wraps, identical rows; m = 8192 at T = 64 flushes
+    # counts above 16 bits several times
+    for m, T, lo, (bi, bj) in ((2, 8, -5, (64, 64)), (130, 16, 2 ** 31 - 21, (32, 128)),
+                               (1001, 32, -2 ** 31 + 3, (128, 64)),
+                               (8192, 64, 2 ** 31 - 1, (64, 64)), (640, 64, 0, (32, 32))):
+        rows, cols, rb, cb = (t(x) for x in mxu_inputs(g, 1000, 777, m, T, lo))
+        got = ops.mxu_viol(rows, cols, rb, cb, lo=lo, n_thresholds=T, bi=bi, bj=bj)
+        want = ref.mxu_viol_ref(rows, cols, rb, cb, lo=lo, n_thresholds=T)
+        torch.cuda.synchronize()
+        what = f"mxu m={m} T={T} lo={lo} tile {bi}x{bj}"
+        check(torch.equal(got, want), what)
+        check(bool((torch.diagonal(got[:190, :190]) == 0).all()),
+              f"{what}: identical rows with counts")
+        check(m < 8192 or float(want.max()) > 65535, f"{what}: no count above 16 bits")
         del got, want
     print("[kernels] tri, rect_u8, rect_i32, mxu: identical to their plain "
           "versions, fp within tolerance")
@@ -1170,32 +1238,43 @@ def time_kernels(dev, n_wide: int) -> dict:
     bm = ops.tile_width(M, 512)
     rec = {}
 
-    def entry(kernel_fn, plain_fn, nb, nbytes, n_ops, library_fn=None, **extra):
+    def entry(kernel_fn, plain_fn, nb, nbytes, n_ops, library_ms=None, **extra):
         k = measure(kernel_fn, nb)
         p = measure(plain_fn, nb, iters=10)
-        lib = measure(library_fn, nb) if library_fn is not None else None
         return dict(ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"],
-                    plain_call_ms=p["call_ms"],
-                    library_ms=lib["ms"] if lib else None,
+                    plain_call_ms=p["call_ms"], library_ms=library_ms,
                     bytes=nbytes, ops=n_ops, **extra)
 
-    # tick: B=4096 clocks, E=16 events, k=4 -> P=64 probes per clock
-    B, P = 4096, 16 * K
-    nbytes = B * M * 4 * 2 + B * P * 4
-    nb = n_buffers(nbytes)
-    cells = [torch.as_tensor(g.integers(0, 1000, (B, M)), dtype=torch.int32,
-                             device=dev) for _ in range(nb)]
-    ev = g.integers(0, 2 ** 32, (2, B, 16), dtype=np.uint64).astype(np.int64)
-    probes = [bloom_indices(ev[0], ev[1], K, M, device=dev)
-              .reshape(B, -1).to(torch.int32).contiguous() for _ in range(nb)]
-    probes64 = [p.to(torch.int64) for p in probes]
-    ones = torch.ones((B, P), dtype=torch.int32, device=dev)
-    rec["bloom_tick"] = entry(
-        lambda i: ops.tick_probes(cells[i], probes[i]),
-        lambda i: ref.bloom_tick_ref(cells[i], probes[i]), nb, nbytes,
-        B * M + B * P,
-        library_fn=lambda i: cells[i].scatter_add_(1, probes64[i], ones))
-    del cells, probes, probes64
+    # tick: B=4096 clocks, E=16 events, k=4 -> P=64 probes per clock (the
+    # serving tier's batched tick, the record's shape), then the main
+    # path's B=1, E=1 -> P=4, whose cells sit in L2 (one tick writes what
+    # the next reads), so 2 buffers.  Two library calls: in-place
+    # scatter_add_ (touches only the probed sectors) and out-of-place
+    # torch.scatter_add (new cells, as the function returns); the record
+    # takes the faster.
+    for B, E in ((4096, 16), (1, 1)):
+        P = E * K
+        nbytes = B * M * 4 * 2 + B * P * 4
+        nb = n_buffers(nbytes) if B > 1 else 2
+        cells = [torch.as_tensor(g.integers(0, 1000, (B, M)), dtype=torch.int32,
+                                 device=dev) for _ in range(nb)]
+        ev = g.integers(0, 2 ** 32, (2, B, E), dtype=np.uint64).astype(np.int64)
+        probes = [bloom_indices(ev[0], ev[1], K, M, device=dev)
+                  .reshape(B, -1).to(torch.int32).contiguous() for _ in range(nb)]
+        probes64 = [p.to(torch.int64) for p in probes]
+        ones = torch.ones((B, P), dtype=torch.int32, device=dev)
+        lib_in = measure(lambda i: cells[i].scatter_add_(1, probes64[i], ones), nb)["ms"]
+        lib_out = measure(lambda i: torch.scatter_add(cells[i], 1, probes64[i], ones),
+                          nb)["ms"]
+        r = entry(lambda i: ops.tick_probes(cells[i], probes[i]),
+                  lambda i: ref.bloom_tick_ref(cells[i], probes[i]), nb, nbytes,
+                  B * M + B * P, library_ms=min(lib_in, lib_out), B=B, P=P,
+                  scatter_add_ms=lib_in, scatter_add_out_ms=lib_out)
+        if B > 1:
+            rec["bloom_tick"] = r
+        else:
+            rec["bloom_tick"]["main_shape"] = r
+        del cells, probes, probes64
 
     # merge_compare: B=4096 pairs of m=1024 int32 rows
     B = 4096
@@ -1254,15 +1333,16 @@ def time_pair_kernels(dev, sass: dict) -> dict:
     rec = {}
 
     def entry(name, kernel_fn, plain_fn, nbytes, lane_pairs, extra_ops=0,
-              library_fn=None, tensor_ops=None):
+              library_fns=None, tensor_ops=None):
         k = measure(kernel_fn, 2, iters=5, warmup=1)
         p = measure(plain_fn, 2, iters=2, warmup=1)
-        lib = (measure(library_fn, 1, iters=3, warmup=1)
-               if library_fn is not None else None)
+        libs = {lib: measure(fn, 1, iters=3, warmup=1)["ms"]
+                for lib, fn in (library_fns or {}).items()}
         per_pair = min(sass[name]["alu"], MIN_OPS[name])
         rec[name] = dict(ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"],
                          plain_call_ms=p["call_ms"],
-                         library_ms=lib["ms"] if lib else None, bytes=nbytes,
+                         library_ms=min(libs.values()) if libs else None,
+                         libraries=libs, bytes=nbytes,
                          ops=lane_pairs * per_pair + extra_ops,
                          ops_per_pair=per_pair, tensor_ops=tensor_ops)
 
@@ -1298,7 +1378,24 @@ def time_pair_kernels(dev, sass: dict) -> dict:
     lib = torch.mm(enc_a, enc_b.T, out_dtype=torch.float32)
     check(torch.equal(lib, viol), "mxu: the thermometer product's counts "
           "differ from the kernel's")
-    del lib, viol
+    del lib
+    # the same 0/1 operands in int8 with int32 output (torch._int_mm), where
+    # it takes them
+    libraries = {"bf16 torch.mm": lambda i: torch.mm(enc_a, enc_b.T,
+                                                     out_dtype=torch.float32)}
+    enc_a8, enc_b8 = enc_a.to(torch.int8), enc_b.to(torch.int8)
+    try:
+        lib = torch._int_mm(enc_a8, enc_b8.T)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"[time] matrix_mxu: torch._int_mm refused the int8 thermometer "
+              f"operands ({str(e).splitlines()[0]}); bf16 torch.mm alone")
+    else:
+        check(torch.equal(lib.to(torch.float32), viol), "mxu: the int8 "
+              "thermometer product's counts differ from the kernel's")
+        libraries["int8 torch._int_mm"] = lambda i: torch._int_mm(enc_a8, enc_b8.T)
+        del lib
+    del viol
     # the TPU kernel's formulation on int8 tensor cores: one multiply-add
     # per pair, lane and threshold
     entry("matrix_mxu",
@@ -1307,8 +1404,7 @@ def time_pair_kernels(dev, sass: dict) -> dict:
           lambda i: ref.mxu_viol_ref(win[i][0], win[1 - i][0], win[i][1],
                                      win[1 - i][1], lo=lo, n_thresholds=T),
           2 * N * m + 2 * N * 4 + N * N * 4, N * N * m,
-          library_fn=lambda i: torch.mm(enc_a, enc_b.T, out_dtype=torch.float32),
-          tensor_ops=2 * N * N * m * T)
+          library_fns=libraries, tensor_ops=2 * N * N * m * T)
     return rec
 
 
@@ -1493,7 +1589,9 @@ def main() -> int:
             "library_ms": t["library_ms"]})
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
-              f"{t['plain_call_ms']} ms), library {t['library_ms']} ms, "
+              f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"
+              + (f" {json.dumps(t['libraries'])}" if t.get("libraries") else "")
+              + ", "
               f"{t['bytes']} bytes, {t['ops']} ops"
               + (f" ({t['ops_per_pair']} per pair and lane)"
                  if "ops_per_pair" in t else "")
@@ -1501,6 +1599,14 @@ def main() -> int:
               f"{rate / 1e12} TB/s, ops {t_ops} at the {ops_by} rate)"
               + (f", tensor-core ops {t['tensor_ops']}" if t.get("tensor_ops") else "")
               + (f", rows={t['rows']}" if "rows" in t else ""))
+    tk = timed["bloom_tick"]
+    for r in (tk, tk["main_shape"]):
+        t_bytes = r["bytes"] / rate * 1e3
+        print(f"[time] bloom_tick B={r['B']} P={r['P']} m={M} int32: kernel "
+              f"{r['ms']} ms (call {r['call_ms']} ms), plain {r['plain_ms']} ms, "
+              f"scatter_add_ in place {r['scatter_add_ms']} ms, torch.scatter_add "
+              f"to new cells {r['scatter_add_out_ms']} ms, bound {t_bytes} ms "
+              f"(bytes): the kernel at {t_bytes / r['ms']} of it")
     th = timed["hybrid"]
     print(f"[time] hybrid at H={th['hot']} T={th['tail']} m={M}: kernel "
           f"{th['ms']} ms, one_vs_many_packed on the same tail "

@@ -29,8 +29,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: library name -> (source, {C entry point: argtypes})
 SOURCES = {
     "bloom_tick": ("bloom_tick.cu", {
-        "bloom_tick_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "bloom_tick_i16": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "bloom_tick_i32": [_P, _P, _P, _I, _I, _I, _P],
+        "bloom_tick_i16": [_P, _P, _P, _I, _I, _I, _P],
     }),
     "bloom_compare": ("bloom_compare.cu", {
         "bloom_merge_compare": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

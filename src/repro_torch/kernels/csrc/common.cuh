@@ -122,4 +122,72 @@ __device__ __forceinline__ void sweep_chunk(const uint32_t* __restrict__ As,
   }
 }
 
+// ---------------------------------------------------------------------------
+// All-pairs tiles on packed 16-bit lanes (bloom_mxu.cu)
+//
+// The tile and thread layout above (4 x 4 pairs a thread), with two m
+// lanes a 32-bit word as signed 16-bit halves (s16x2), so that one DPX
+// instruction takes two lanes.  A staged chunk is PK_LANES lanes:
+// PK_WORDS words a row, rows PK_LDW words apart (4 past a multiple of
+// 32: the 8 threads of a quarter warp that read 8 consecutive rows with
+// 16-byte loads hit 8 disjoint bank groups, as above).  Staging reads 4
+// u8 lanes a thread from global memory and turns them into two words.
+// ---------------------------------------------------------------------------
+
+constexpr int PK_LANES = 64;              // m lanes per staged chunk
+constexpr int PK_WORDS = PK_LANES / 2;    // s16x2 words per staged row
+constexpr int PK_LDW = PK_WORDS + 4;      // words between staged rows
+constexpr int PK_QUADS = PK_LANES / 4;    // 4-byte reads per row and chunk
+
+__device__ __forceinline__ uint32_t pk_splat(int v) {
+  return (static_cast<uint32_t>(v) & 0xFFFFu) * 0x10001u;
+}
+
+// The offset d = base - lo (int32 wrap) of lanes u8 + d that are then
+// clamped into [lo_clamp, hi] (lo_clamp >= -1, hi + 255 < 2^15), packed
+// into both halves.  d is cut to [-257, hi], which changes no clamped value
+// (u8 is in [0, 255]) and makes u8 + d fit 16 bits, except where
+// u8 + d wraps in int32 (d > INT_MAX - 256): there d moves to the top
+// of the 16-bit range by the same distance from it, so u8 + d wraps in
+// 16 bits at the same u8 and the clamps give what they gave in 32 bits.
+__device__ __forceinline__ uint32_t pk_offset(int32_t base, int32_t lo, int hi) {
+  int d = static_cast<int>(static_cast<uint32_t>(base) - static_cast<uint32_t>(lo));
+  d = d > INT_MAX - 256 ? d - INT_MAX + SHRT_MAX : min(max(d, -257), hi);
+  return pk_splat(d);
+}
+
+// Four u8 lanes (a little-endian word) -> two s16x2 words of
+// clamp(u8 + d, lo, hi), negated when NEG; lanes at or past nv are 0.
+template <bool NEG>
+__device__ __forceinline__ uint2 pk_quad(uint32_t x, uint32_t d2, uint32_t lo2,
+                                         uint32_t hi2, int nv) {
+  uint32_t w0 = __vadd2(__byte_perm(x, 0, 0x4140), d2);   // lanes 0, 1
+  uint32_t w1 = __vadd2(__byte_perm(x, 0, 0x4342), d2);   // lanes 2, 3
+  w0 = __vmins2(__vmaxs2(w0, lo2), hi2);
+  w1 = __vmins2(__vmaxs2(w1, lo2), hi2);
+  if (NEG) {
+    w0 = __vneg2(w0);
+    w1 = __vneg2(w1);
+  }
+  if (nv < 4) {
+    w0 &= (nv > 0 ? 0xFFFFu : 0u) | (nv > 1 ? 0xFFFF0000u : 0u);
+    w1 &= nv > 2 ? 0xFFFFu : 0u;
+  }
+  return make_uint2(w0, w1);
+}
+
+// The first nv of the four u8 lanes at p as a little-endian word, 0
+// past them: one 4-byte read where rows are 4-byte aligned (nv is then
+// 0 or 4), else byte reads.
+__device__ __forceinline__ uint32_t pk_read(const uint8_t* __restrict__ p, int nv,
+                                            bool word_reads) {
+  if (nv <= 0) return 0;
+  if (word_reads) return *reinterpret_cast<const uint32_t*>(p);
+  uint32_t x = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < nv) x |= static_cast<uint32_t>(p[j]) << (8 * j);
+  return x;
+}
+
 }  // namespace bloom

@@ -60,6 +60,9 @@ LAUNCHES: dict[str, int] = {
 #: and the thermometer widths T it rounds a span up to (the reference's)
 MXU_SPAN_MAX = 64
 _MXU_SPAN_BUCKETS = (8, 16, 32, 64)
+#: largest T the mxu kernel takes: its packed 16-bit counts gain at most
+#: 8 T a staged chunk (bloom_mxu.cu: MXU_T_MAX)
+MXU_T_MAX = 65535 // 8
 
 #: tile edges (pairs) an all-pairs CUDA block may take: bi, bj, with at
 #: most _PAIR_MAX pairs a block (common.cuh: PAIR_MAX_PAIRS)
@@ -131,8 +134,7 @@ def _log_q(m: int) -> float:
 # tick / pairwise merge-compare
 # ---------------------------------------------------------------------------
 
-def tick_probes(cells: torch.Tensor, probes: torch.Tensor, *,
-                bm: int = 512) -> torch.Tensor:
+def tick_probes(cells: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
     """cells [B, m] int32 or int16 plus probe ids [B, P] -> new cells."""
     if not cells.is_cuda:
         return ref.bloom_tick_ref(cells, probes)
@@ -148,18 +150,17 @@ def tick_probes(cells: torch.Tensor, probes: torch.Tensor, *,
     fn = lib.bloom_tick_i32 if cells.dtype == torch.int32 else lib.bloom_tick_i16
     with torch.cuda.device(cells.device):
         err = fn(cells.data_ptr(), probes.data_ptr(), out.data_ptr(), B, m, P,
-                 bm, _stream(cells))
+                 _stream(cells))
     _launched(err, "bloom_tick")
     return out
 
 
-def tick(cells: torch.Tensor, ev_hi, ev_lo, *, k: int = 4,
-         bm: int = 512) -> torch.Tensor:
+def tick(cells: torch.Tensor, ev_hi, ev_lo, *, k: int = 4) -> torch.Tensor:
     """Batched bloom tick: cells [B, m], events [B, E], k probes each."""
     B, m = cells.shape
     idx = bloom_indices(ev_hi, ev_lo, k, m, device=cells.device)
     probes = idx.reshape(B, -1).to(torch.int32).contiguous()
-    return tick_probes(cells, probes, bm=bm)
+    return tick_probes(cells, probes)
 
 
 def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bm: int = 512) -> dict:
@@ -473,6 +474,9 @@ def mxu_viol(rows: torch.Tensor, cols: torch.Tensor, row_base: torch.Tensor,
     _check(cols, "matrix_mxu cols", torch.uint8, (M, m))
     _check(row_base, "matrix_mxu row_base", torch.int32, (N,))
     _check(col_base, "matrix_mxu col_base", torch.int32, (M,))
+    if n_thresholds > MXU_T_MAX:
+        raise ValueError(f"mxu: T={n_thresholds} exceeds the kernel's 16-bit "
+                         f"lanes (T <= {MXU_T_MAX})")
     viol = torch.empty((N, M), dtype=torch.float32, device=rows.device)
     if N and M:
         with torch.cuda.device(rows.device):

@@ -60,20 +60,43 @@ def query_and_peers(n, m, seed, near_wrap=False):
     return as_i32(q), as_i32(peers)
 
 
+def tick_plain(cells, probes, rows=512):
+    """``ref.bloom_tick_ref`` a few rows at a time (its one-hot compare
+    takes B * P * m bytes)."""
+    return torch.cat([ref.bloom_tick_ref(cells[i:i + rows], probes[i:i + rows])
+                      for i in range(0, cells.shape[0], rows)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,dtype", [(1024, torch.int32), (1000, torch.int32),
-                                     (1024, torch.int16)])
-def test_cuda_tick_matches_plain(cuda, m, dtype):
+@pytest.mark.parametrize("P", [4, 64, 1000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("m", [1024, 1000, 1001, 7])
+@pytest.mark.parametrize("B", [1, 3, 4096 + 5])
+def test_cuda_tick_matches_plain(cuda, B, m, dtype, P):
+    """One warp a row over a grid of fewer warps than 4,101 rows; 16-byte
+    vectors where rows are 16-byte aligned (m = 1024, 1000 for both
+    types), scalar cells where they are not (m = 1001, 7, and every case
+    again from a buffer one cell in); 16-bit cells wrapping at their
+    maximum; probes at -1 and m hitting nothing."""
     rng = np.random.default_rng(7)
-    cells = torch.as_tensor(rng.integers(0, 100, (256, m)), dtype=dtype,
+    info = torch.iinfo(dtype)
+    cells = torch.as_tensor(rng.integers(0, 100, (B, m)), dtype=dtype,
                             device=cuda)
-    cells[0] = torch.iinfo(dtype).max
-    probes = torch.as_tensor(rng.integers(0, m, (256, 64)), dtype=torch.int32,
-                             device=cuda)
+    cells[0] = info.max
+    cells[-1, ::2] = info.max - 1
+    probes = rng.integers(0, m, (B, P))
+    probes[:, 0] = -1
+    probes[:, -1] = m
+    probes[-1, : P // 2] = 0                 # many probes on one cell
+    probes = torch.as_tensor(probes, dtype=torch.int32, device=cuda)
+    want = tick_plain(cells, probes)
     n0 = ops.LAUNCHES["bloom_tick"]
     got = ops.tick_probes(cells, probes)
     assert ops.LAUNCHES["bloom_tick"] == n0 + 1
-    assert torch.equal(got, ref.bloom_tick_ref(cells, probes))
+    assert torch.equal(got, want)
+    shifted = torch.empty(B * m + 1, dtype=dtype, device=cuda)[1:].view(B, m)
+    shifted.copy_(cells)
+    assert torch.equal(ops.tick_probes(shifted, probes), want)
 
 
 @pytest.mark.gpu
@@ -237,22 +260,51 @@ def test_cuda_rect_i32_stats_matches_plain(cuda, n, mc, m, bi, bj):
     assert_fp_close(fp, w_fp)
 
 
+def adversarial_mxu(rng, n, mc, m, T, lo):
+    """u8 rows and cols with int32 bases around ``lo``: half in the
+    window, the rest far below or above it, at the edges of the kernel's
+    [-257, T + 1] offset cut, or where u8 + base - lo wraps in int32; the
+    first third of cols equal to rows (viol 0)."""
+    far = np.array([-2 ** 30, -300, -258, -257, -256, -2, T + 1, T + 2, 300,
+                    2 ** 30] + [I32_MAX - t for t in (0, 1, 100, 200, 254, 255,
+                                                       256)], np.int64)
+
+    def side(n):
+        res = rng.integers(0, T - 3, (n, m))
+        res[1::2] = rng.integers(0, 256, (len(res[1::2]), m))
+        off = rng.integers(0, 3, n).astype(np.int64)
+        pick = rng.random(n) < 0.5
+        off[pick] = rng.choice(far, int(pick.sum()))
+        return res.astype(np.uint8), as_i32(lo + off)
+
+    rows, rb = side(n)
+    cols, cb = side(mc)
+    k = min(n, mc) // 3
+    cols[:k], cb[:k] = rows[:k], rb[:k]
+    return rows, cols, rb, cb
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,lo", [(8, -5), (64, 0), (16, I32_MAX - 20)])
-def test_cuda_mxu_matches_plain(cuda, T, lo):
+@pytest.mark.parametrize("bi,bj", [(64, 64), (32, 128), (128, 64)])
+@pytest.mark.parametrize("T,lo", [(8, -5), (16, I32_MAX - 20),
+                                  (32, -2 ** 31 + 3), (64, 0), (64, I32_MAX)])
+@pytest.mark.parametrize("m", [2, 130, 1001, 8192])
+def test_cuda_mxu_matches_plain(cuda, m, T, lo, bi, bj):
+    """Two 16-bit lanes a word: ragged m (byte reads where rows are not
+    4-byte aligned), N and M ragged against the tile, near-wrap ``lo``,
+    bases far outside the window on both sides, identical rows, and at
+    m = 8192, T = 64 counts far above 16 bits (several flushes)."""
     rng = np.random.default_rng(15)
-    rows = torch.as_tensor(rng.integers(0, T - 3, (300, 640)), dtype=torch.uint8,
-                           device=cuda)
-    cols = torch.as_tensor(rng.integers(0, T - 3, (77, 640)), dtype=torch.uint8,
-                           device=cuda)
-    cols[:10] = rows[:10]
-    rb = torch.as_tensor(as_i32(lo + rng.integers(0, 3, 300)), device=cuda)
-    cb = torch.as_tensor(as_i32(lo + rng.integers(0, 3, 77)), device=cuda)
+    rows, cols, rb, cb = (torch.as_tensor(x, device=cuda)
+                          for x in adversarial_mxu(rng, 300, 77, m, T, lo))
     n0 = ops.LAUNCHES["matrix_mxu"]
-    got = ops.mxu_viol(rows, cols, rb, cb, lo=lo, n_thresholds=T)
+    got = ops.mxu_viol(rows, cols, rb, cb, lo=lo, n_thresholds=T, bi=bi, bj=bj)
     assert ops.LAUNCHES["matrix_mxu"] == n0 + 1
-    assert torch.equal(got, ref.mxu_viol_ref(rows, cols, rb, cb, lo=lo,
-                                             n_thresholds=T))
+    want = ref.mxu_viol_ref(rows, cols, rb, cb, lo=lo, n_thresholds=T)
+    assert torch.equal(got, want)
+    assert (torch.diagonal(got[:25, :25]) == 0).all() and (got > 0).any()
+    if m == 8192 and T == 64:
+        assert want.max() > 65535
 
 
 @pytest.mark.gpu
@@ -279,6 +331,8 @@ def test_cuda_pair_wrappers_reject_bad_inputs(cuda):
         ops.mxu_viol(u8, u8, base, base.to(torch.int64), lo=0, n_thresholds=8)
     with pytest.raises(ValueError):
         ops.mxu_viol(u8, u8, base.cpu(), base, lo=0, n_thresholds=8)
+    with pytest.raises(ValueError):                # past the 16-bit halves
+        ops.mxu_viol(u8, u8, base, base, lo=0, n_thresholds=ops.MXU_T_MAX + 1)
 
 
 @pytest.mark.gpu

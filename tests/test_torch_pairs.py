@@ -219,6 +219,135 @@ def test_mxu_plain_matches_pallas(n, mc, m, T, lo):
     assert got.dtype == torch.float32 and (got.numpy() > 0).any()
 
 
+def _s16x2_viol(rows, cols, rb, cb, lo, T):
+    """numpy emulation of the mxu kernel's packed arithmetic
+    (``csrc/bloom_mxu.cu``): the per-row offset d = base - lo cut to
+    [-257, T + 1] (or moved to the top of 16 bits where u8 + d wraps in
+    int32), 16-bit lanes u8 + d clamped to [-1, T] for rows and to
+    [0, T + 1] then negated for cols, zero in padded lanes, two lanes a
+    uint32 word, one add-relu of a + (-b) with 0 per word; of every 8
+    words, the first two go into one packed count by a wrapping 32-bit
+    add and the other six into a 32-bit count (their two halves each);
+    the packed count's halves go into the 32-bit count every
+    floor(65535 / (8 T)) chunks of 64 lanes."""
+    words, lanes = 32, 64
+
+    def offsets(base):
+        d = as_i32(base.astype(np.int64) - lo).astype(np.int64)
+        top = d > I32_MAX - 256
+        return np.where(top, d - I32_MAX + 32767, np.clip(d, -257, T + 1))
+
+    def stage(u8, d, lo_c, hi_c, neg):
+        n, m = u8.shape
+        pad = -m % lanes
+        v = (u8.astype(np.int64) + d[:, None]) & 0xFFFF           # __vadd2
+        v = v.astype(np.uint16).view(np.int16).astype(np.int64)
+        v = np.clip(v, lo_c, hi_c)                                # vmaxs2/vmins2
+        v = -v if neg else v
+        v = np.pad(v, ((0, 0), (0, pad)))                         # padded: 0
+        h = (v & 0xFFFF).astype(np.uint32)
+        return h[:, 0::2] | (h[:, 1::2] << np.uint32(16))         # [n, words]
+
+    def add_relu(a, nb):                                          # viaddmax
+        out = np.zeros(np.broadcast_shapes(a.shape, nb.shape), np.uint32)
+        for shift in (0, 16):
+            ha = ((a >> np.uint32(shift)) & np.uint32(0xFFFF)).astype(np.uint16)
+            hb = ((nb >> np.uint32(shift)) & np.uint32(0xFFFF)).astype(np.uint16)
+            s = ha.view(np.int16).astype(np.int64) + hb.view(np.int16).astype(np.int64)
+            assert (s >= -32768).all() and (s <= 32767).all()
+            out |= (np.maximum(s, 0).astype(np.uint32) << np.uint32(shift))
+        return out
+
+    A = stage(rows, offsets(rb), -1, T, False)[:, None, :]
+    NB = stage(cols, offsets(cb), 0, T + 1, True)[None, :, :]
+    flush_every = 65535 // (8 * T)
+    acc = np.zeros((rows.shape[0], cols.shape[0]), np.uint32)
+    total = np.zeros_like(acc, dtype=np.int64)
+    n_chunks = A.shape[2] // words
+    for chunk in range(n_chunks):
+        for w in range(chunk * words, (chunk + 1) * words, 8):
+            r = [add_relu(A[:, :, w + k], NB[:, :, w + k]) for k in range(8)]
+            acc = acc + r[0] + r[1]                                # IADD3, wraps
+            for x in r[2:]:                                        # IDP
+                total += (x & np.uint32(0xFFFF)).astype(np.int64) + (x >> np.uint32(16))
+        if (chunk + 1) % flush_every == 0 or chunk + 1 == n_chunks:
+            total += (acc & np.uint32(0xFFFF)).astype(np.int64) + (acc >> np.uint32(16))
+            acc[:] = 0
+    return total.astype(np.float32)
+
+
+def _adversarial_mxu(g, n, mc, m, T, lo):
+    """Rows and cols [.., m] u8 with int32 bases around ``lo``: half the
+    rows in the window, the rest at bases far below it, far above it, at
+    the edges of the [-257, T + 1] offset cut, and where u8 + base - lo
+    wraps in int32; the first rows of cols equal those of rows."""
+    edge = np.array([-2 ** 30, -300, -258, -257, -256, -2, T + 1, T + 2, 300,
+                     2 ** 30], np.int64)
+    top = I32_MAX - np.array([0, 1, 100, 200, 254, 255, 256], np.int64)
+
+    def side(n):
+        res = g.integers(0, T - 3, (n, m))
+        res[1::2] = g.integers(0, 256, (len(res[1::2]), m))
+        off = g.integers(0, 3, n).astype(np.int64)
+        far = g.random(n) < 0.5
+        off[far] = g.choice(np.concatenate([edge, top]), int(far.sum()))
+        return res.astype(np.uint8), as_i32(lo + off)
+
+    rows, rb = side(n)
+    cols, cb = side(mc)
+    k = min(n, mc) // 3
+    cols[:k], cb[:k] = rows[:k], rb[:k]
+    return rows, cols, rb, cb
+
+
+@pytest.mark.parametrize("n,mc,m,T,lo", [(9, 12, 2, 8, -5),
+                                         (13, 7, 130, 16, 123456),
+                                         (6, 10, 1001, 32, I32_MAX - 20),
+                                         (8, 5, 640, 64, -2 ** 31),
+                                         (7, 9, 256, 64, I32_MAX),
+                                         (4, 6, 8192, 64, 77)])
+def test_mxu_packed_s16x2_arithmetic_matches_plain_and_pallas(n, mc, m, T, lo):
+    """The kernel's 16-bit-lane staging and accumulation, emulated in
+    numpy, gives ``ref.mxu_viol_ref``'s counts, and so the Pallas
+    kernel's, at ragged m, near-wrap ``lo``, bases far outside the window
+    on both sides and identical rows (viol 0)."""
+    g = np.random.default_rng(m + T)
+    rows, cols, rb, cb = _adversarial_mxu(g, n, mc, m, T, lo)
+    want = tops.mxu_viol(torch.as_tensor(rows), torch.as_tensor(cols),
+                         torch.as_tensor(rb), torch.as_tensor(cb), lo=lo,
+                         n_thresholds=T).numpy()
+    np.testing.assert_array_equal(_s16x2_viol(rows, cols, rb, cb, lo, T), want)
+    k = min(n, mc) // 3
+    assert (np.diag(want[:k, :k]) == 0).all() and (want > 0).any()
+    if m <= 1024:
+        rows_p, bi, bm = jops.tile2d(jnp.asarray(rows), 8, 128)
+        cols_p, bj, _ = jops.tile2d(jnp.asarray(cols), 8, bm)
+        cols_p = jops.pad_to(cols_p, rows_p.shape[1], axis=1)
+        pallas = bloom_matrix_mxu_pallas(
+            rows_p, cols_p, jops._pad_base(rb, rows_p.shape[0]),
+            jops._pad_base(cb, cols_p.shape[0]), n_thresholds=T, lo=lo,
+            bi=bi, bj=bj, bm=bm, m_true=m, interpret=True)[:n, :mc]
+        np.testing.assert_array_equal(want, np.asarray(pallas))
+
+
+def test_mxu_packed_s16x2_flush_keeps_counts_above_16_bits():
+    """Every lane at the largest count (a = T, b = 0) over 8192 lanes at
+    T = 64: each packed 16-bit half gains 8 T a chunk, so the flush every
+    floor(65535 / 512) = 127 of the 128 chunks is what keeps the 524,288
+    exact."""
+    m, T, lo = 8192, 64, 1000
+    rows = np.full((3, m), 200, np.uint8)
+    cols = np.zeros((4, m), np.uint8)
+    rb = as_i32(np.full(3, lo))
+    cb = as_i32(np.full(4, lo - 5))
+    got = _s16x2_viol(rows, cols, rb, cb, lo, T)
+    assert (got == m * T).all() and m * T > 65535
+    np.testing.assert_array_equal(
+        got, tops.mxu_viol(torch.as_tensor(rows), torch.as_tensor(cols),
+                           torch.as_tensor(rb), torch.as_tensor(cb), lo=lo,
+                           n_thresholds=T).numpy())
+
+
 def test_mxu_refuses_inexact_float_counts():
     cells = torch.zeros((2, 2 ** 18), dtype=torch.uint8)
     base = torch.zeros((2,), dtype=torch.int32)
