@@ -48,11 +48,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the card needs, from bytes and from instruction counts (the lower of
    each function's minimum and the built kernel's hot loop, read from
    ``cuobjdump -sass`` with the lanes each 32-bit word holds: 2 for
-   mxu's 16-bit lanes, 1 for the other three).  The tick at the batched
+   the 16-bit lanes of rect-u8 and mxu, 1 for tri and rect-i32).  The tick at the batched
    B=4096, P=64 (the record) and the main path's B=1, P=4, each against
    in-place ``scatter_add_`` and out-of-place ``torch.scatter_add``; mxu
    against the bf16 thermometer ``torch.mm`` and the int8
    ``torch._int_mm``; a record's library time is the faster call;
+   rect-i32 once more on slabs that fit in L2 (time per pair and lane);
 8. one JSON line of kernel records, the card line, then the verdict line.
 
 No JAX and nothing of the JAX package is imported.
@@ -90,6 +91,8 @@ HYBRID_KERNELS = ("hybrid", "one_vs_many_i32")
 ENGINE_KERNELS = ("matrix_tri", "matrix_rect_u8", "matrix_mxu",
                   "matrix_rect_i32")
 L2_BYTES = 50e6
+#: rows and cols of the rect-i32 run whose int32 slabs fit in L2 together
+L2_ROWS = (66 * 64, 64 * 64)
 
 # data-sheet HBM rates (bytes/s), by the card's name
 _HBM = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H200", 4.8e12),
@@ -104,21 +107,23 @@ INT_OPS = 128 * 132 * 1.98e9
 INT8_OPS = 1979e12
 #: fewest instructions per (pair, lane) the all-pairs functions need on
 #: sm_90: u8 flags keep a running max and min of a difference that fits
-#: 16 bits, one DPX add-max or add-min (``__viaddmax_s16x2``) per two
-#: lanes each; int32 wrap differences do not pack, one add-max and one
-#: add-min per lane; the violation count takes one add-relu per two
-#: lanes and one three-input add of two packed 16-bit counts per four.
+#: 16 bits, two lanes a word: one add of biased words per two lanes and
+#: one three-input max and min per four; int32 wrap differences do not
+#: pack, a subtraction per lane and a three-input max and min per two;
+#: the violation count takes one add-relu per two lanes and one
+#: three-input add of two packed 16-bit counts per four.
 #: These count issue slots; the integer ALU pipe, which runs the DPX and
 #: IADD3 instructions, takes half the issue rate (PERF.md §3).
 #: The bound uses the lower of this and the built kernel's count (SASS).
 MIN_OPS = {"matrix_tri": 1.0, "matrix_rect_u8": 1.0, "matrix_rect_i32": 2.0,
            "matrix_mxu": 0.75}
-#: kernel symbol in the SASS of each all-pairs record (for mxu the
-#: default 64 x 64 tile's instance), and the m lanes a 32-bit word of
-#: its staged tiles holds: 2 for mxu's packed 16-bit lanes
+#: kernel symbol in the SASS of each all-pairs record (for the tiled
+#: templates the default 64 x 64 instance; for rect-i32 its 16-byte
+#: staging), and the m lanes a 32-bit word of its staged tiles holds: 2
+#: for the packed 16-bit lanes of rect-u8 and mxu
 _SASS_KERNELS = {"matrix_tri": ("tri_flags_kernel", 1),
-                 "matrix_rect_u8": ("rect_u8_flags_kernel", 1),
-                 "matrix_rect_i32": ("rect_i32_stats_kernel", 1),
+                 "matrix_rect_u8": ("rect_u8_u16x2_kernelILi64ELi64E", 2),
+                 "matrix_rect_i32": ("rect_i32_kernelILi64ELi64ELb1E", 1),
                  "matrix_mxu": ("mxu_viol_s16x2_kernelILi64ELi64E", 2)}
 # the hybrid path (phase 6): the bench generator of
 # benchmarks/bench_hybrid.py:76-96 scaled to the serving tiers' defaults
@@ -509,9 +514,66 @@ def check_pair_kernels(dev) -> dict:
               f"{what}: identical rows with counts")
         check(m < 8192 or float(want.max()) > 65535, f"{what}: no count above 16 bits")
         del got, want
+    # rect-u8 on its 16-bit lanes and rect-i32 on its cp.async staging:
+    # odd and ragged m (lane m - 1 pads rect-u8's last word and chunk),
+    # rows one element into their buffer (byte reads, 4-byte copies), N
+    # and M ragged against each tile; int32 rows near the wrap and rows
+    # whose sums exceed 2^24
+    for m, (bi, bj) in ((1, (64, 64)), (3, (32, 128)), (1001, (128, 64)),
+                        (130, (32, 32)), (M, (64, 128))):
+        rows_np, rb_np = pair_inputs(g, 1000, m)
+        cols_np, cb_np = pair_inputs(g, 777, m)
+        cols_np[:300], cb_np[:300] = rows_np[:300], rb_np[:300]
+        rb, cb = t(rb_np), t(cb_np)
+        near = (2 ** 31 - 1 - g.integers(0, 300, m)).astype(np.int64)
+        big = 40_000 + g.integers(-3, 4, (1000, m)) * 997
+        r32_np = np.where((np.arange(1000) % 2 == 0)[:, None],
+                          rows_np.astype(np.int64) + near, big)
+        r32_np = (r32_np & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        c32_np = ((cols_np.astype(np.int64) + near) & 0xFFFFFFFF
+                  ).astype(np.uint32).view(np.int32)
+        c32_np[:300] = r32_np[:300]
+        col_sums = ref.wrap_sum_i32(t(c32_np)).to(torch.float32)
+        for offset in (0, 1):
+            what = f"m={m} tile {bi}x{bj} offset {offset}"
+            rows, cols = (offset_view(t(x), offset) for x in (rows_np, cols_np))
+            for with_base in (True, False):
+                got = ops.rect_u8_flags(rows, cols, rb, cb, bi=bi, bj=bj,
+                                        with_base=with_base)
+                want = ref.rect_u8_flags_ref(rows, cols,
+                                             *((rb, cb) if with_base else ()))
+                torch.cuda.synchronize()
+                for x, y, f in zip(got, want, ("le", "ge")):
+                    check(torch.equal(x, y), f"rect_u8 {f} {what} base={with_base}")
+                check(bool(got[0].any()) and not bool(got[0].all()),
+                      f"rect_u8 {what}: le all equal")
+            r32, c32 = (offset_view(t(x), offset) for x in (r32_np, c32_np))
+            got = ops.rect_i32_stats(r32, c32, col_sums, bi=bi, bj=bj)
+            want = ref.rect_i32_stats_ref(r32, c32, col_sums,
+                                          bm=ops.tile_width(m, 512))
+            torch.cuda.synchronize()
+            for x, y, f in zip(got[:3], want[:3], ("le", "ge", "row sums")):
+                check(torch.equal(x, y), f"rect_i32 {f} {what}")
+            check(bool(got[0].any()), f"rect_i32 {what}: no ordered pair")
+            check(m < 1000 or bool((got[2][1::2].abs() > 2 ** 24).all()),
+                  f"rect_i32 {what}: no row sum above 2^24")
+            err["matrix_rect_i32"] = max(err["matrix_rect_i32"],
+                                         check_fp(host(got[3]), host(want[3]),
+                                                  f"rect_i32 fp {what}"))
+            del got, want
     print("[kernels] tri, rect_u8, rect_i32, mxu: identical to their plain "
           "versions, fp within tolerance")
     return err
+
+
+def offset_view(x, offset: int):
+    """``x`` copied into a buffer ``offset`` elements in: contiguous, its
+    data pointer aligned to one element only."""
+    import torch
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def hybrid_inputs(g, H: int, T: int, m: int, dev, near_wrap: bool = False):
@@ -1322,7 +1384,8 @@ def time_pair_kernels(dev, sass: dict) -> dict:
     kernel's formulation, computing the same counts), with the bytes and
     instructions each function needs: per (pair, lane) the lower of
     ``MIN_OPS`` and the built kernel's hot loop (``sass``), and for mxu
-    the tensor-core formulation's operations beside them."""
+    the tensor-core formulation's operations beside them; rect-i32 once
+    more on slabs that fit in L2."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -1364,6 +1427,18 @@ def time_pair_kernels(dev, sass: dict) -> dict:
           lambda i: ref.rect_i32_stats_ref(i32[i], i32[1 - i], sums[1 - i], bm=bm),
           2 * N * m * 4 + N * 4 + flags + N * 4 + N * N * 4, N * N * m,
           extra_ops=N * m)
+    # the same kernel on slabs that fit in L2 together (34 MB), 66 x 64
+    # tiles (a whole number of waves of the ~264 resident blocks): its
+    # time per pair and lane beside the one above says what share of the
+    # 16,384 x 16,384 time L2 misses take
+    rows_l2, cols_l2 = i32[0][:L2_ROWS[0]], i32[1][:L2_ROWS[1]]
+    t_l2 = measure(lambda i: ops.rect_i32_stats(rows_l2, cols_l2, sums[1][:L2_ROWS[1]]),
+                   1, iters=5, warmup=1)["ms"]
+    rec["matrix_rect_i32"]["l2_resident"] = dict(
+        ms=t_l2, N=L2_ROWS[0], M=L2_ROWS[1],
+        slab_bytes=(L2_ROWS[0] + L2_ROWS[1]) * m * 4,
+        ps_per_pair_lane=t_l2 * 1e9 / (L2_ROWS[0] * L2_ROWS[1] * m),
+        full_ps_per_pair_lane=rec["matrix_rect_i32"]["ms"] * 1e9 / (N * N * m))
     del i32, sums
     T, lo = 64, -123457
     win = [(c % (T - 4), t(lo + g.integers(0, 4, N).astype(np.int32)))
@@ -1607,6 +1682,11 @@ def main() -> int:
               f"scatter_add_ in place {r['scatter_add_ms']} ms, torch.scatter_add "
               f"to new cells {r['scatter_add_out_ms']} ms, bound {t_bytes} ms "
               f"(bytes): the kernel at {t_bytes / r['ms']} of it")
+    l2 = timed["matrix_rect_i32"]["l2_resident"]
+    print(f"[time] matrix_rect_i32 on slabs inside L2 (N={l2['N']}, M={l2['M']}, "
+          f"{l2['slab_bytes']} bytes): {l2['ms']} ms, {l2['ps_per_pair_lane']} ps "
+          f"of the card per pair and lane against {l2['full_ps_per_pair_lane']} "
+          f"at {N_SLOTS} x {N_SLOTS}")
     th = timed["hybrid"]
     print(f"[time] hybrid at H={th['hot']} T={th['tail']} m={M}: kernel "
           f"{th['ms']} ms, one_vs_many_packed on the same tail "

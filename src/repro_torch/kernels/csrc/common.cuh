@@ -56,10 +56,9 @@ __host__ __device__ inline bool pair_tiles_ok(int bi, int bj) {
   return pair_edge_ok(bi) && pair_edge_ok(bj) && bi * bj <= PAIR_MAX_PAIRS;
 }
 
-// Shared memory for two staged row tiles and the row-sum scratch.
+// Shared memory for two staged row tiles.
 __host__ __device__ inline size_t pair_smem_bytes(int bi, int bj) {
-  return static_cast<size_t>(bi + bj) * PAIR_LDK * sizeof(uint32_t) +
-         static_cast<size_t>(bi) * (sizeof(uint32_t) + sizeof(float));
+  return static_cast<size_t>(bi + bj) * PAIR_LDK * sizeof(uint32_t);
 }
 
 // Stage lanes [k0, k0 + kc) of rows [r0, r0 + tile_rows) into s as 32-bit
@@ -188,6 +187,67 @@ __device__ __forceinline__ uint32_t pk_read(const uint8_t* __restrict__ p, int n
   for (int j = 0; j < 4; ++j)
     if (j < nv) x |= static_cast<uint32_t>(p[j]) << (8 * j);
   return x;
+}
+
+// Four u8 lanes x (a little-endian word) of which the first nv are
+// lanes of the row, the rest replaced by the row's last lane: a lane
+// equal to the last one moves no max or min of a lane-wise difference.
+__device__ __forceinline__ uint32_t pk_pad_last(uint32_t x, int nv, uint8_t last) {
+  const uint32_t keep = nv >= 4 ? 0xFFFFFFFFu : nv > 0 ? 0xFFFFFFFFu >> (32 - 8 * nv) : 0u;
+  return (x & keep) | (static_cast<uint32_t>(last) * 0x01010101u & ~keep);
+}
+
+// Four u8 lanes -> two words of unsigned 16-bit lanes, a0 | a1 << 16.
+__device__ __forceinline__ uint2 pk_u16x2(uint32_t x) {
+  return make_uint2(__byte_perm(x, 0, 0x4140), __byte_perm(x, 0, 0x4342));
+}
+
+// The same lanes biased as 256 - b, in [1, 256]: a word of pk_u16x2 rows
+// plus one of these is a - b + 256 in [1, 511] in both halves, one
+// 32-bit add with no carry between them.
+__device__ __forceinline__ uint2 pk_u16x2_neg256(uint32_t x) {
+  const uint2 w = pk_u16x2(x);
+  return make_uint2(0x01000100u - w.x, 0x01000100u - w.y);
+}
+
+// a - b (wrapping) as one IMAD, b * neg1 + a, where the caller holds
+// neg1 = 0xFFFFFFFF in a value the compiler cannot see (a kernel
+// argument): written as a subtraction, ptxas puts a share of them on the
+// integer ALU pipe as IADD3, beside the min/max instructions there.
+__device__ __forceinline__ uint32_t sub_imad(uint32_t a, uint32_t b, uint32_t neg1) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(b), "r"(neg1), "r"(a));
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous global -> shared copies (cp.async)
+// ---------------------------------------------------------------------------
+
+// Copy `bytes` (0 or 16) from src to dst, zero-filling the rest of 16;
+// both 16-byte aligned, src a valid address even when bytes is 0.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// The same for 4 bytes (0 or 4), both 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for every copy this thread has committed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace bloom

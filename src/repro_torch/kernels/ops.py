@@ -400,7 +400,9 @@ def rect_u8_flags(rows: torch.Tensor, cols: torch.Tensor,
                   row_base: torch.Tensor, col_base: torch.Tensor, *,
                   bi: int = 64, bj: int = 64, with_base: bool = True):
     """Packed all-pairs flags over a full rectangle: rows [N, m] and cols
-    [M, m] u8 with bases [N], [M] -> (le, ge) bool [N, M]."""
+    [M, m] u8 with bases [N], [M] -> (le, ge) bool [N, M].  The kernel
+    takes a bi x bj tile of pairs a block, two m lanes a 32-bit word;
+    the flags do not depend on the tile."""
     N, m = rows.shape
     M = cols.shape[0]
     _check_tiles(bi, bj)
@@ -428,7 +430,10 @@ def rect_i32_stats(rows: torch.Tensor, cols: torch.Tensor,
                    bm: int = 512):
     """int32 all-pairs: rows [N, m], cols [M, m] logical cells, col_sums
     [M] float32 -> (le, ge) bool [N, M], row sums [N] float32 (per
-    bm-wide m-tile, the reference's order) and fp(row -> col) [N, M]."""
+    bm-wide m-tile, the reference's order) and fp(row -> col) [N, M].
+    One call launches two kernels: the row sums, then the pairs (a bi x
+    bj tile a block) with Eq. 3 from those sums; only the sums depend on
+    ``bm``."""
     N, m = rows.shape
     M = cols.shape[0]
     _check_tiles(bi, bj)

@@ -260,6 +260,80 @@ def test_cuda_rect_i32_stats_matches_plain(cuda, n, mc, m, bi, bj):
     assert_fp_close(fp, w_fp)
 
 
+_TILES = [(32, 32), (32, 64), (32, 128), (64, 32), (64, 64), (64, 128),
+          (128, 32), (128, 64)]
+
+
+def offset_view(x, offset):
+    """``x`` copied into a buffer ``offset`` elements in: contiguous, its
+    data pointer not aligned to more than one element."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bi,bj", _TILES)
+@pytest.mark.parametrize("m", [1, 3, 63, 65, 1001])
+def test_cuda_rect_u8_u16x2_edges(cuda, m, bi, bj):
+    """Two 16-bit lanes a word: odd m (lane m - 1 pads the last word and
+    chunk), m off a multiple of 64, rows and cols one byte into their
+    buffer (byte reads), N and M ragged against every tile, d = +-255,
+    bases far apart, 2^31 apart and at the +-256 clip."""
+    bases = _FAR + (-2 ** 31 + 5000, 5256, 4744, 5257)
+    rows, rb = packed_slab(133, m, 21, bases)
+    cols, cb = packed_slab(71, m, 22, bases)
+    cols[:40], cb[:40] = rows[:40], rb[:40]
+    rows[5], rows[7], cols[6], cols[8] = 255, 0, 255, 0
+    rb, cb = rb.to(cuda), cb.to(cuda)
+    for offset in (0, 1):
+        r, c = (offset_view(t.to(cuda), offset) for t in (rows, cols))
+        assert offset == 0 or r.data_ptr() % 4 != 0
+        for with_base in (True, False):
+            n0 = ops.LAUNCHES["matrix_rect_u8"]
+            le, ge = ops.rect_u8_flags(r, c, rb, cb, bi=bi, bj=bj,
+                                       with_base=with_base)
+            assert ops.LAUNCHES["matrix_rect_u8"] == n0 + 1
+            want = ref.rect_u8_flags_ref(r, c, *((rb, cb) if with_base else ()))
+            assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
+            assert bool(le.any()) and not bool(le.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bi,bj", _TILES)
+@pytest.mark.parametrize("m", [1, 3, 64, 1001, 1024])
+def test_cuda_rect_i32_stats_edges(cuda, m, bi, bj):
+    """cp.async staging and the row-sum pre-pass: 16-byte copies where
+    rows are 16-byte aligned, 4-byte copies at odd m and for rows one
+    int32 into their buffer; near-wrap rows (wrapping tile sums), rows
+    whose sums exceed 2^24, N and M ragged against every tile."""
+    _, rows = query_and_peers(133, m, 23, near_wrap=True)
+    _, cols = query_and_peers(71, m, 24, near_wrap=True)
+    rng = np.random.default_rng(m)
+    rows = rows.astype(np.int64)
+    rows[2::3] = 40_000 + rng.integers(-3, 4, (len(rows[2::3]), m)) * 997
+    rows = as_i32(rows)
+    cols[:20] = rows[:20]
+    col_sums = ref.wrap_sum_i32(torch.as_tensor(cols)).to(torch.float32).to(cuda)
+    bm = ops.tile_width(m, 512)
+    for offset in (0, 1):
+        r, c = (offset_view(torch.as_tensor(x, device=cuda), offset)
+                for x in (rows, cols))
+        n0 = ops.LAUNCHES["matrix_rect_i32"]
+        le, ge, sums, fp = ops.rect_i32_stats(r, c, col_sums, bi=bi, bj=bj)
+        assert ops.LAUNCHES["matrix_rect_i32"] == n0 + 1
+        w_le, w_ge, w_sums, w_fp = ref.rect_i32_stats_ref(r, c, col_sums, bm=bm)
+        assert torch.equal(le, w_le) and torch.equal(ge, w_ge)
+        assert torch.equal(sums, w_sums)
+        assert_fp_close(fp, w_fp)
+        assert bool(le.any()) and not bool(le.all())
+        if m >= 1001:
+            assert bool((sums[2::3].abs() > 2 ** 24).all())
+            exact = torch.as_tensor(rows.astype(np.int64).sum(1), dtype=torch.float64)
+            assert bool((sums[::3].cpu().double() != exact[::3]).all())   # wrapped
+
+
 def adversarial_mxu(rng, n, mc, m, T, lo):
     """u8 rows and cols with int32 bases around ``lo``: half in the
     window, the rest far below or above it, at the edges of the kernel's

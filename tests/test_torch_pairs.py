@@ -33,6 +33,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import clock as tbc  # noqa: E402
 from repro_torch.fleet import monitor as tmon  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.obs import MetricsRecorder as TMetrics  # noqa: E402
 from repro_torch.obs import Observer as TObserver  # noqa: E402
 from repro_torch.obs import Tracer as TTracer  # noqa: E402
@@ -346,6 +347,176 @@ def test_mxu_packed_s16x2_flush_keeps_counts_above_16_bits():
         got, tops.mxu_viol(torch.as_tensor(rows), torch.as_tensor(cols),
                            torch.as_tensor(rb), torch.as_tensor(cb), lo=lo,
                            n_thresholds=T).numpy())
+
+
+def _u16x2_flags(rows, cols, rb=None, cb=None, *, pad_last=True):
+    """numpy emulation of the rect-u8 kernel's packed arithmetic
+    (``csrc/bloom_matrix.cu``): lanes past m filled with lane m - 1 (or
+    0 with ``pad_last=False``) up to a whole 64-lane chunk, two lanes a
+    uint32 word, rows as a | a' << 16 and cols as (256 - b) | (256 - b')
+    << 16, one 32-bit add a word giving d + 256 in both halves, running
+    max and min by three-input u16x2 max/min over two words from 0 and
+    0xFFFFFFFF; max(d) is the larger half less 256, min(d) the smaller,
+    plus the clipped wrap delta of the bases."""
+    lanes = 64
+
+    def stage(u8, neg):
+        n, m = u8.shape
+        fill = u8[:, -1:] if pad_last else np.zeros((n, 1), np.uint8)
+        v = np.concatenate([u8, np.repeat(fill, -m % lanes, 1)], 1)
+        v = v.astype(np.uint32)
+        v = np.uint32(256) - v if neg else v
+        return v[:, 0::2] | (v[:, 1::2] << np.uint32(16))         # [n, words]
+
+    def halves(x):
+        return x & np.uint32(0xFFFF), x >> np.uint32(16)
+
+    def fold3(op, x, y, z):                                       # vimax3/vimin3
+        out = [op(op(a, b), c) for a, b, c in zip(halves(x), halves(y), halves(z))]
+        return out[0] | (out[1] << np.uint32(16))
+
+    A = stage(rows, False)[:, None, :]
+    NB = stage(cols, True)[None, :, :]
+    S = A + NB                                                    # wrapping add
+    lo16, hi16 = halves(S)
+    assert (lo16 >= 1).all() and (lo16 <= 511).all()              # no carry
+    assert (hi16 >= 1).all() and (hi16 <= 511).all()
+    shape = (rows.shape[0], cols.shape[0])
+    hi = np.zeros(shape, np.uint32)
+    lo = np.full(shape, 0xFFFFFFFF, np.uint32)
+    for w in range(0, S.shape[2], 2):
+        hi = fold3(np.maximum, hi, S[:, :, w], S[:, :, w + 1])
+        lo = fold3(np.minimum, lo, S[:, :, w], S[:, :, w + 1])
+    dmax = np.maximum(*halves(hi)).astype(np.int64) - 256
+    dmin = np.minimum(*halves(lo)).astype(np.int64) - 256
+    delta = 0
+    if rb is not None:
+        gap = (rb.astype(np.int64)[:, None] - cb.astype(np.int64)[None, :]) % 2 ** 32
+        delta = np.clip(np.where(gap >= 2 ** 31, gap - 2 ** 32, gap), -256, 256)
+    return dmax + delta <= 0, dmin + delta >= 0
+
+
+def _u16x2_case(case, m, g):
+    """Rows [11, m] and cols [9, m] u8 with int32 bases: "d255" puts
+    rows at 255 against cols at 0 and the reverse (d = +-255 in every
+    lane), "delta256" bases 256 and 257 apart either way around a window
+    row, "wrap" bases 2^31 apart (and 2^31 - 1); the first rows of cols
+    equal rows', the rest one lane off either way."""
+    local = g.integers(0, 256, m)
+    rows = np.repeat(local[None], 11, axis=0)
+    cols = np.repeat(local[None], 9, axis=0)
+    for x, k in ((rows, 11), (cols, 9)):
+        lane = g.integers(0, m, k)
+        step = g.choice([-1, 1], k)
+        x[np.arange(k), lane] = np.clip(x[np.arange(k), lane] + step, 0, 255)
+    cols[:3] = rows[:3]
+    rb = np.full(11, 5000, np.int64)
+    cb = np.full(9, 5000, np.int64)
+    if case == "d255":
+        rows[::2], cols[1::2] = 255, 255
+        rows[1::2], cols[::2] = 0, 0
+    elif case == "delta256":
+        rb[4:8] += np.array([256, -256, 257, -257])
+        cb[4:7] += np.array([256, -256, 1])
+    elif case == "wrap":
+        rb[4:8] = np.array([-2 ** 31, 2 ** 31 - 1, -2 ** 31 + 5000, 0])
+        cb[5:8] = np.array([5000 + 2 ** 31, -2 ** 31, 2 ** 31 - 1])
+    return rows.astype(np.uint8), cols.astype(np.uint8), as_i32(rb), as_i32(cb)
+
+
+@pytest.mark.parametrize("with_base", [True, False])
+@pytest.mark.parametrize("case", ["d255", "delta256", "wrap"])
+@pytest.mark.parametrize("m", [1, 2, 3, 63, 65, 1001])
+def test_rect_u8_u16x2_arithmetic_matches_plain_and_pallas(m, case, with_base):
+    """The rect-u8 kernel's biased 16-bit-lane arithmetic, emulated in
+    numpy, gives ``ref.rect_u8_flags_ref``'s flags, and so the Pallas
+    rect kernel's, at d = +-255, base deltas at and past the +-256 clip,
+    bases 2^31 apart, odd and ragged m."""
+    g = np.random.default_rng(m * 7 + len(case))
+    rows, cols, rb, cb = _u16x2_case(case, m, g)
+    bases = (rb, cb) if with_base else ()
+    got = _u16x2_flags(rows, cols, *bases)
+    le, ge = tops.rect_u8_flags(torch.as_tensor(rows), torch.as_tensor(cols),
+                                torch.as_tensor(rb), torch.as_tensor(cb),
+                                with_base=with_base)
+    np.testing.assert_array_equal(got[0], le.numpy())
+    np.testing.assert_array_equal(got[1], ge.numpy())
+    assert got[0].any() and not got[0].all()
+    le_j, ge_j = jops._full_rect_flags(
+        jnp.asarray(rows), jnp.asarray(rb), jnp.asarray(cols), jnp.asarray(cb),
+        8, 8, 128, m, with_base, True)
+    np.testing.assert_array_equal(le.numpy(), np.asarray(le_j).astype(bool))
+    np.testing.assert_array_equal(ge.numpy(), np.asarray(ge_j).astype(bool))
+
+
+def test_rect_u8_u16x2_zero_padding_would_flip_flags():
+    """Why pad lanes repeat lane m - 1: with a base delta, a zero pad
+    lane (d = 0) is not neutral.  Rows 3 above cols in every lane with
+    bases 3 apart the other way make every d + delta = 0, both flags
+    true; a zero pad lane would add d + delta = -3 and clear ge."""
+    rows = np.full((2, 3), 10, np.uint8)
+    cols = np.full((2, 3), 7, np.uint8)
+    rb, cb = as_i32(np.full(2, 100)), as_i32(np.full(2, 103))
+    le, ge = tops.rect_u8_flags(torch.as_tensor(rows), torch.as_tensor(cols),
+                                torch.as_tensor(rb), torch.as_tensor(cb))
+    assert le.numpy().all() and ge.numpy().all()
+    got = _u16x2_flags(rows, cols, rb, cb)
+    assert got[0].all() and got[1].all()
+    zero = _u16x2_flags(rows, cols, rb, cb, pad_last=False)
+    assert zero[0].all() and not zero[1].any()
+
+
+def _prepass_row_sums(rows, bm):
+    """numpy emulation of the rect-i32 row-sum pre-pass: per bm-wide
+    m-tile, each of 32 lanes sums every 32nd cell as uint32 (wrapping),
+    a butterfly adds the lanes, the tile's int32 becomes float32 and is
+    added to a float32 sum from 0 in tile order."""
+    n, m = rows.shape
+    u = rows.view(np.uint32)
+    acc = np.zeros(n, np.float32)
+    for t0 in range(0, m, bm):
+        tile = u[:, t0:min(t0 + bm, m)]
+        lanes = [tile[:, k::32].sum(1, dtype=np.uint64) & 0xFFFFFFFF
+                 for k in range(32)]
+        s = np.zeros(n, np.uint64)
+        for x in lanes:
+            s = (s + x) & 0xFFFFFFFF
+        acc = (acc + s.astype(np.uint32).view(np.int32).astype(np.float32)
+               ).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("n,m,bm,kind", [(9, 1024, 512, "big"),
+                                         (7, 1000, 128, "big"),
+                                         (12, 1001, 512, "wrap"),
+                                         (5, 640, 128, "wrap"),
+                                         (6, 3, 128, "big")])
+def test_rect_i32_prepass_row_sums_match_plain_and_pallas(n, m, bm, kind):
+    """The pre-pass's sum order, emulated in numpy, gives
+    ``ref.tile_sums`` bit for bit, and so the Pallas kernel's row sums,
+    at sums above 2^24 (float32 rounding in the tile adds) and at tiles
+    whose int32 sums wrap."""
+    g = np.random.default_rng(m + n)
+    if kind == "big":
+        rows = 40_000 + g.integers(-3, 4, (n, m)) * g.integers(1, 999, (n, 1))
+    else:
+        rows = I32_MAX - g.integers(0, 2 ** 20, (n, m))
+        rows[::2] = g.integers(-2 ** 31, -2 ** 31 + 2 ** 20, (len(rows[::2]), m))
+    rows = as_i32(rows)
+    bm_eff = tops.tile_width(m, bm)
+    got = _prepass_row_sums(rows, bm_eff)
+    want = tref.tile_sums(torch.as_tensor(rows), bm_eff).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if kind == "big" and m >= bm_eff:
+        assert (np.abs(got) > 2 ** 24).all()
+        exact = rows.astype(np.int64).sum(1).astype(np.float64)
+        assert (got.astype(np.float64) != exact).any()        # rounding shows
+    cols = rows[: max(1, n // 2)].copy()
+    pallas = jops._compare_matrix(jnp.asarray(rows), jnp.asarray(cols),
+                                  engine="i32", bi=8, bj=8, bm=bm,
+                                  use_autotune=False)
+    np.testing.assert_array_equal(np.asarray(pallas["row_sums"]).view(np.uint32),
+                                  got.view(np.uint32))
 
 
 def test_mxu_refuses_inexact_float_counts():
