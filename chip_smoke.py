@@ -48,12 +48,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the card needs, from bytes and from instruction counts (the lower of
    each function's minimum and the built kernel's hot loop, read from
    ``cuobjdump -sass`` with the lanes each 32-bit word holds: 2 for
-   the 16-bit lanes of rect-u8 and mxu, 1 for tri and rect-i32).  The tick at the batched
-   B=4096, P=64 (the record) and the main path's B=1, P=4, each against
-   in-place ``scatter_add_`` and out-of-place ``torch.scatter_add``; mxu
-   against the bf16 thermometer ``torch.mm`` and the int8
-   ``torch._int_mm``; a record's library time is the faster call;
-   rect-i32 once more on slabs that fit in L2 (time per pair and lane);
+   the 16-bit lanes of tri, rect-u8 and mxu, 1 for rect-i32).  The tick
+   at the batched B=4096, P=64 (the record) and the main path's B=1,
+   P=4, each against in-place ``scatter_add_`` and out-of-place
+   ``torch.scatter_add``; merge_compare at B=4096 (the record) and the
+   main path's B=1; mxu against the bf16 thermometer ``torch.mm`` and
+   the int8 ``torch._int_mm``, and once more above ``MXU_T_MAX`` (its
+   32-bit-lane kernel at N = M = 4096, T = 8192); a record's library
+   time is the faster call; rect-i32 once more on slabs that fit in L2
+   (time per pair and lane);
 8. one JSON line of kernel records, the card line, then the verdict line.
 
 No JAX and nothing of the JAX package is imported.
@@ -91,6 +94,9 @@ HYBRID_KERNELS = ("hybrid", "one_vs_many_i32")
 ENGINE_KERNELS = ("matrix_tri", "matrix_rect_u8", "matrix_mxu",
                   "matrix_rect_i32")
 L2_BYTES = 50e6
+#: T of the wide-T mxu timing, the first past the 16-bit-lane kernel's
+#: MXU_T_MAX (8,191)
+MXU_WIDE_T = 8192
 #: rows and cols of the rect-i32 run whose int32 slabs fit in L2 together
 L2_ROWS = (66 * 64, 64 * 64)
 
@@ -117,12 +123,24 @@ INT8_OPS = 1979e12
 #: The bound uses the lower of this and the built kernel's count (SASS).
 MIN_OPS = {"matrix_tri": 1.0, "matrix_rect_u8": 1.0, "matrix_rect_i32": 2.0,
            "matrix_mxu": 0.75}
+
+
+
+def mxu_wide_min_ops(T: int) -> float:
+    """``MIN_OPS`` for mxu above ``MXU_T_MAX``, where a count can pass 16
+    bits within a chunk: while T <= 32,766 the clamped values (a in
+    [-1, T], b in [0, T + 1]) and every a - b fit signed 16-bit halves, so
+    one add-relu and one dp2a into a 32-bit count take two lanes, 1 a
+    pair and lane; past that a lane takes a word, a subtraction with relu
+    and an add: 2."""
+    return 1.0 if T <= 32766 else 2.0
 #: kernel symbol in the SASS of each all-pairs record (for the tiled
-#: templates the default 64 x 64 instance; for rect-i32 its 16-byte
-#: staging), and the m lanes a 32-bit word of its staged tiles holds: 2
-#: for the packed 16-bit lanes of rect-u8 and mxu
-_SASS_KERNELS = {"matrix_tri": ("tri_flags_kernel", 1),
-                 "matrix_rect_u8": ("rect_u8_u16x2_kernelILi64ELi64E", 2),
+#: templates the default 64 x 64 instance, tri the TRI instance of
+#: rect-u8's; for rect-i32 its 16-byte staging), and the m lanes a 32-bit
+#: word of its staged tiles holds: 2 for the packed 16-bit lanes of tri,
+#: rect-u8 and mxu
+_SASS_KERNELS = {"matrix_tri": ("rect_u8_u16x2_kernelILi64ELi64ELb1E", 2),
+                 "matrix_rect_u8": ("rect_u8_u16x2_kernelILi64ELi64ELb0E", 2),
                  "matrix_rect_i32": ("rect_i32_kernelILi64ELi64ELb1E", 1),
                  "matrix_mxu": ("mxu_viol_s16x2_kernelILi64ELi64E", 2)}
 # the hybrid path (phase 6): the bench generator of
@@ -500,10 +518,12 @@ def check_pair_kernels(dev) -> dict:
     # 4-byte aligned), N and M ragged against each tile, lo near both
     # ends of int32, bases far outside the window on both sides and where
     # u8 + base - lo wraps, identical rows; m = 8192 at T = 64 flushes
-    # counts above 16 bits several times
+    # counts above 16 bits several times; T = MXU_WIDE_T, past MXU_T_MAX, runs
+    # the 32-bit-lane kernel
     for m, T, lo, (bi, bj) in ((2, 8, -5, (64, 64)), (130, 16, 2 ** 31 - 21, (32, 128)),
                                (1001, 32, -2 ** 31 + 3, (128, 64)),
-                               (8192, 64, 2 ** 31 - 1, (64, 64)), (640, 64, 0, (32, 32))):
+                               (8192, 64, 2 ** 31 - 1, (64, 64)), (640, 64, 0, (32, 32)),
+                               (M, MXU_WIDE_T, -123457, (64, 64))):
         rows, cols, rb, cb = (t(x) for x in mxu_inputs(g, 1000, 777, m, T, lo))
         got = ops.mxu_viol(rows, cols, rb, cb, lo=lo, n_thresholds=T, bi=bi, bj=bj)
         want = ref.mxu_viol_ref(rows, cols, rb, cb, lo=lo, n_thresholds=T)
@@ -514,15 +534,17 @@ def check_pair_kernels(dev) -> dict:
               f"{what}: identical rows with counts")
         check(m < 8192 or float(want.max()) > 65535, f"{what}: no count above 16 bits")
         del got, want
-    # rect-u8 on its 16-bit lanes and rect-i32 on its cp.async staging:
-    # odd and ragged m (lane m - 1 pads rect-u8's last word and chunk),
+    # tri and rect-u8 on their 16-bit lanes and rect-i32 on its cp.async
+    # staging: odd and ragged m (lane m - 1 pads the last word and chunk),
     # rows one element into their buffer (byte reads, 4-byte copies), N
-    # and M ragged against each tile; int32 rows near the wrap and rows
-    # whose sums exceed 2^24
+    # and M ragged against each tile (tri at bt = 32 where the tile has a
+    # 32 edge, else 64); int32 rows near the wrap and rows whose sums
+    # exceed 2^24
     for m, (bi, bj) in ((1, (64, 64)), (3, (32, 128)), (1001, (128, 64)),
                         (130, (32, 32)), (M, (64, 128))):
         rows_np, rb_np = pair_inputs(g, 1000, m)
         cols_np, cb_np = pair_inputs(g, 777, m)
+        rb_np[7::97] = -2 ** 31 + 5000       # 2^31 from the common base 5000
         cols_np[:300], cb_np[:300] = rows_np[:300], rb_np[:300]
         rb, cb = t(rb_np), t(cb_np)
         near = (2 ** 31 - 1 - g.integers(0, 300, m)).astype(np.int64)
@@ -547,6 +569,12 @@ def check_pair_kernels(dev) -> dict:
                     check(torch.equal(x, y), f"rect_u8 {f} {what} base={with_base}")
                 check(bool(got[0].any()) and not bool(got[0].all()),
                       f"rect_u8 {what}: le all equal")
+                bt = 32 if 32 in (bi, bj) else 64
+                got = ops.tri_flags(rows, rb, bt=bt, with_base=with_base)
+                want = ref.tri_flags_ref(rows, rb if with_base else None)
+                torch.cuda.synchronize()
+                for x, y, f in zip(got, want, ("le", "ge")):
+                    check(torch.equal(x, y), f"tri {f} {what} bt={bt} base={with_base}")
             r32, c32 = (offset_view(t(x), offset) for x in (r32_np, c32_np))
             got = ops.rect_i32_stats(r32, c32, col_sums, bi=bi, bj=bj)
             want = ref.rect_i32_stats_ref(r32, c32, col_sums,
@@ -1338,18 +1366,23 @@ def time_kernels(dev, n_wide: int) -> dict:
             rec["bloom_tick"]["main_shape"] = r
         del cells, probes, probes64
 
-    # merge_compare: B=4096 pairs of m=1024 int32 rows
-    B = 4096
-    nbytes = B * M * 4 * 3 + B * 2 * 4 * 3
-    nb = n_buffers(nbytes)
-    ab = [(torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev),
-           torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev))
-          for _ in range(nb)]
-    rec["bloom_merge_compare"] = entry(
-        lambda i: ops.merge_compare(*ab[i]),
-        lambda i: ref.bloom_merge_compare_ref(*ab[i], bm=bm), nb, nbytes,
-        B * M * 5)
-    del ab
+    # merge_compare: B=4096 pairs of m=1024 int32 rows (the record), then
+    # the main path's B=1 (every receive compares one row pair), 2 buffers
+    # as the B=1 tick
+    for B in (4096, 1):
+        nbytes = B * M * 4 * 3 + B * 2 * 4 * 3
+        nb = n_buffers(nbytes) if B > 1 else 2
+        ab = [(torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev),
+               torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev))
+              for _ in range(nb)]
+        r = entry(lambda i: ops.merge_compare(*ab[i]),
+                  lambda i: ref.bloom_merge_compare_ref(*ab[i], bm=bm), nb, nbytes,
+                  B * M * 5, B=B)
+        if B > 1:
+            rec["bloom_merge_compare"] = r
+        else:
+            rec["bloom_merge_compare"]["main_shape"] = r
+        del ab
 
     # one-vs-many packed: the registry slab, N=65,536 rows of m=1024
     N = N_PEERS
@@ -1413,6 +1446,9 @@ def time_pair_kernels(dev, sass: dict) -> dict:
     entry("matrix_tri", lambda i: ops.tri_flags(*slabs[i]),
           lambda i: ref.tri_flags_ref(*slabs[i]), N * m + N * 4 + flags,
           N * (N + 1) // 2 * m)
+    # the 32 x 32 instance, which pairs runs when asked for 32-row tiles
+    k = measure(lambda i: ops.tri_flags(*slabs[i], bt=32), 2, iters=5, warmup=1)
+    rec["matrix_tri"]["bt32"] = dict(ms=k["ms"], call_ms=k["call_ms"])
     entry("matrix_rect_u8",
           lambda i: ops.rect_u8_flags(slabs[i][0], slabs[1 - i][0], slabs[i][1],
                                       slabs[1 - i][1]),
@@ -1480,6 +1516,27 @@ def time_pair_kernels(dev, sass: dict) -> dict:
                                      win[1 - i][1], lo=lo, n_thresholds=T),
           2 * N * m + 2 * N * 4 + N * N * 4, N * N * m,
           library_fns=libraries, tensor_ops=2 * N * N * m * T)
+    # above MXU_T_MAX: the 32-bit-lane kernel at N = M = 4096, T = 8192,
+    # bases spread over the window so that counts are mostly non-zero;
+    # its bound counts mxu_wide_min_ops(T) instructions a pair and lane
+    Nw, T, lo = N_SLOTS // 4, MXU_WIDE_T, -123457
+    wide = [(c[:Nw], t(lo + g.integers(0, T - 255, Nw).astype(np.int32)))
+            for c, _ in slabs]
+    kw = dict(lo=lo, n_thresholds=T)
+    got = ops.mxu_viol(wide[0][0], wide[1][0], wide[0][1], wide[1][1], **kw)
+    want = ref.mxu_viol_ref(wide[0][0], wide[1][0], wide[0][1], wide[1][1], **kw)
+    check(torch.equal(got, want), f"mxu T={T}: the kernel differs from the plain version")
+    check(bool((got > 0).any()) and bool((got == 0).any()),
+          f"mxu T={T}: counts all zero or none zero")
+    del got, want
+    k = measure(lambda i: ops.mxu_viol(wide[i][0], wide[1 - i][0], wide[i][1],
+                                       wide[1 - i][1], **kw), 2, iters=5, warmup=1)
+    p = measure(lambda i: ref.mxu_viol_ref(wide[i][0], wide[1 - i][0], wide[i][1],
+                                           wide[1 - i][1], **kw), 2, iters=2, warmup=1)
+    rec["matrix_mxu"]["wide_t"] = dict(
+        ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"], N=Nw, m=m, T=T,
+        bytes=2 * Nw * m + 2 * Nw * 4 + Nw * Nw * 4,
+        ops=mxu_wide_min_ops(T) * Nw * Nw * m, ops_per_pair=mxu_wide_min_ops(T))
     return rec
 
 
@@ -1682,6 +1739,23 @@ def main() -> int:
               f"scatter_add_ in place {r['scatter_add_ms']} ms, torch.scatter_add "
               f"to new cells {r['scatter_add_out_ms']} ms, bound {t_bytes} ms "
               f"(bytes): the kernel at {t_bytes / r['ms']} of it")
+    mc = timed["bloom_merge_compare"]["main_shape"]
+    t_bytes = mc["bytes"] / rate * 1e3
+    print(f"[time] bloom_merge_compare B={mc['B']} m={M} int32: kernel {mc['ms']} ms "
+          f"(call {mc['call_ms']} ms), plain {mc['plain_ms']} ms (call "
+          f"{mc['plain_call_ms']} ms), {mc['bytes']} bytes, bound {t_bytes} ms "
+          f"(bytes): the kernel at {t_bytes / mc['ms']} of it")
+    tr = timed["matrix_tri"]
+    t_tri = max(tr["bytes"] / rate, tr["ops"] / INT_OPS) * 1e3
+    print(f"[time] matrix_tri bt=32 at N={N_SLOTS} m={M}: kernel {tr['bt32']['ms']} ms "
+          f"(call {tr['bt32']['call_ms']} ms), bt=64 {tr['ms']} ms, bound {t_tri} ms")
+    w = timed["matrix_mxu"]["wide_t"]
+    t_bytes, t_ops = w["bytes"] / rate * 1e3, w["ops"] / INT_OPS * 1e3
+    print(f"[time] matrix_mxu above MXU_T_MAX (32-bit lanes) at N=M={w['N']} "
+          f"m={w['m']} T={w['T']}: kernel {w['ms']} ms (call {w['call_ms']} ms), "
+          f"plain {w['plain_ms']} ms, {w['bytes']} bytes, {w['ops']} ops "
+          f"({w['ops_per_pair']} per pair and lane), bound {max(t_bytes, t_ops)} ms (bytes {t_bytes}, "
+          f"ops {t_ops} at the instruction rate)")
     l2 = timed["matrix_rect_i32"]["l2_resident"]
     print(f"[time] matrix_rect_i32 on slabs inside L2 (N={l2['N']}, M={l2['M']}, "
           f"{l2['slab_bytes']} bytes): {l2['ms']} ms, {l2['ps_per_pair_lane']} ps "

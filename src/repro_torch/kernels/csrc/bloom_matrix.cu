@@ -22,13 +22,14 @@
 // half the SM's issue rate: the integer ALU pipe (VIMNMX3, IADD3, PRMT,
 // LOP3) and the other (IMAD, IDP).
 //
-// tri (unchanged since its port): one CTA per upper-triangle tile from a
-// linear block index (the scalar-prefetched (ti, tj) lists of the TPU
-// kernel); both row tiles staged through shared memory in 64-lane chunks
-// one u8 lane a 32-bit word (common.cuh stage_rows), two barriers a
-// chunk; 4 x 4 pairs a thread take d in int32 and keep max and min with
-// ~2.3 instructions a pair and lane.  Pairs i <= j are written directly
-// and i > j by the mirror le(j, i) = ge(i, j), at any tile size.
+// tri: rect-u8's kernel below (TRI = true), over one slab against
+// itself.  Each CTA takes one upper-triangle tile from a linear block
+// index (the scalar-prefetched (ti, tj) lists of the TPU kernel), so its
+// grid is the n (n + 1) / 2 tiles on and above the diagonal of an n x n
+// grid, about half of rect-u8's.  The row tile stages a and the column
+// tile 256 - b as in rect-u8; a diagonal tile stages the same rows in
+// both forms and needs no special case.  Pairs i <= j are written
+// directly and i > j by the mirror le(j, i) = ge(i, j), at any tile size.
 //
 // rect-u8: two lanes a 32-bit word as unsigned 16-bit halves.  Rows
 // stage a | a' << 16 and columns (256 - b) | (256 - b') << 16, so one
@@ -96,12 +97,6 @@ struct MinMax {
       }
     }
   }
-
-  __device__ __forceinline__ void operator()(int r, int c, uint32_t a, uint32_t b) {
-    const int d = static_cast<int>(a - b);
-    hi[r][c] = max(hi[r][c], d);
-    lo[r][c] = min(lo[r][c], d);
-  }
 };
 
 // Tile (ti, tj), ti <= tj, of the linear index t over n tiles a side.
@@ -115,23 +110,6 @@ __device__ __forceinline__ void tri_tile(long long t, int n, int& ti, int& tj) {
   while (i + 1 < n && first(i + 1) <= t) ++i;
   ti = static_cast<int>(i);
   tj = static_cast<int>(i + (t - first(i)));
-}
-
-// Sweep every m-chunk of the tile.
-template <typename T>
-__device__ __forceinline__ void sweep_tile(const T* __restrict__ rows, const T* __restrict__ cols,
-                                           int N, int M, int m, int i0, int j0, int bi, int bj,
-                                           uint32_t* As, uint32_t* Bs, MinMax& mm) {
-  const int cstep = bj / PAIR_CT, rstep = bi / PAIR_RT;
-  const int tx = threadIdx.x % cstep, ty = threadIdx.x / cstep;
-  for (int k0 = 0; k0 < m; k0 += PAIR_KC) {
-    const int kc = min(PAIR_KC, m - k0);
-    bloom::stage_rows(As, rows, N, i0, bi, m, k0, kc, bloom::AsWord());
-    bloom::stage_rows(Bs, cols, M, j0, bj, m, k0, kc, bloom::AsWord());
-    __syncthreads();
-    bloom::sweep_chunk(As, Bs, kc, ty, tx, rstep, cstep, mm);
-    __syncthreads();
-  }
 }
 
 // Flags of the tile through shared memory F (which may overlay the
@@ -185,29 +163,32 @@ __device__ __forceinline__ void write_flags(const MinMax& mm, const int32_t* __r
   }
 }
 
-__global__ void tri_flags_kernel(const uint8_t* __restrict__ cells,
-                                 const int32_t* __restrict__ base, uint8_t* __restrict__ le,
-                                 uint8_t* __restrict__ ge, int N, int m, int bt, int n_tiles,
-                                 int with_base) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  int ti, tj;
-  tri_tile(blockIdx.x, n_tiles, ti, tj);
-  const int i0 = ti * bt, j0 = tj * bt;
-  MinMax mm;
-  mm.init();
-  sweep_tile<uint8_t>(cells, cells, N, N, m, i0, j0, bt, bt, smem, smem + bt * PAIR_LDK, mm);
-  write_flags<true>(mm, base, base, with_base, N, N, i0, j0, bt, bt,
-                    reinterpret_cast<uint8_t*>(smem), le, ge);
+// Shared memory of a u16x2 tile: two word buffers and the raw slots.
+constexpr size_t u16x2_smem_bytes(int bi, int bj) {
+  return (2 * static_cast<size_t>(PK_LDW) + PK_QUADS) * (bi + bj) * sizeof(uint32_t);
+}
+
+// CTAs of a u16x2 tile an SM is asked to hold: 768 threads (80 registers
+// each), or fewer where shared memory admits fewer (228 KiB an SM, 1 KiB
+// of it reserved a CTA): 9 of the 32 x 32 tiles, not 12.  Asking for more
+// than fit would cap the registers for nothing and spill.
+constexpr int u16x2_ctas(int bi, int bj) {
+  const int by_threads = 768 * PAIR_RT * PAIR_CT / (bi * bj);
+  const int by_smem = static_cast<int>(228 * 1024 / (u16x2_smem_bytes(bi, bj) + 1024));
+  return by_threads < by_smem ? by_threads : by_smem;
 }
 
 // rect-u8 on two unsigned 16-bit lanes a word (see the note at the head
-// of this file): a BI x BJ tile of pairs, 4 x 4 a thread.
-template <int BI, int BJ>
-__global__ void __launch_bounds__(BI * BJ / (PAIR_RT * PAIR_CT), 768 * PAIR_RT * PAIR_CT / (BI * BJ))
+// of this file): a BI x BJ tile of pairs, 4 x 4 a thread.  With TRI it
+// is tri: rows and cols are one slab (N == M) with one base, and the
+// block index names an upper-triangle tile.
+template <int BI, int BJ, bool TRI>
+__global__ void __launch_bounds__(BI * BJ / (PAIR_RT * PAIR_CT), u16x2_ctas(BI, BJ))
 rect_u8_u16x2_kernel(const uint8_t* __restrict__ rows, const uint8_t* __restrict__ cols,
                      const int32_t* __restrict__ row_base, const int32_t* __restrict__ col_base,
                      uint8_t* __restrict__ le, uint8_t* __restrict__ ge, int N, int M, int m,
                      int with_base, bool word_copies) {
+  static_assert(!TRI || BI == BJ, "tri tiles are square");
   constexpr int NT = BI * BJ / (PAIR_RT * PAIR_CT);   // threads
   constexpr int RSTEP = BI / PAIR_RT, CSTEP = BJ / PAIR_CT;
   constexpr int ROWS_PER_PASS = NT / PK_QUADS;        // staged rows a pass of the CTA
@@ -217,7 +198,9 @@ rect_u8_u16x2_kernel(const uint8_t* __restrict__ rows, const uint8_t* __restrict
   uint32_t* raw = smem + 2 * TILE_WORDS;              // NQ x NT u8 quads, one slot a thread each
 
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.y * BI, j0 = blockIdx.x * BJ;
+  int ti = blockIdx.y, tj = blockIdx.x;
+  if (TRI) tri_tile(blockIdx.x, (N + BI - 1) / BI, ti, tj);
+  const int i0 = ti * BI, j0 = tj * BJ;
   const int tx = tid % CSTEP, ty = tid / CSTEP;
   // Staging: this thread copies quad q (lanes 4q .. 4q + 3 of a chunk) of
   // NQ staged rows, the first NA of the row tile, the rest of the col
@@ -315,8 +298,8 @@ rect_u8_u16x2_kernel(const uint8_t* __restrict__ rows, const uint8_t* __restrict
       mm.lo[r][c] = static_cast<int>(min(lo[r][c] & 0xFFFFu, lo[r][c] >> 16)) - 256;
     }
   }
-  write_flags<false>(mm, row_base, col_base, with_base, N, M, i0, j0, BI, BJ,
-                     reinterpret_cast<uint8_t*>(smem), le, ge);
+  write_flags<TRI>(mm, row_base, col_base, with_base, N, M, i0, j0, BI, BJ,
+                   reinterpret_cast<uint8_t*>(smem), le, ge);
 }
 
 // Row sums of int32 rows, the reference's order: uint32 (wrapping) sums
@@ -435,25 +418,20 @@ rect_i32_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ co
                      reinterpret_cast<uint8_t*>(smem), le, ge);
 }
 
-// Raise the kernel's dynamic shared memory limit where it needs more
-// than the default 48 KiB.
-template <typename K>
-int allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
-template <int BI, int BJ>
-int launch_rect_u8(const void* rows, const void* cols, const void* row_base,
-                   const void* col_base, void* le, void* ge, int N, int M, int m, int with_base,
-                   cudaStream_t stream) {
-  const auto kernel = rect_u8_u16x2_kernel<BI, BJ>;
-  const size_t smem = (2 * static_cast<size_t>(PK_LDW) + PK_QUADS) * (BI + BJ) * sizeof(uint32_t);
-  if (int err = allow_smem(kernel, smem)) return err;
+// rect-u8 over a grid of BI x BJ tiles, or with TRI tri over the
+// n (n + 1) / 2 upper-triangle tiles of one slab (rows == cols, N == M).
+template <int BI, int BJ, bool TRI>
+int launch_u16x2(const void* rows, const void* cols, const void* row_base,
+                 const void* col_base, void* le, void* ge, int N, int M, int m, int with_base,
+                 cudaStream_t stream) {
+  const auto kernel = rect_u8_u16x2_kernel<BI, BJ, TRI>;
+  const size_t smem = u16x2_smem_bytes(BI, BJ);
+  if (int err = bloom::allow_smem(kernel, smem)) return err;
   const bool word_copies = m % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 4 == 0 &&
                            reinterpret_cast<uintptr_t>(cols) % 4 == 0;
-  const dim3 grid((M + BJ - 1) / BJ, (N + BI - 1) / BI);
+  const long long n_tiles = (N + BI - 1) / BI;
+  const dim3 grid = TRI ? dim3(static_cast<unsigned>(n_tiles * (n_tiles + 1) / 2))
+                        : dim3((M + BJ - 1) / BJ, (N + BI - 1) / BI);
   kernel<<<grid, BI * BJ / (PAIR_RT * PAIR_CT), smem, stream>>>(
       static_cast<const uint8_t*>(rows), static_cast<const uint8_t*>(cols),
       static_cast<const int32_t*>(row_base), static_cast<const int32_t*>(col_base),
@@ -469,7 +447,7 @@ int launch_rect_i32(const void* rows, const void* cols, const void* row_sums,
                    reinterpret_cast<uintptr_t>(cols) % 16 == 0;
   const auto kernel = vec ? &rect_i32_kernel<BI, BJ, true> : &rect_i32_kernel<BI, BJ, false>;
   const size_t smem = 2 * static_cast<size_t>(BI + BJ) * PAIR_LDK * sizeof(uint32_t);
-  if (int err = allow_smem(kernel, smem)) return err;
+  if (int err = bloom::allow_smem(kernel, smem)) return err;
   const dim3 grid((M + BJ - 1) / BJ, (N + BI - 1) / BI);
   kernel<<<grid, BI * BJ / (PAIR_RT * PAIR_CT), smem, stream>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
@@ -485,15 +463,12 @@ extern "C" int matrix_tri_flags(const void* cells, const void* base, void* le, v
                                 int m, int bt, int with_base, void* stream) {
   if (N == 0) return 0;
   if (!bloom::pair_tiles_ok(bt, bt)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bloom::pair_smem_bytes(bt, bt);
-  if (int err = allow_smem(tri_flags_kernel, smem)) return err;
-  const int n_tiles = (N + bt - 1) / bt;
-  const long long blocks = static_cast<long long>(n_tiles) * (n_tiles + 1) / 2;
-  tri_flags_kernel<<<static_cast<unsigned>(blocks), (bt / PAIR_RT) * (bt / PAIR_CT), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cells), static_cast<const int32_t*>(base),
-      static_cast<uint8_t*>(le), static_cast<uint8_t*>(ge), N, m, bt, n_tiles, with_base);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bt == 32)
+    return launch_u16x2<32, 32, true>(cells, cells, base, base, le, ge, N, N, m, with_base, s);
+  if (bt == 64)
+    return launch_u16x2<64, 64, true>(cells, cells, base, base, le, ge, N, N, m, with_base, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 #define PAIR_TILE_CASES(X) \
@@ -506,7 +481,8 @@ extern "C" int matrix_rect_u8_flags(const void* rows, const void* cols, const vo
   const auto s = static_cast<cudaStream_t>(stream);
 #define RECT_U8(BI, BJ)                                                                   \
   if (bi == BI && bj == BJ)                                                               \
-    return launch_rect_u8<BI, BJ>(rows, cols, row_base, col_base, le, ge, N, M, m, with_base, s);
+    return launch_u16x2<BI, BJ, false>(rows, cols, row_base, col_base, le, ge, N, M, m,    \
+                                       with_base, s);
   PAIR_TILE_CASES(RECT_U8)
 #undef RECT_U8
   return static_cast<int>(cudaErrorInvalidValue);

@@ -42,6 +42,17 @@
 // lanes and rows 0 in both, which adds 0.  The count is exact in int32
 // (the caller refuses m * T >= 2^24, as the reference does) and stored
 // as float32.
+//
+// Above MXU_T_MAX the packed halves could overflow within a chunk, so a
+// plain kernel takes over: one lane a 32-bit word (common.cuh
+// stage_rows, sweep_chunk), rows staged clamp(u8 + (base - lo), -1, T)
+// and columns clamp(u8 + (base - lo), 0, T + 1) in int32 wrap, each
+// pair adding max(a - b, 0) to a 32-bit count; lanes and rows past the
+// slab are 0 and add 0.  Its bound is operations: while T <= 32,766 the
+// clamped values and every a - b still fit signed 16-bit halves, so one
+// add-relu and one dp2a (IDP) into a 32-bit count take two lanes, 1 a
+// pair and lane (2 above that T: a subtraction with relu and an add).
+// It lies on no engine's path (pairs asks for T <= 64) and is not tuned.
 #include "common.cuh"
 
 namespace {
@@ -54,7 +65,8 @@ using bloom::PK_WORDS;
 
 constexpr int PK_GROUP = 4;                       // words a 16-byte shared load
 constexpr int PK_PACKED_WORDS = PK_WORDS / 4;     // words a chunk into the packed count
-// Largest T whose 16-bit count halves cannot overflow within one chunk.
+// Largest T whose 16-bit count halves cannot overflow within one chunk:
+// the s16x2 kernel takes T up to it, the 32-bit-lane kernel T above it.
 constexpr int MXU_T_MAX = 65535 / PK_PACKED_WORDS;
 
 // relu(a - b) in both halves as max(a + nb, nb, 0), which is
@@ -196,16 +208,78 @@ mxu_viol_s16x2_kernel(const uint8_t* __restrict__ rows, const uint8_t* __restric
   }
 }
 
+// clamp(u8 + (base[row] - lo), lo_c, hi_c), the window shift in int32 wrap.
+struct WindowClamp {
+  const int32_t* __restrict__ base;
+  int32_t lo;
+  int lo_c, hi_c;
+  __device__ __forceinline__ uint32_t operator()(int row, uint32_t v) const {
+    const uint32_t d = static_cast<uint32_t>(base[row]) - static_cast<uint32_t>(lo);
+    const int x = static_cast<int>(v + d);
+    return static_cast<uint32_t>(min(max(x, lo_c), hi_c));
+  }
+};
+
+// relu(a - b) summed per pair of the thread; a in [-1, T], b in [0, T + 1].
+struct ReluCount {
+  uint32_t n[PAIR_RT][PAIR_CT];
+  __device__ __forceinline__ void operator()(int r, int c, uint32_t a, uint32_t b) {
+    n[r][c] += static_cast<uint32_t>(max(static_cast<int>(a) - static_cast<int>(b), 0));
+  }
+};
+
+// Violation counts on 32-bit lanes, for T > MXU_T_MAX: a bi x bj tile of
+// pairs a CTA, 4 x 4 a thread.
+__global__ void __launch_bounds__(bloom::PAIR_MAX_PAIRS / (PAIR_RT * PAIR_CT))
+mxu_viol_wide_kernel(const uint8_t* __restrict__ rows, const uint8_t* __restrict__ cols,
+                     const int32_t* __restrict__ row_base, const int32_t* __restrict__ col_base,
+                     float* __restrict__ viol, int N, int M, int m, int bi, int bj, int lo,
+                     int T) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* As = smem;
+  uint32_t* Bs = smem + bi * bloom::PAIR_LDK;
+  const int i0 = blockIdx.y * bi, j0 = blockIdx.x * bj;
+  const int cstep = bj / PAIR_CT, rstep = bi / PAIR_RT;
+  const int tx = threadIdx.x % cstep, ty = threadIdx.x / cstep;
+  const WindowClamp fa{row_base, lo, -1, T}, fb{col_base, lo, 0, T + 1};
+  ReluCount acc{};
+  for (int k0 = 0; k0 < m; k0 += bloom::PAIR_KC) {
+    const int kc = min(bloom::PAIR_KC, m - k0);
+    bloom::stage_rows(As, rows, N, i0, bi, m, k0, kc, fa);
+    bloom::stage_rows(Bs, cols, M, j0, bj, m, k0, kc, fb);
+    __syncthreads();
+    bloom::sweep_chunk(As, Bs, kc, ty, tx, rstep, cstep, acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < PAIR_RT; ++r) {
+#pragma unroll
+    for (int c = 0; c < PAIR_CT; ++c) {
+      const int i = i0 + ty + r * rstep, j = j0 + tx + c * cstep;
+      if (i < N && j < M) viol[static_cast<size_t>(i) * M + j] = static_cast<float>(acc.n[r][c]);
+    }
+  }
+}
+
+int launch_wide(const void* rows, const void* cols, const void* row_base, const void* col_base,
+                void* viol, int N, int M, int m, int bi, int bj, int lo, int T,
+                cudaStream_t stream) {
+  const size_t smem = bloom::pair_smem_bytes(bi, bj);
+  if (int err = bloom::allow_smem(mxu_viol_wide_kernel, smem)) return err;
+  const dim3 grid((M + bj - 1) / bj, (N + bi - 1) / bi);
+  mxu_viol_wide_kernel<<<grid, (bi / PAIR_RT) * (bj / PAIR_CT), smem, stream>>>(
+      static_cast<const uint8_t*>(rows), static_cast<const uint8_t*>(cols),
+      static_cast<const int32_t*>(row_base), static_cast<const int32_t*>(col_base),
+      static_cast<float*>(viol), N, M, m, bi, bj, lo, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BI, int BJ>
 int launch(const void* rows, const void* cols, const void* row_base, const void* col_base,
            void* viol, int N, int M, int m, int lo, int T, cudaStream_t stream) {
   const auto kernel = mxu_viol_s16x2_kernel<BI, BJ>;
   const size_t smem = 2 * static_cast<size_t>(BI + BJ) * PK_LDW * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (int err = bloom::allow_smem(kernel, smem)) return err;
   const bool word_reads = m % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 4 == 0 &&
                           reinterpret_cast<uintptr_t>(cols) % 4 == 0;
   const dim3 grid((M + BJ - 1) / BJ, (N + BI - 1) / BI);
@@ -222,9 +296,10 @@ extern "C" int matrix_mxu_viol(const void* rows, const void* cols, const void* r
                                const void* col_base, void* viol, int N, int M, int m, int bi,
                                int bj, int lo, int T, void* stream) {
   if (N == 0 || M == 0) return 0;
-  if (!bloom::pair_tiles_ok(bi, bj) || T < 1 || T > MXU_T_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!bloom::pair_tiles_ok(bi, bj) || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (T > MXU_T_MAX)
+    return launch_wide(rows, cols, row_base, col_base, viol, N, M, m, bi, bj, lo, T, s);
 #define MXU_TILE(BI, BJ) \
   if (bi == BI && bj == BJ) return launch<BI, BJ>(rows, cols, row_base, col_base, viol, N, M, m, lo, T, s);
   MXU_TILE(32, 32) MXU_TILE(32, 64) MXU_TILE(32, 128) MXU_TILE(64, 32)

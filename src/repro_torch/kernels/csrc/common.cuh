@@ -61,6 +61,15 @@ __host__ __device__ inline size_t pair_smem_bytes(int bi, int bj) {
   return static_cast<size_t>(bi + bj) * PAIR_LDK * sizeof(uint32_t);
 }
 
+// Raise a kernel's dynamic shared memory limit where it needs more than
+// the default 48 KiB.
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
 // Stage lanes [k0, k0 + kc) of rows [r0, r0 + tile_rows) into s as 32-bit
 // words, each passed through f(row, value).  Consecutive threads take
 // consecutive lanes of one row: coalesced loads, conflict-free stores.
@@ -78,11 +87,6 @@ __device__ __forceinline__ void stage_rows(uint32_t* __restrict__ s,
     s[r * PAIR_LDK + k] = v;
   }
 }
-
-// The identity staging transform.
-struct AsWord {
-  __device__ __forceinline__ uint32_t operator()(int, uint32_t v) const { return v; }
-};
 
 // One staged chunk through a thread's 4 x 4 pairs: acc(r, c, a, b) for
 // every lane, four lanes per 16-byte read.

@@ -60,8 +60,9 @@ LAUNCHES: dict[str, int] = {
 #: and the thermometer widths T it rounds a span up to (the reference's)
 MXU_SPAN_MAX = 64
 _MXU_SPAN_BUCKETS = (8, 16, 32, 64)
-#: largest T the mxu kernel takes: its packed 16-bit counts gain at most
-#: 8 T a staged chunk (bloom_mxu.cu: MXU_T_MAX)
+#: largest T of the mxu kernel on packed 16-bit counts, which gain at
+#: most 8 T a staged chunk; above it a 32-bit-lane kernel takes the call
+#: (bloom_mxu.cu: MXU_T_MAX, the dispatch point)
 MXU_T_MAX = 65535 // 8
 
 #: tile edges (pairs) an all-pairs CUDA block may take: bi, bj, with at
@@ -479,9 +480,6 @@ def mxu_viol(rows: torch.Tensor, cols: torch.Tensor, row_base: torch.Tensor,
     _check(cols, "matrix_mxu cols", torch.uint8, (M, m))
     _check(row_base, "matrix_mxu row_base", torch.int32, (N,))
     _check(col_base, "matrix_mxu col_base", torch.int32, (M,))
-    if n_thresholds > MXU_T_MAX:
-        raise ValueError(f"mxu: T={n_thresholds} exceeds the kernel's 16-bit "
-                         f"lanes (T <= {MXU_T_MAX})")
     viol = torch.empty((N, M), dtype=torch.float32, device=rows.device)
     if N and M:
         with torch.cuda.device(rows.device):

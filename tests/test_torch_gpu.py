@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
-all-pairs tri, rect-u8, rect-i32-stats and mxu kernels.  Every test
+all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
+sides of its dispatch point ``ops.MXU_T_MAX``).  Every test
 here carries the ``gpu`` marker and skips without a CUDA device
 (decided in a fixture, never at import time).
 
@@ -217,24 +218,50 @@ _FAR = (-2 ** 31, -70000, 1000, 1300, 5000, I32_MAX - 100)
 @pytest.mark.parametrize("n,mc,m,bi,bj", [(1000, 777, 640, 64, 64),
                                            (130, 70, 1, 32, 32),
                                            (200, 300, 1024, 128, 64),
-                                           (33, 100, 67, 32, 128)])
+                                           (33, 100, 67, 32, 128),
+                                           (131, 50, 3, 64, 64),
+                                           (97, 40, 1001, 32, 64)])
 def test_cuda_tri_and_rect_u8_match_plain(cuda, n, mc, m, bi, bj):
-    rows, rb = packed_slab(n, m, 11, _FAR)
+    """tri runs rect-u8's 16-bit-lane body over upper-triangle tiles:
+    odd m, rows one byte into their buffer, N ragged against bt 32 and
+    64, and bases 2^31 apart, where tri's mirrored flags depart from the
+    directly computed ones (``ref.tri_flags_ref`` keeps the departure)."""
+    rows, rb = packed_slab(n, m, 11, _FAR + (-2 ** 31 + 1000,))
     cols, cb = packed_slab(mc, m, 12, _FAR)
+    rb[0], rb[1] = 1000, -2 ** 31 + 1000                  # 2^31 apart
     cols[: min(n, mc) // 2] = rows[: min(n, mc) // 2]
+    base = rb.numpy().astype(np.int64)
+    i, j = np.indices((n, n))
+    mirrored = ((base[:, None] - base[None, :]) % 2 ** 32 == 2 ** 31) & (i > j)
+    mirrored = torch.as_tensor(mirrored, device=cuda)
     rows, rb, cols, cb = (t.to(cuda) for t in (rows, rb, cols, cb))
-    for with_base in (True, False):
-        n0 = ops.LAUNCHES["matrix_rect_u8"]
-        le, ge = ops.rect_u8_flags(rows, cols, rb, cb, bi=bi, bj=bj,
-                                   with_base=with_base)
-        assert ops.LAUNCHES["matrix_rect_u8"] == n0 + 1
-        want = ref.rect_u8_flags_ref(rows, cols, *((rb, cb) if with_base else ()))
-        assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
-        n0 = ops.LAUNCHES["matrix_tri"]
-        le, ge = ops.tri_flags(rows, rb, bt=min(bi, bj), with_base=with_base)
-        assert ops.LAUNCHES["matrix_tri"] == n0 + 1
-        want = ref.tri_flags_ref(rows, rb if with_base else None)
-        assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
+    for offset in (0, 1):
+        r, c = (offset_view(t, offset) for t in (rows, cols))
+        assert offset == 0 or r.data_ptr() % 4 != 0
+        for with_base in (True, False):
+            n0 = ops.LAUNCHES["matrix_rect_u8"]
+            le, ge = ops.rect_u8_flags(r, c, rb, cb, bi=bi, bj=bj,
+                                       with_base=with_base)
+            assert ops.LAUNCHES["matrix_rect_u8"] == n0 + 1
+            want = ref.rect_u8_flags_ref(r, c, *((rb, cb) if with_base else ()))
+            assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
+            for bt in (32, 64):
+                n0 = ops.LAUNCHES["matrix_tri"]
+                le, ge = ops.tri_flags(r, rb, bt=bt, with_base=with_base)
+                assert ops.LAUNCHES["matrix_tri"] == n0 + 1
+                want = ref.tri_flags_ref(r, rb if with_base else None)
+                assert torch.equal(le, want[0]) and torch.equal(ge, want[1])
+                if not with_base:
+                    continue
+                # the rect-u8 kernel computes every pair directly: tri
+                # agrees with it except on mirrored pairs 2^31 apart
+                d_le, d_ge = ops.rect_u8_flags(r, r, rb, rb, bi=bt, bj=bt)
+                assert torch.equal(le[~mirrored], d_le[~mirrored])
+                assert torch.equal(ge[~mirrored], d_ge[~mirrored])
+                assert torch.equal(le[mirrored], d_ge.T[mirrored])
+                assert torch.equal(ge[mirrored], d_le.T[mirrored])
+                assert bool(d_le[mirrored].all()) and not bool(d_ge[mirrored].any())
+                assert not bool(le[mirrored].any()) and bool(ge[mirrored].all())
 
 
 @pytest.mark.gpu
@@ -382,6 +409,28 @@ def test_cuda_mxu_matches_plain(cuda, m, T, lo, bi, bj):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bi,bj", [(64, 64), (128, 32)])
+@pytest.mark.parametrize("lo", [-2 ** 31 + 3, I32_MAX - 20])
+@pytest.mark.parametrize("m,T", [(1024, ops.MXU_T_MAX), (1024, ops.MXU_T_MAX + 1),
+                                 (1024, 16383), (300, 50_000)])
+def test_cuda_mxu_wide_t_matches_plain(cuda, m, T, lo, bi, bj):
+    """Both sides of MXU_T_MAX, the dispatch point between the packed
+    16-bit-lane kernel and the 32-bit-lane one, up to the reference's
+    m * T < 2^24: counts identical to ``ref.mxu_viol_ref`` over N and M
+    ragged against two tiles, ``lo`` near both ends of int32, bases far
+    outside the window and where u8 + base - lo wraps, identical rows."""
+    rng = np.random.default_rng(T)
+    rows, cols, rb, cb = (torch.as_tensor(x, device=cuda)
+                          for x in adversarial_mxu(rng, 300, 77, m, T, lo))
+    n0 = ops.LAUNCHES["matrix_mxu"]
+    got = ops.mxu_viol(rows, cols, rb, cb, lo=lo, n_thresholds=T, bi=bi, bj=bj)
+    assert ops.LAUNCHES["matrix_mxu"] == n0 + 1
+    want = ref.mxu_viol_ref(rows, cols, rb, cb, lo=lo, n_thresholds=T)
+    assert torch.equal(got, want)
+    assert (torch.diagonal(got[:25, :25]) == 0).all() and (got > 0).any()
+
+
+@pytest.mark.gpu
 def test_cuda_pair_wrappers_reject_bad_inputs(cuda):
     u8 = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
     base = torch.zeros((8,), dtype=torch.int32, device=cuda)
@@ -405,8 +454,8 @@ def test_cuda_pair_wrappers_reject_bad_inputs(cuda):
         ops.mxu_viol(u8, u8, base, base.to(torch.int64), lo=0, n_thresholds=8)
     with pytest.raises(ValueError):
         ops.mxu_viol(u8, u8, base.cpu(), base, lo=0, n_thresholds=8)
-    with pytest.raises(ValueError):                # past the 16-bit halves
-        ops.mxu_viol(u8, u8, base, base, lo=0, n_thresholds=ops.MXU_T_MAX + 1)
+    with pytest.raises(ValueError, match="2\\^24"):  # m * T = 2^24, as the reference
+        ops.mxu_viol(u8, u8, base, base, lo=0, n_thresholds=2 ** 24 // 64)
 
 
 @pytest.mark.gpu

@@ -466,6 +466,44 @@ def test_rect_u8_u16x2_zero_padding_would_flip_flags():
     assert zero[0].all() and not zero[1].any()
 
 
+def _u16x2_tri_flags(cells, base=None):
+    """numpy emulation of tri on the rect-u8 body (``rect_u8_u16x2_kernel``
+    with TRI): ``_u16x2_flags`` of the slab against itself, taken on
+    pairs i <= j and mirrored for i > j, le(i, j) = ge(j, i)."""
+    bases = (base, base) if base is not None else ()
+    le, ge = _u16x2_flags(cells, cells, *bases)
+    upper = np.triu(np.ones(le.shape, bool))
+    return np.where(upper, le, ge.T), np.where(upper, ge, le.T)
+
+
+@pytest.mark.parametrize("with_base", [True, False])
+@pytest.mark.parametrize("case", ["d255", "delta256", "wrap"])
+@pytest.mark.parametrize("m", [1, 3, 63, 65, 1001])
+def test_tri_u16x2_arithmetic_matches_plain_and_pallas(m, case, with_base):
+    """tri on rect-u8's biased 16-bit lanes, emulated in numpy, gives
+    ``ref.tri_flags_ref``'s flags at d = +-255, base deltas at and past
+    the +-256 clip, bases 2^31 apart, odd and ragged m; and the Pallas
+    tri kernel's on every pair whose bases are not 2^31 apart (the kept
+    departure, ``test_tri_departs_from_pallas_only_at_a_2_31_base_gap``)."""
+    g = np.random.default_rng(m * 11 + len(case))
+    rows, cols, rb, cb = _u16x2_case(case, m, g)
+    cells, base = np.concatenate([rows, cols]), np.concatenate([rb, cb])
+    got = _u16x2_tri_flags(cells, base if with_base else None)
+    le, ge = tops.tri_flags(torch.as_tensor(cells), torch.as_tensor(base),
+                            with_base=with_base)
+    np.testing.assert_array_equal(got[0], le.numpy())
+    np.testing.assert_array_equal(got[1], ge.numpy())
+    assert got[0].any() and not got[0].all()
+    want = jops._compare_matrix_packed(
+        jnp.asarray(cells), jnp.asarray(base), engine="tri", bi=8, bj=8,
+        bm=128, uniform_base=not with_base, use_autotune=False)
+    gap = (base[:, None].astype(np.int64) - base[None, :]) % 2 ** 32 == 2 ** 31
+    away = ~gap if with_base else np.ones_like(gap)
+    assert case != "wrap" or not with_base or gap.any()
+    np.testing.assert_array_equal(le.numpy()[away], np.asarray(want["a_le_b"])[away])
+    np.testing.assert_array_equal(ge.numpy()[away], np.asarray(want["b_le_a"])[away])
+
+
 def _prepass_row_sums(rows, bm):
     """numpy emulation of the rect-i32 row-sum pre-pass: per bm-wide
     m-tile, each of 32 lanes sums every 32nd cell as uint32 (wrapping),
@@ -517,6 +555,67 @@ def test_rect_i32_prepass_row_sums_match_plain_and_pallas(n, m, bm, kind):
                                   use_autotune=False)
     np.testing.assert_array_equal(np.asarray(pallas["row_sums"]).view(np.uint32),
                                   got.view(np.uint32))
+
+
+def _mxu_pallas(rows, cols, rb, cb, lo, T):
+    rows_p, bi, bm = jops.tile2d(jnp.asarray(rows), 8, 128)
+    cols_p, bj, _ = jops.tile2d(jnp.asarray(cols), 8, bm)
+    cols_p = jops.pad_to(cols_p, rows_p.shape[1], axis=1)
+    return np.asarray(bloom_matrix_mxu_pallas(
+        rows_p, cols_p, jops._pad_base(rb, rows_p.shape[0]),
+        jops._pad_base(cb, cols_p.shape[0]), n_thresholds=T, lo=lo, bi=bi,
+        bj=bj, bm=bm, m_true=rows.shape[1], interpret=True))[:len(rows), :len(cols)]
+
+
+@pytest.mark.parametrize("T", [8192, 16383])
+def test_mxu_plain_matches_pallas_above_16_bit_lanes(T):
+    """Past the packed kernel's MXU_T_MAX (8,191) the reference still
+    computes (m * T < 2^24): the plain version gives the Pallas mxu's
+    counts there, zero and non-zero, with values spread over the window
+    and bases far outside it."""
+    n, mc, m, lo = 5, 6, 64, -77
+    g = np.random.default_rng(T)
+    rows = g.integers(0, 256, (n, m)).astype(np.uint8)
+    cols = g.integers(0, 256, (mc, m)).astype(np.uint8)
+    cols[0] = rows[0]
+    rb = as_i32(lo + np.array([0, T - 300, T // 2, -5000, T + 900]))
+    cb = as_i32(lo + np.array([0, 0, T - 255, T // 2 + 100, 2 ** 30, -300]))
+    assert T > tops.MXU_T_MAX and m * T < 2 ** 24
+    got = tops.mxu_viol(torch.as_tensor(rows), torch.as_tensor(cols),
+                        torch.as_tensor(rb), torch.as_tensor(cb), lo=lo,
+                        n_thresholds=T).numpy()
+    np.testing.assert_array_equal(got, _mxu_pallas(rows, cols, rb, cb, lo, T))
+    assert (got == 0).any() and (got > 0).any() and got.max() > 255 * m
+
+
+def test_mxu_plain_matches_brute_force_at_wide_T():
+    """At T = 40,000 (m = 8) the plain version is sum_m relu(min(a, T) -
+    max(b, 0)) on a = u8 + (base - lo) in int32 wrap, with bases far
+    outside the window and where u8 + base - lo wraps past INT32_MAX."""
+    T, m, lo = 40_000, 8, 1000
+    g = np.random.default_rng(4)
+    rows = g.integers(0, 256, (9, m)).astype(np.uint8)
+    cols = g.integers(0, 256, (7, m)).astype(np.uint8)
+    cols[0] = rows[0]
+    off_r = np.array([0, 39_900, 20_000, -70_000, 45_000, I32_MAX - 100,
+                      I32_MAX, -2 ** 31, 10])
+    off_c = np.array([0, 5, 39_800, I32_MAX - 3, -2 ** 31, 60_000, -1])
+    rb, cb = as_i32(lo + off_r), as_i32(lo + off_c)
+
+    def window(u8, base):
+        v = u8.astype(np.int64) + (base.astype(np.int64) - lo)[:, None]
+        return as_i32(v).astype(np.int64)                 # int32 wrap
+
+    a = np.minimum(window(rows, rb), T)
+    b = np.maximum(window(cols, cb), 0)
+    want = np.maximum(a[:, None, :] - b[None, :, :], 0).sum(-1)
+    wrapped = window(rows, rb) < 0
+    assert wrapped[5:7].any()                             # past INT32_MAX
+    got = tops.mxu_viol(torch.as_tensor(rows), torch.as_tensor(cols),
+                        torch.as_tensor(rb), torch.as_tensor(cb), lo=lo,
+                        n_thresholds=T).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert (got == 0).any() and got.max() > 2 ** 16
 
 
 def test_mxu_refuses_inexact_float_counts():
