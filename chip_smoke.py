@@ -14,6 +14,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 3. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at ragged and near-wrap ones: integers, flags and
    violation counts identical, Eq. 3 fp within a relative 5e-2;
+   merge_compare, one-vs-many and hybrid also at one row, at more rows
+   than the grid has warps and on rows one element into their buffers,
+   their flags ``torch.bool``;
 4. the main path at full size: a ``ClockRuntime`` (m=1024, k=4) ticks,
    65,536 peers are admitted to a registry in batches of 4096,
    ``classify_fleet``, ``lineage``/``admit_merge`` and three loopback
@@ -48,7 +51,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the card needs, from bytes and from instruction counts (the lower of
    each function's minimum and the built kernel's hot loop, read from
    ``cuobjdump -sass`` with the lanes each 32-bit word holds: 2 for
-   the 16-bit lanes of tri, rect-u8 and mxu, 1 for rect-i32).  The tick
+   the 16-bit lanes of tri, rect-u8 and mxu, 1 for rect-i32; the
+   one-vs-many stage loop and merge_compare's vector loop are read as
+   instructions per cell, ``[sass]`` lines).  The tick
    at the batched B=4096, P=64 (the record) and the main path's B=1,
    P=4, each against in-place ``scatter_add_`` and out-of-place
    ``torch.scatter_add``; merge_compare at B=4096 (the record) and the
@@ -154,6 +159,9 @@ HYB_DRAWS, HYB_ROUNDS = 2048, 6
 # HybridEngine.pairs materialises [N, N] matrices: 16,384 sessions on the
 # card (256 in the head), 2,048 (32 in the head) on the card and the CPU
 HYB_PAIRS = ((16384, 256), (2048, 32))
+#: bytes each row of merge_compare, one-vs-many and hybrid writes: two
+#: bool flags, two float32 sums, two float32 fp
+ROW_OUT_BYTES = 2 + 8 + 8
 # sleep ahead of a timed loop: ~50 ms at boost clock, longer than the
 # host takes to queue the loop, so the card never waits on the host
 SLEEP_CYCLES = 100_000_000
@@ -276,6 +284,60 @@ def sass_hot_loop(text: str, symbol: str, lanes_per_word: int = 1) -> dict:
     raise SmokeFailure(f"sass: no function {symbol}")
 
 
+#: one-vs-many and merge_compare records whose row loop ``[sass]`` reads:
+#: library, kernel symbol, ops the loop must hold (a prefix and a
+#: substring each: the cp.async copy and three-input min of the stage
+#: loop, the 16-byte loads of merge_compare's vector loop), cells a lane
+#: takes per iteration (``ops.OVM_CHUNKS_PER_LANE`` 16-byte chunks; 8
+#: int4 of each row)
+_SASS_ROWS = {
+    "one_vs_many_packed": ("one_vs_many", "ovm_kernelIhLb1E",
+                           (("LDGSTS", ""), ("VIMNMX3", "")), 16),
+    "one_vs_many_i32": ("one_vs_many", "ovm_kernelIiLb0E",
+                        (("LDGSTS", ""), ("VIMNMX3", "")), 4),
+    "bloom_merge_compare": ("bloom_compare", "merge_compare_kernel",
+                            (("LDG", "128"), ("STG", "128")), 32),
+}
+
+
+def sass_row_loop(text: str, symbol: str, need, cells: int) -> dict:
+    """Instructions per cell in the row loop of ``symbol``: the smallest
+    backward-branch loop holding every op of ``need``, each instruction
+    counted once per ``cells`` cells.  The count is static: it includes
+    the loop's once-a-row code (tile closing, flag votes) at full weight,
+    so it bounds the instructions a cell from above."""
+    parts = _SASS_FN.split(text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if symbol not in name:
+            continue
+        found = _SASS_INS.findall(body)
+        ins = [(int(a, 16), op) for a, op, _ in found]
+        best = None
+        for a, op, rest in found:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if not (op.startswith("BRA") and target and int(target.group(1), 16) < int(a, 16)):
+                continue
+            lo, hi = int(target.group(1), 16), int(a, 16)
+            ops = [o for x, o in ins if lo <= x <= hi]
+            if all(any(o.startswith(p) and sub in o for o in ops) for p, sub in need):
+                if best is None or len(ops) < len(best):
+                    best = ops
+        check(best is not None, f"sass: no row loop in {symbol}")
+        hist: dict = {}
+        for op in best:
+            hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+        alu = sum(v for k, v in hist.items() if k in _ALU_OPS)
+        return {"issue": len(best) / cells, "alu": alu / cells, "loop_instructions": len(best),
+                "cells_per_iteration": cells,
+                "per_cell": {k: v / cells for k, v in sorted(hist.items(), key=lambda kv: -kv[1])}}
+    raise SmokeFailure(f"sass: no function {symbol}")
+
+
+#: SASS ops on the integer ALU pipe, which takes half the issue rate
+_ALU_OPS = {"IADD3", "VIADD", "LOP3", "PRMT", "SHF", "SEL", "ISETP", "VIMNMX", "VIMNMX3",
+            "IMNMX", "LEA", "P2R", "R2P", "FSEL", "PLOP3"}
+
+
 def sass_counts() -> dict:
     """``sass_hot_loop`` of each all-pairs kernel in the built libraries
     (``cuobjdump`` of the toolkit that built them)."""
@@ -285,10 +347,16 @@ def sass_counts() -> dict:
     text = {lib: subprocess.run([cuobjdump, "-sass", str(paths[lib])],
                                 capture_output=True, text=True, check=True,
                                 timeout=120).stdout
-            for lib in ("bloom_matrix", "bloom_mxu")}
-    return {rec: dict(sass_hot_loop(text["bloom_mxu" if "mxu" in rec else "bloom_matrix"],
-                                    sym, lanes), lanes_per_word=lanes)
-            for rec, (sym, lanes) in _SASS_KERNELS.items()}
+            for lib in ("bloom_matrix", "bloom_mxu", "one_vs_many", "bloom_compare")}
+    out = {rec: dict(sass_hot_loop(text["bloom_mxu" if "mxu" in rec else "bloom_matrix"],
+                                   sym, lanes), lanes_per_word=lanes)
+           for rec, (sym, lanes) in _SASS_KERNELS.items()}
+    from repro_torch.kernels import ops
+    for rec, (lib, sym, need, cells) in _SASS_ROWS.items():
+        if lib == "one_vs_many":
+            cells *= ops.OVM_CHUNKS_PER_LANE
+        out[rec] = sass_row_loop(text[lib], sym, need, cells)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -337,9 +405,12 @@ def check_kernels(dev) -> dict:
         check_equal(host(got), host(want), f"tick B={B} m={m} P={P} {dtype}")
     print("[kernels] tick: identical to the plain version")
 
-    # merge_compare: main shape, ragged m, rows near INT32_MAX
+    # merge_compare: the record's B = 4096 and the receive path's B = 1,
+    # B = 2 and more rows than the grid has CTAs (4101), ragged m (1000:
+    # 16-byte rows; 7: scalar cells), rows near INT32_MAX; every case
+    # once more from buffers one cell in (scalar cells)
     cases = []
-    for B, m in ((4096, 1024), (4096, 1000)):
+    for B, m in ((4096, 1024), (4096, 1000), (1, 1024), (2, 1000), (4101, 7)):
         a = g.integers(0, 400, (B, m))
         b = a + g.integers(0, 2, (B, m)) * (g.random((B, 1)) < 0.5)
         b[::3] = g.integers(0, 400, (len(b[::3]), m))
@@ -350,34 +421,56 @@ def check_kernels(dev) -> dict:
         B, m = a_np.shape
         a = torch.as_tensor(a_np, dtype=torch.int32, device=dev)
         b = torch.as_tensor(b_np, dtype=torch.int32, device=dev)
-        got = ops.merge_compare(a, b)
         merged, flags, sums, fp = ref.bloom_merge_compare_ref(
             a, b, bm=ops.tile_width(m, 512))
-        check_equal(host(got["merged"]), host(merged), f"merged m={m}")
-        check_equal(host(got["a_le_b"]), host(flags[:, 0].bool()), "a_le_b")
-        check_equal(host(got["b_le_a"]), host(flags[:, 1].bool()), "b_le_a")
-        check_equal(host(got["sum_a"]), host(sums[:, 0]), "sum_a")
-        check_equal(host(got["sum_b"]), host(sums[:, 1]), "sum_b")
-        err["bloom_merge_compare"] = max(
-            err["bloom_merge_compare"],
-            check_fp(host(got["fp_a_before_b"]), host(fp[:, 0]), "fp a->b"),
-            check_fp(host(got["fp_b_before_a"]), host(fp[:, 1]), "fp b->a"))
-    print("[kernels] merge_compare: identical, fp within tolerance")
+        for xa, xb in ((a, b), (offset_view(a, 1), offset_view(b, 1))):
+            got = ops.merge_compare(xa, xb)
+            what = f"merge_compare B={B} m={m} ptr%16={xa.data_ptr() % 16}"
+            check(got["a_le_b"].dtype == torch.bool, f"{what}: flags not bool")
+            check_equal(host(got["merged"]), host(merged), f"{what}: merged")
+            check_equal(host(got["a_le_b"]), host(flags[:, 0]), f"{what}: a_le_b")
+            check_equal(host(got["b_le_a"]), host(flags[:, 1]), f"{what}: b_le_a")
+            check_equal(host(got["sum_a"]), host(sums[:, 0]), f"{what}: sum_a")
+            check_equal(host(got["sum_b"]), host(sums[:, 1]), f"{what}: sum_b")
+            err["bloom_merge_compare"] = max(
+                err["bloom_merge_compare"],
+                check_fp(host(got["fp_a_before_b"]), host(fp[:, 0]), what),
+                check_fp(host(got["fp_b_before_a"]), host(fp[:, 1]), what))
+    print("[kernels] merge_compare: identical, fp within tolerance, flags "
+          "torch.bool")
 
-    def compare_ovm(name, out, q, peers, base):
+    def compare_ovm(name, classify, q, peers, base):
+        """``classify(peers, base)`` against the plain version, on the rows
+        as given and once more one element into their buffers (scalar
+        loads)."""
         m = q.shape[0]
         flags, sums, fp = ref.one_vs_many_ref(q, peers, base,
                                               bm=ops.tile_width(m, 512))
-        check_equal(host(out["q_le_p"]), host(flags[:, 0].bool()), name)
-        check_equal(host(out["p_le_q"]), host(flags[:, 1].bool()), name)
-        check_equal(host(out["sum_p"]), host(sums[:, 1]), name + " sum_p")
-        check_equal(host(out["sum_q"]), host(sums[0, 0]), name + " sum_q")
-        return max(check_fp(host(out["fp_q_before_p"]), host(fp[:, 0]), name),
-                   check_fp(host(out["fp_p_before_q"]), host(fp[:, 1]), name))
+        e = 0.0
+        shifted = (offset_view(peers, 1),
+                   None if base is None else offset_view(base, 1))
+        for p, b in ((peers, base), shifted):
+            out = classify(p, b)
+            what = f"{name} ptr%16={p.data_ptr() % 16}"
+            check(out["q_le_p"].dtype == torch.bool, f"{what}: flags not bool")
+            check_equal(host(out["q_le_p"]), host(flags[:, 0]), what)
+            check_equal(host(out["p_le_q"]), host(flags[:, 1]), what)
+            check_equal(host(out["sum_p"]), host(sums[:, 1]), what + " sum_p")
+            check_equal(host(out["sum_q"]), host(sums[0, 0]), what + " sum_q")
+            e = max(e, check_fp(host(out["fp_q_before_p"]), host(fp[:, 0]), what),
+                    check_fp(host(out["fp_p_before_q"]), host(fp[:, 1]), what))
+        return e
 
-    # packed: N=65,536 at m=1024 with random bases, then ragged shapes
-    for N, m in ((N_PEERS, M), (1000, 1000), (300, 1008), (77, 520)):
+    # packed: N=65,536 at m=1024 with random bases, then one row, 7 rows
+    # and more rows than the grid has warps (65,539), ragged shapes, and
+    # m-tiles that end inside a chunk group (m = 640, 1920: bm = 128, 384)
+    for N, m, wide in ((N_PEERS, M, False), (1, M, False), (7, 1000, False),
+                       (N_PEERS + 3, M, False), (1000, 1000, False), (300, 1008, False),
+                       (77, 520, False), (5, 7, False), (200, 640, False),
+                       (100, 1920, False), (2000, M, True), (100, 1920, True)):
         q_res = g.integers(0, 200, m)
+        if wide:  # a query span past 16 bits
+            q_res[::5] += 70000
         q = torch.as_tensor(q_res + 5000, dtype=torch.int32, device=dev)
         delta = g.integers(-1, 2, (N, m)) * (g.random((N, m)) < 0.05)
         kind = g.integers(0, 3, (N, 1))
@@ -388,25 +481,31 @@ def check_kernels(dev) -> dict:
         base = np.where(kind[:, 0] < 2, 5000, g.integers(-2 ** 31, 2 ** 31 - 256, N))
         peers = torch.as_tensor(res, dtype=torch.uint8, device=dev)
         base_t = torch.as_tensor(base, dtype=torch.int32, device=dev)
-        out = ops._classify_vs_many_packed(q, peers, base_t)
         err["one_vs_many_packed"] = max(
             err["one_vs_many_packed"],
-            compare_ovm(f"packed N={N} m={m}", out, q, peers, base_t))
-    print("[kernels] one_vs_many packed: identical, fp within tolerance")
+            compare_ovm(f"packed N={N} m={m} wide={wide}",
+                        lambda p, b: ops._classify_vs_many_packed(q, p, b),
+                        q, peers, base_t))
+    print("[kernels] one_vs_many packed: identical, fp within tolerance, "
+          "flags torch.bool")
 
-    # i32: N=256 at m=1024 across the int32 wrap point, then ragged
-    for N, m in ((256, M), (77, 1000)):
+    # i32: N=256 at m=1024 across the int32 wrap point, the main path's 8
+    # promoted rows, one row, 7 rows, more rows than the grid has warps,
+    # then ragged
+    for N, m in ((256, M), (8, M), (1, M), (7, 1000), (N_PEERS + 3, M),
+                 (77, 1000), (5, 7)):
         q_np = 2 ** 31 - 1 - g.integers(0, 100, m)
         step = g.integers(0, 300, (N, 1)) * g.integers(-1, 2, (N, 1))
         noise = g.integers(-1, 2, (N, m)) * (g.random((N, m)) < 0.01)
         p_np = ((q_np + step + noise) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
         q = torch.as_tensor(q_np.astype(np.int64), device=dev).to(torch.int32)
         peers = torch.as_tensor(p_np, device=dev)
-        out = ops._classify_vs_many(q, peers)
         err["one_vs_many_i32"] = max(
             err["one_vs_many_i32"],
-            compare_ovm(f"i32 N={N} m={m}", out, q, peers, None))
-    print("[kernels] one_vs_many i32: identical, fp within tolerance")
+            compare_ovm(f"i32 N={N} m={m}",
+                        lambda p, b: ops._classify_vs_many(q, p), q, peers, None))
+    print("[kernels] one_vs_many i32: identical, fp within tolerance, flags "
+          "torch.bool")
     return err
 
 
@@ -645,13 +744,20 @@ def check_hybrid_kernel(dev) -> dict:
     g = np.random.default_rng(SEED + 7)
     T_path = HYB_TAIL + HYB_WIDE
     err = 0.0
-    for H, T, m, near_wrap in ((HYB_HEAD + HYB_MARGIN, T_path, M, False),
-                               (HYB_HEAD + HYB_MARGIN, T_path, M // 2, True),
-                               (13, 1001, 200, True), (4095, 77, 1000, True),
-                               (1, 9, 520, False)):
+    for H, T, m, near_wrap, offset in (
+            (HYB_HEAD + HYB_MARGIN, T_path, M, False, 0),
+            (HYB_HEAD + HYB_MARGIN, T_path, M // 2, True, 0),
+            (HYB_HEAD + HYB_MARGIN, T_path, M, False, 1),
+            (13, 1001, 200, True, 0), (4095, 77, 1000, True, 0),
+            (1, 9, 520, False, 0), (1, 1, M, False, 0), (1, 1, M, True, 1),
+            (5, 300, 640, False, 0),
+            (HYB_HEAD + 1, 1, 1000, True, 0), (1, T_path, M, True, 0)):
         q, V, meta, hs, tail, base = hybrid_inputs(g, H, T, m, dev, near_wrap)
-        what = f"hybrid H={H} T={T} m={m}"
+        if offset:
+            tail = offset_view(tail, offset)  # scalar loads
+        what = f"hybrid H={H} T={T} m={m} ptr%16={tail.data_ptr() % 16}"
         flags, sums, fp = ops.hybrid(q, V, meta, hs, tail, base)
+        check(flags.dtype == torch.bool, f"{what}: flags not bool")
         w_flags, w_sums, w_fp = ref.hybrid_classify_ref(
             q, V, meta, hs, tail, base, bm=ops.tile_width(m, 512))
         torch.cuda.synchronize()
@@ -1368,9 +1474,10 @@ def time_kernels(dev, n_wide: int) -> dict:
 
     # merge_compare: B=4096 pairs of m=1024 int32 rows (the record), then
     # the main path's B=1 (every receive compares one row pair), 2 buffers
-    # as the B=1 tick
+    # as the B=1 tick; each row writes 2 bytes of flags and 16 of sums
+    # and fp
     for B in (4096, 1):
-        nbytes = B * M * 4 * 3 + B * 2 * 4 * 3
+        nbytes = B * M * 4 * 3 + B * ROW_OUT_BYTES
         nb = n_buffers(nbytes) if B > 1 else 2
         ab = [(torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev),
                torch.as_tensor(g.integers(0, 400, (B, M)), dtype=torch.int32, device=dev))
@@ -1386,7 +1493,7 @@ def time_kernels(dev, n_wide: int) -> dict:
 
     # one-vs-many packed: the registry slab, N=65,536 rows of m=1024
     N = N_PEERS
-    nbytes = N * M + N * 4 + M * 4 + N * 2 * 4 * 3
+    nbytes = N * M + N * 4 + M * 4 + N * ROW_OUT_BYTES
     nb = n_buffers(nbytes)
     q = torch.as_tensor(g.integers(0, 200, M) + 5000, dtype=torch.int32, device=dev)
     slabs = [(torch.as_tensor(g.integers(0, 256, (N, M)), dtype=torch.uint8, device=dev),
@@ -1401,7 +1508,7 @@ def time_kernels(dev, n_wide: int) -> dict:
     # one-vs-many i32: the promoted-row overlay, at the main path's
     # count of promoted rows
     N = max(n_wide, 1)
-    nbytes = N * M * 4 + M * 4 + N * 2 * 4 * 3
+    nbytes = N * M * 4 + M * 4 + N * ROW_OUT_BYTES
     rows = torch.as_tensor(g.integers(0, 400, (N, M)), dtype=torch.int32, device=dev)
     rec["one_vs_many_i32"] = entry(
         lambda i: ops._classify_vs_many(q, rows),
@@ -1544,13 +1651,13 @@ def time_hybrid(dev, H: int, T: int) -> dict:
     """The hybrid kernel at the path's H hot and T tail rows, m = 1024:
     its device time, the plain version's, and the packed one-vs-many
     kernel's on the same tail, with the bytes the function must move
-    (tail T·m + 4T, hot metadata and sums 12H, outputs 24(H+T), query
+    (tail T·m + 4T, hot metadata and sums 12H, outputs 18(H+T), query
     4m)."""
     from repro_torch.kernels import ops, ref
 
     g = np.random.default_rng(SEED + 10)
     bm = ops.tile_width(M, 512)
-    nbytes = T * M + 4 * T + 12 * H + 24 * (H + T) + 4 * M
+    nbytes = T * M + 4 * T + 12 * H + ROW_OUT_BYTES * (H + T) + 4 * M
     nb = n_buffers(nbytes)
     bufs = [hybrid_inputs(g, H, T, M, dev) for _ in range(nb)]
     k = measure(lambda i: ops.hybrid(*bufs[i]), nb)
@@ -1614,7 +1721,8 @@ def main() -> int:
     print(f"[build] all kernels built in {build():.1f} s")
     sass = sass_counts()
     for kname, c in sass.items():
-        print(f"[sass] {kname}: hot loop, instructions per (pair, lane): "
+        unit = "cell" if kname in _SASS_ROWS else "(pair, lane)"
+        print(f"[sass] {kname}: hot loop, instructions per {unit}: "
               f"{json.dumps(c)}")
 
     errs = check_kernels(dev)

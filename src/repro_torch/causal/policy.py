@@ -29,7 +29,7 @@ class CausalPolicy:
     bi / bj        all-pairs CUDA tile, pairs per block along rows / cols
                    (32, 64 or 128; None = 64).  They change no result
                    and are kept for API parity with the reference.
-    bm / bn        m-tile width and one-vs-many rows per CUDA block
+    bm / bn        m-tile width and one-vs-many warps per CUDA block
                    (None = bm 512, bn 8).  bm fixes the float32 sum
                    order of the int32 kernels, so their sums are
                    bit-identical only at equal bm.

@@ -41,6 +41,7 @@ SOURCES = {
         "one_vs_many_i32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         "hybrid_classify": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _F, _I, _P],
+        "one_vs_many_smem": [_I, _I, _I],
     }),
     "bloom_matrix": ("bloom_matrix.cu", {
         "matrix_tri_flags": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

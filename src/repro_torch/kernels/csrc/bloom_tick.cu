@@ -125,19 +125,6 @@ bloom_tick_kernel(const T* __restrict__ cells, const int32_t* __restrict__ probe
   }
 }
 
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-      return 132;
-    counts[dev] = n;
-  }
-  return counts[dev];
-}
-
 template <typename T>
 int launch(const void* cells, const void* probes, void* out, int B, int m, int P,
            void* stream) {
@@ -145,7 +132,7 @@ int launch(const void* cells, const void* probes, void* out, int B, int m, int P
   const bool vec = (m * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(cells) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int ctas = std::min((B + TICK_WARPS - 1) / TICK_WARPS, sm_count() * TICK_CTAS_PER_SM);
+  const int ctas = std::min((B + TICK_WARPS - 1) / TICK_WARPS, bloom::sm_count() * TICK_CTAS_PER_SM);
   bloom_tick_kernel<T><<<ctas, TICK_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(cells), static_cast<const int32_t*>(probes),
       static_cast<T*>(out), B, m, P, vec);

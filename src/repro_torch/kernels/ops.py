@@ -6,9 +6,12 @@ version (``kernels.ref``) only for tensors on the CPU.  There is no
 fallback from the card to the plain version.
 
 Every launch adds one to ``LAUNCHES[name]``, so a run can show that it
-went through the kernels.  ``LAST_DISPATCH`` records the most recent
-one-vs-many, hybrid or all-pairs dispatch (op, engine and blocks), which
-``CausalEngine`` copies into its results.
+went through the kernels.  A wrapper's call on the card is one launch:
+the merge-compare, one-vs-many and hybrid kernels write their flags as
+``torch.bool`` into the output, and the returned flags are views of it.
+``LAST_DISPATCH`` records the most recent one-vs-many, hybrid or
+all-pairs dispatch (op, engine and blocks), which ``CausalEngine``
+copies into its results.
 
 The m-tile width follows the JAX wrappers' tile plan (``tile_width``):
 m is padded to the 128-lane grain and the tile is the largest multiple
@@ -77,6 +80,9 @@ LAST_DISPATCH: dict = {}
 
 # largest dynamic shared memory a block may take on Hopper (bytes)
 _SMEM_MAX = 232448
+#: 16-byte chunks a lane of the one-vs-many kernels takes a stage
+#: (one_vs_many.cu: OVM_CPL)
+OVM_CHUNKS_PER_LANE = 2
 
 
 def reset_launches() -> None:
@@ -175,7 +181,7 @@ def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bm: int = 512) -> dict:
         _check(a, "merge_compare a", torch.int32, (B, m))
         _check(b, "merge_compare b", torch.int32, (B, m))
         merged = torch.empty_like(a)
-        flags = torch.empty((B, 2), dtype=torch.int32, device=a.device)
+        flags = torch.empty((B, 2), dtype=torch.bool, device=a.device)
         sums = torch.empty((B, 2), dtype=torch.float32, device=a.device)
         fp = torch.empty((B, 2), dtype=torch.float32, device=a.device)
         with torch.cuda.device(a.device):
@@ -186,8 +192,8 @@ def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bm: int = 512) -> dict:
         _launched(err, "bloom_merge_compare")
     return {
         "merged": merged,
-        "a_le_b": flags[:, 0].bool(),
-        "b_le_a": flags[:, 1].bool(),
+        "a_le_b": flags[:, 0],
+        "b_le_a": flags[:, 1],
         "sum_a": sums[:, 0],
         "sum_b": sums[:, 1],
         "fp_a_before_b": fp[:, 0],
@@ -201,13 +207,23 @@ def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bm: int = 512) -> dict:
 
 def _classify_dict(flags, sums, fp) -> dict:
     return {
-        "q_le_p": flags[:, 0].bool(),
-        "p_le_q": flags[:, 1].bool(),
+        "q_le_p": flags[:, 0],
+        "p_le_q": flags[:, 1],
         "sum_q": sums[0, 0],
         "sum_p": sums[:, 1],
         "fp_q_before_p": fp[:, 0],
         "fp_p_before_q": fp[:, 1],
     }
+
+
+def _check_ovm_block(name: str, m: int, vec: int, bn: int) -> None:
+    """bn warps a CTA, and the CTA's shared memory (the query and each
+    warp's ring, as the library computes it) within the card's limit."""
+    if not 1 <= bn <= 32:
+        raise ValueError(f"{name}: bn={bn} warps per block must be in [1, 32]")
+    if library("one_vs_many").one_vs_many_smem(m, 16 // vec, bn) > _SMEM_MAX:
+        raise ValueError(f"{name}: m={m} query row and bn={bn} rings do not "
+                         f"fit shared memory")
 
 
 def _one_vs_many(q: torch.Tensor, peers: torch.Tensor,
@@ -229,15 +245,11 @@ def _one_vs_many(q: torch.Tensor, peers: torch.Tensor,
            (N, m))
     if packed:
         _check(base, f"{name} base", torch.int32, (N,))
-    if not 1 <= bn <= 32:
-        raise ValueError(f"{name}: bn={bn} rows per block must be in [1, 32]")
     vec = 16 // peers.element_size()
-    # the kernel's chunk-transposed query (one_vs_many.cu: query_stride)
-    if 4 * vec * ((-(-m // vec)) | 1) > _SMEM_MAX:
-        raise ValueError(f"{name}: m={m} query row does not fit shared memory")
+    _check_ovm_block(name, m, vec, bn)
     vec_ok = int(m % vec == 0 and peers.data_ptr() % 16 == 0)
     dev = peers.device
-    flags = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    flags = torch.empty((N, 2), dtype=torch.bool, device=dev)
     sums = torch.empty((N, 2), dtype=torch.float32, device=dev)
     fp = torch.empty((N, 2), dtype=torch.float32, device=dev)
     lib = library("one_vs_many")
@@ -266,7 +278,8 @@ def _classify_vs_many_packed(q: torch.Tensor, peers: torch.Tensor,
                              base: torch.Tensor, *, bn: int | None = None,
                              bm: int | None = None) -> dict:
     """One-vs-many classify against a packed slab (u8 residuals + base).
-    Blocks default to the reference's built-in bn=8, bm=512."""
+    Blocks default to the reference's built-in bn=8 (warps a CTA here),
+    bm=512."""
     bn = bn or 8
     bm = bm or 512
     _note_dispatch("one_vs_many", "packed", bn=bn, bm=bm)
@@ -318,13 +331,10 @@ def hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
     _check(hot_sums, "hybrid hot_sums", torch.float32, (H,))
     _check(tail, "hybrid tail", torch.uint8, (T, m))
     _check(tail_base, "hybrid tail_base", torch.int32, (T,))
-    if not 1 <= bn <= 32:
-        raise ValueError(f"hybrid: bn={bn} rows per block must be in [1, 32]")
-    if 4 * 16 * ((-(-m // 16)) | 1) > _SMEM_MAX:
-        raise ValueError(f"hybrid: m={m} query row does not fit shared memory")
+    _check_ovm_block("hybrid", m, 16, bn)
     vec_ok = int(m % 16 == 0 and tail.data_ptr() % 16 == 0)
     dev = tail.device
-    flags = torch.empty((H + T, 2), dtype=torch.int32, device=dev)
+    flags = torch.empty((H + T, 2), dtype=torch.bool, device=dev)
     sums = torch.empty((H + T, 2), dtype=torch.float32, device=dev)
     fp = torch.empty((H + T, 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -91,7 +91,7 @@ def bloom_tick_ref(cells: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
 
 def bloom_merge_compare_ref(a: torch.Tensor, b: torch.Tensor, *, bm: int):
     """Fused receive path over [B, m] int32 rows (direct compares, as
-    ``kernels/bloom_compare.py``): returns (merged, flags [B, 2] int32
+    ``kernels/bloom_compare.py``): returns (merged, flags [B, 2] bool
     = (all(a<=b), all(a>=b)), sums [B, 2] f32, fp [B, 2] f32 = (fp of
     "a -> b", fp of "b -> a"))."""
     m = a.shape[-1]
@@ -100,7 +100,7 @@ def bloom_merge_compare_ref(a: torch.Tensor, b: torch.Tensor, *, bm: int):
     sa = tile_sums(a, bm)
     sb = tile_sums(b, bm)
     fp = torch.stack([eq3_fp(sa, sb, m), eq3_fp(sb, sa, m)], -1)
-    return merged, flags.to(torch.int32), torch.stack([sa, sb], -1), fp
+    return merged, flags, torch.stack([sa, sb], -1), fp
 
 
 def one_vs_many_ref(q: torch.Tensor, peers: torch.Tensor,
@@ -108,7 +108,7 @@ def one_vs_many_ref(q: torch.Tensor, peers: torch.Tensor,
     """One query [m] int32 vs N peers: [N, m] int32 logical rows, or u8
     residuals plus ``base`` [N] int32 (widened with int32 wrap).
 
-    ``d = p - q`` by int32 wrap-subtraction; flags [N, 2] int32 =
+    ``d = p - q`` by int32 wrap-subtraction; flags [N, 2] bool =
     (all(d >= 0), all(d <= 0)); sums [N, 2] f32 = (Σq, Σp); fp [N, 2]
     = (fp of "q -> p", fp of "p -> q").
     """
@@ -121,7 +121,7 @@ def one_vs_many_ref(q: torch.Tensor, peers: torch.Tensor,
     sp = tile_sums(p, bm)
     sq = tile_sums(q, bm).expand_as(sp)
     fp = torch.stack([eq3_fp(sq, sp, m), eq3_fp(sp, sq, m)], -1)
-    return flags.to(torch.int32), torch.stack([sq, sp], -1), fp
+    return flags, torch.stack([sq, sp], -1), fp
 
 
 def hybrid_classify_ref(q: torch.Tensor, v_local: int,
@@ -143,7 +143,7 @@ def hybrid_classify_ref(q: torch.Tensor, v_local: int,
     v = hot_meta[:, 0].to(torch.int32)
     n_private = hot_meta[:, 1].to(torch.int32)
     h_flags = torch.stack([v_local <= v, (v <= v_local) & (n_private == 0)],
-                          -1).to(torch.int32)
+                          -1)
     sq = tile_sums(q, bm).expand(H)
     h_sums = torch.stack([sq, hot_sums.reshape(-1).to(torch.float32)], -1)
     h_fp = torch.zeros((H, 2), dtype=torch.float32, device=q.device)

@@ -2,9 +2,9 @@
 
 Events tick the clock (``tick*``); the pairwise receive path (``lineage``
 / ``admit_merge``) runs through the fused merge+compare kernel, one
-kernel call and one host transfer per message; fleet paths go through a
-``fleet.ClockRegistry`` (``classify_fleet``, ``gossip``).  All
-decisions are O(m), independent of fleet size.
+kernel call and one wait for the card per message; fleet paths go
+through a ``fleet.ClockRegistry`` (``classify_fleet``, ``gossip``).
+All decisions are O(m), independent of fleet size.
 
 The runtime lives on one device: the card unless ``device="cpu"`` is
 given.  The checkpoint-directory methods of the reference wait for the
@@ -42,6 +42,21 @@ class ClockConfig:
     def causal_policy(self) -> CausalPolicy:
         return (self.policy if self.policy is not None
                 else CausalPolicy(fp_threshold=self.fp_threshold))
+
+
+def _to_host(tensors: dict) -> dict:
+    """numpy arrays of ``tensors`` after one wait for the card: each is
+    copied without blocking into pinned host memory, then the stream is
+    synchronised once (the reference's single ``jax.device_get``)."""
+    first = next(iter(tensors.values()))
+    if not first.is_cuda:
+        return {key: t.numpy() for key, t in tensors.items()}
+    out = {}
+    for key, t in tensors.items():
+        out[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out[key].copy_(t, non_blocking=True)
+    torch.cuda.current_stream(first.device).synchronize()
+    return {key: t.numpy() for key, t in out.items()}
 
 
 class LineageStatus:
@@ -87,7 +102,7 @@ class ClockRuntime:
     # ---- comparisons ----
     def _classify(self, other: bc.BloomClock):
         """Fused receive-path compare: ONE kernel call (merged cells,
-        dominance flags, sums, Eq. 3 fp) and ONE host transfer.
+        dominance flags, sums, Eq. 3 fp) and ONE wait for the card.
 
         Returns (status, fp, merged_cells [m] int32 numpy array).
         """
@@ -95,7 +110,9 @@ class ClockRuntime:
         r = ops.merge_compare(a.reshape(1, -1).contiguous(),
                               self.clock.logical_cells().reshape(1, -1)
                               .to(torch.int32).contiguous())
-        h = {key: v.cpu().numpy() for key, v in r.items()}
+        h = _to_host({key: r[key] for key in ("merged", "a_le_b", "b_le_a",
+                                               "fp_a_before_b",
+                                               "fp_b_before_a")})
         a_le_b = bool(h["a_le_b"][0])     # other ≼ mine
         b_le_a = bool(h["b_le_a"][0])     # mine ≼ other
         if a_le_b and b_le_a:

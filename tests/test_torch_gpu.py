@@ -49,16 +49,73 @@ def assert_fp_close(a, b):
     np.testing.assert_allclose(a[keep], b[keep], rtol=FP_RTOL, atol=0)
 
 
-def query_and_peers(n, m, seed, near_wrap=False):
+def query_and_peers(n, m, seed, near_wrap=False, wide=False):
+    """A query and n peers around it; ``wide``: every fifth query cell
+    70,000 higher (a query span past 16 bits)."""
     rng = np.random.default_rng(seed)
     q = rng.integers(100, 300, m)
     if near_wrap:
-        q = I32_MAX - rng.integers(0, 60, m)
+        q = I32_MAX - 70100 - rng.integers(0, 60, m) if wide else I32_MAX - rng.integers(0, 60, m)
+    if wide:
+        q[::5] += 70000
     step = rng.integers(-2, 3, (n, 1))
     noise = rng.integers(-1, 2, (n, m)) * (rng.random((n, m)) < 0.02)
     peers = q + step + noise
     peers[: n // 4] = q
     return as_i32(q), as_i32(peers)
+
+
+#: aten ops a wrapper may issue on the card besides its one kernel:
+#: allocations and views, none of which launches anything
+_NO_LAUNCH = {"empty", "empty_like", "empty_strided", "select", "slice",
+              "view", "alias", "_reshape_alias", "as_strided", "expand",
+              "unsqueeze", "squeeze", "t", "transpose", "detach"}
+
+
+def card_ops(fn):
+    """``fn()`` and the names of the aten ops it ran on CUDA tensors."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    names = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            leaves = tree_flatten((args, kwargs, out))[0]
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in leaves):
+                names.append(func.overloadpacket.__name__)
+            return out
+
+    with Record():
+        result = fn()
+    return result, names
+
+
+def one_launch(fn, name):
+    """``fn()``, checked to be one launch of kernel ``name`` and nothing
+    else on the card (no conversion or copy kernel around it)."""
+    n0 = ops.LAUNCHES[name]
+    out, names = card_ops(fn)
+    assert ops.LAUNCHES[name] == n0 + 1, name
+    assert set(names) <= _NO_LAUNCH, (name, sorted(set(names) - _NO_LAUNCH))
+    return out
+
+
+def assert_flag_views(lo, hi):
+    """Two flag columns: torch.bool views of one [N, 2] kernel output."""
+    assert lo.dtype == hi.dtype == torch.bool
+    assert lo.untyped_storage().data_ptr() == hi.untyped_storage().data_ptr()
+    assert hi.data_ptr() == lo.data_ptr() + 1 and lo.stride() == (2,)
+
+
+def offset_view(x, offset):
+    """``x`` copied into a buffer ``offset`` elements in: contiguous, its
+    data pointer not aligned to more than one element."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def tick_plain(cells, probes, rows=512):
@@ -101,56 +158,75 @@ def test_cuda_tick_matches_plain(cuda, B, m, dtype, P):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 300, 4101])
 @pytest.mark.parametrize("m,near_wrap", [(1024, False), (1000, False),
-                                         (640, True)])
-def test_cuda_merge_compare_matches_plain(cuda, m, near_wrap):
+                                         (640, True), (7, True)])
+def test_cuda_merge_compare_matches_plain(cuda, m, near_wrap, B):
+    """One warp a row: 16-byte vectors where rows are 16-byte aligned,
+    scalar cells where m is not a multiple of 4 or the rows sit one cell
+    into their buffer; B = 1 (the receive path) up to more rows than the
+    grid has CTAs; one launch, flags torch.bool."""
     rng = np.random.default_rng(8)
-    a = rng.integers(0, 40, (300, m))
+    a = rng.integers(0, 40, (B, m))
     if near_wrap:
         a = I32_MAX - a
-    b = np.minimum(a + rng.integers(0, 2, a.shape) * (rng.random((300, 1)) < 0.5),
+    b = np.minimum(a + rng.integers(0, 2, a.shape) * (rng.random((B, 1)) < 0.5),
                    I32_MAX)
-    b[::3] = a[::3] - rng.integers(0, 2, (100, m))
+    b[::3] = a[::3] - rng.integers(0, 2, (len(a[::3]), m))
     ta = torch.as_tensor(as_i32(a), device=cuda)
     tb = torch.as_tensor(as_i32(b), device=cuda)
-    n0 = ops.LAUNCHES["bloom_merge_compare"]
-    got = ops.merge_compare(ta, tb)
-    assert ops.LAUNCHES["bloom_merge_compare"] == n0 + 1
     merged, flags, sums, fp = ref.bloom_merge_compare_ref(
         ta, tb, bm=ops.tile_width(m, 512))
-    assert torch.equal(got["merged"], merged)
-    assert torch.equal(got["a_le_b"], flags[:, 0].bool())
-    assert torch.equal(got["b_le_a"], flags[:, 1].bool())
-    assert torch.equal(got["sum_a"], sums[:, 0])
-    assert torch.equal(got["sum_b"], sums[:, 1])
-    assert_fp_close(got["fp_a_before_b"], fp[:, 0])
-    assert_fp_close(got["fp_b_before_a"], fp[:, 1])
+    assert flags.dtype == torch.bool
+    for xa, xb in ((ta, tb), (offset_view(ta, 1), offset_view(tb, 1))):
+        got = one_launch(lambda: ops.merge_compare(xa, xb), "bloom_merge_compare")
+        assert_flag_views(got["a_le_b"], got["b_le_a"])
+        assert torch.equal(got["merged"], merged)
+        assert torch.equal(got["a_le_b"], flags[:, 0])
+        assert torch.equal(got["b_le_a"], flags[:, 1])
+        assert torch.equal(got["sum_a"], sums[:, 0])
+        assert torch.equal(got["sum_b"], sums[:, 1])
+        assert_fp_close(got["fp_a_before_b"], fp[:, 0])
+        assert_fp_close(got["fp_b_before_a"], fp[:, 1])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,m,near_wrap", [(300, 1024, False), (77, 1000, True),
-                                           (65, 1008, True), (9, 520, False)])
-def test_cuda_one_vs_many_matches_plain(cuda, n, m, near_wrap):
-    q, peers = query_and_peers(n, m, 9, near_wrap)
+                                           (65, 1008, True), (9, 520, False),
+                                           (1, 1024, False), (7, 1000, True),
+                                           (7, 7, True), (65539, 1024, False),
+                                           (65, 640, True), (33, 1920, False)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_cuda_one_vs_many_matches_plain(cuda, n, m, near_wrap, wide):
+    """Both instances from one row to more rows than the grid has warps
+    (65,539: batches of 32 rows a warp, the last one short), aligned rows
+    through the cp.async ring and rows one element into their buffer
+    through scalar loads, m-tiles that hold whole chunk groups (bm = 512)
+    and tiles that end inside one (m = 640 and 1920: bm = 128 and 384),
+    queries whose span fits 16 bits and ``wide`` ones past it; one
+    launch a call, flags torch.bool."""
+    q, peers = query_and_peers(n, m, 9, near_wrap, wide)
     tq = torch.as_tensor(q, device=cuda)
     tp = torch.as_tensor(peers, device=cuda)
     u8, base, _ = pack.pack_rows(tp)
     bm = ops.tile_width(m, 512)
     for name, got, (flags, sums, fp) in (
-            ("one_vs_many_i32", lambda: ops._classify_vs_many(tq, tp),
+            ("one_vs_many_i32", lambda p, b: ops._classify_vs_many(tq, p),
              ref.one_vs_many_ref(tq, tp, bm=bm)),
             ("one_vs_many_packed",
-             lambda: ops._classify_vs_many_packed(tq, u8, base),
+             lambda p, b: ops._classify_vs_many_packed(tq, p, b),
              ref.one_vs_many_ref(tq, u8, base, bm=bm))):
-        n0 = ops.LAUNCHES[name]
-        out = got()
-        assert ops.LAUNCHES[name] == n0 + 1
-        assert torch.equal(out["q_le_p"], flags[:, 0].bool()), name
-        assert torch.equal(out["p_le_q"], flags[:, 1].bool()), name
-        assert torch.equal(out["sum_p"], sums[:, 1]), name
-        assert torch.equal(out["sum_q"], sums[0, 0]), name
-        assert_fp_close(out["fp_q_before_p"], fp[:, 0])
-        assert_fp_close(out["fp_p_before_q"], fp[:, 1])
+        assert flags.dtype == torch.bool
+        rows = tp if name == "one_vs_many_i32" else u8
+        for p, b in ((rows, base), (offset_view(rows, 1), offset_view(base, 1))):
+            out = one_launch(lambda: got(p, b), name)
+            assert_flag_views(out["q_le_p"], out["p_le_q"])
+            assert torch.equal(out["q_le_p"], flags[:, 0]), name
+            assert torch.equal(out["p_le_q"], flags[:, 1]), name
+            assert torch.equal(out["sum_p"], sums[:, 1]), name
+            assert torch.equal(out["sum_q"], sums[0, 0]), name
+            assert_fp_close(out["fp_q_before_p"], fp[:, 0])
+            assert_fp_close(out["fp_p_before_q"], fp[:, 1])
 
 
 @pytest.mark.gpu
@@ -181,11 +257,15 @@ def test_cuda_main_path_matches_cpu(cuda):
         reg.admit_many({i: bc.BloomClock(torch.as_tensor(r), zero, 4)
                         for i, r in enumerate(peers)})
         view = rt.classify_fleet(reg)
+        lineage = [rt.lineage(reg.get(i)) for i in range(0, 500, 50)]
         reports = [rt.gossip(reg) for _ in range(3)]
-        return view, reports, rt.clock.logical_cells().cpu(), reg
+        return view, lineage, reports, rt.clock.logical_cells().cpu(), reg
 
-    gv, grep_, gclock, greg = run(cuda)
-    cv, crep, cclock, creg = run("cpu")
+    gv, glin, grep_, gclock, greg = run(cuda)
+    cv, clin, crep, cclock, creg = run("cpu")
+    assert [s for s, _ in glin] == [s for s, _ in clin]
+    np.testing.assert_allclose([f for _, f in glin], [f for _, f in clin],
+                               rtol=FP_RTOL)
     np.testing.assert_array_equal(gv.status, cv.status)
     np.testing.assert_array_equal(np.asarray(gv.sums), np.asarray(cv.sums))
     for g, c in zip(grep_, crep):
@@ -289,15 +369,6 @@ def test_cuda_rect_i32_stats_matches_plain(cuda, n, mc, m, bi, bj):
 
 _TILES = [(32, 32), (32, 64), (32, 128), (64, 32), (64, 64), (64, 128),
           (128, 32), (128, 64)]
-
-
-def offset_view(x, offset):
-    """``x`` copied into a buffer ``offset`` elements in: contiguous, its
-    data pointer not aligned to more than one element."""
-    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
-    view = buf[offset:].view(x.shape)
-    view.copy_(x)
-    return view
 
 
 @pytest.mark.gpu
@@ -509,26 +580,38 @@ def hybrid_case(H, T, m, seed, near_wrap, device):
 @pytest.mark.parametrize("H,T,m,near_wrap", [(4096, 2000, 1024, False),
                                              (13, 1001, 200, True),
                                              (4095, 77, 1000, True),
-                                             (1, 9, 520, False)])
+                                             (1, 9, 520, False),
+                                             (1, 1, 1024, False),
+                                             (4089, 1, 1000, True),
+                                             (1, 65539, 1024, True),
+                                             (4089, 65539, 1024, False),
+                                             (5, 300, 640, False)])
 def test_cuda_hybrid_matches_plain_and_packed(cuda, H, T, m, near_wrap):
+    """Hot and tail sides from one row each to the path's 4,089 over
+    65,539, aligned and one element into their buffers; one launch a
+    call, flags torch.bool; tail rows bit-identical to the packed
+    one-vs-many kernel."""
     q, V, meta, hs, u8, base = hybrid_case(H, T, m, 11, near_wrap, cuda)
     bm = ops.tile_width(m, 512)
-    n0 = ops.LAUNCHES["hybrid"]
-    flags, sums, fp = ops.hybrid(q, V, meta, hs, u8, base)
-    assert ops.LAUNCHES["hybrid"] == n0 + 1
     w_flags, w_sums, w_fp = ref.hybrid_classify_ref(q, V, meta, hs, u8, base,
                                                     bm=bm)
-    assert torch.equal(flags, w_flags)
-    assert torch.equal(sums, w_sums)
-    assert_fp_close(fp, w_fp)
-    assert bool((fp[:H] == 0).all())
-    # the tail rows are the packed one-vs-many kernel's, bit for bit
-    flat = ops._classify_vs_many_packed(q, u8, base)
-    out = ops._classify_dict(flags, sums, fp)
-    for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
-                "fp_p_before_q"):
-        assert torch.equal(out[key][H:], flat[key]), key
-    assert torch.equal(out["sum_q"], flat["sum_q"])
+    assert w_flags.dtype == torch.bool
+    for tail in (u8, offset_view(u8, 1)):
+        flags, sums, fp = one_launch(
+            lambda: ops.hybrid(q, V, meta, hs, tail, base), "hybrid")
+        assert flags.dtype == torch.bool
+        assert torch.equal(flags, w_flags)
+        assert torch.equal(sums, w_sums)
+        assert_fp_close(fp, w_fp)
+        assert bool((fp[:H] == 0).all())
+        # the tail rows are the packed one-vs-many kernel's, bit for bit
+        flat = ops._classify_vs_many_packed(q, tail, base)
+        out = ops._classify_dict(flags, sums, fp)
+        assert_flag_views(out["q_le_p"], out["p_le_q"])
+        for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
+                    "fp_p_before_q"):
+            assert torch.equal(out[key][H:], flat[key]), key
+        assert torch.equal(out["sum_q"], flat["sum_q"])
 
 
 @pytest.mark.gpu

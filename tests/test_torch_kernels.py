@@ -180,6 +180,212 @@ def test_pack_rows_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernels' arithmetic, emulated in numpy step by step
+# ---------------------------------------------------------------------------
+
+def _u32(x) -> np.ndarray:
+    return (np.asarray(x, np.int64) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def _f32_tile(tot) -> np.float32:
+    """tile_sum_f32: a wrapped uint32 tile sum as the float the reference
+    adds."""
+    return np.float32(np.uint32(int(tot) & 0xFFFFFFFF).view(np.int32))
+
+
+def emulate_one_vs_many(q, peers, base, bm, cpl=tops.OVM_CHUNKS_PER_LANE):
+    """``one_vs_many.cu``'s row body, lane by lane: stages of ``cpl``
+    groups of 32 chunks (16 packed or 4 int32 cells a chunk, one a lane);
+    the running min and max of the wrapped d = p - q start at 0 and take
+    d = 0 past m; a chunk's sum is __dp4a of its words (packed) or their
+    sum (int32); a tile is reduced over the lanes, plus n·base, in uint32,
+    and added as float in order, in the stage where it ends, each chunk
+    added to its own tile.  Returns (flags [N, 2] bool, Σp [N] float32,
+    Σq float32)."""
+    N, m = peers.shape
+    packed = base is not None
+    vec = 16 if packed else 4
+    stage = 32 * vec * cpl
+    qu = np.zeros(-(-m // vec) * vec + stage, np.uint32)
+    qu[:m] = _u32(q)
+    flags = np.zeros((N, 2), bool)
+    sp = np.zeros(N, np.float32)
+    for r in range(N):
+        b = np.uint32(_u32(base[r])) if packed else np.uint32(0)
+        lo = np.zeros(32, np.int64)
+        hi = np.zeros(32, np.int64)
+        run = np.zeros(32, np.uint64)
+        acc = np.float32(0.0)
+        tile = [0, min(bm, m)]
+
+        def close():
+            nonlocal acc
+            tot = (int(run.sum()) + (tile[1] - tile[0]) * int(b)) & 0xFFFFFFFF
+            acc = np.float32(acc + _f32_tile(tot))
+            run[:] = 0
+            tile[:] = tile[1], min(tile[1] + bm, m)
+
+        for s0 in range(0, m, stage):
+            c0 = s0 + (np.arange(cpl)[:, None] * 32 + np.arange(32)) * vec
+            part = np.zeros((cpl, 32), np.uint64)
+            has = c0 < m
+            for j, lane in zip(*np.nonzero(has)):
+                nv = min(vec, m - c0[j, lane])
+                raw = np.zeros(vec, np.int64)
+                raw[:nv] = np.asarray(peers[r, c0[j, lane]:c0[j, lane] + nv], np.int64)
+                p = _u32(raw + int(b))
+                d = (p - qu[c0[j, lane]:c0[j, lane] + vec]).view(np.int32).astype(np.int64)
+                d[nv:] = 0                                 # neutral padding
+                lo[lane] = min(lo[lane], d.min())
+                hi[lane] = max(hi[lane], d.max())
+                if packed:                                 # __dp4a a word
+                    words = raw.astype(np.uint8).view(np.uint32)
+                    part[j, lane] = sum((int(w) >> (8 * e)) & 0xFF
+                                        for w in words for e in range(4))
+                else:
+                    part[j, lane] = int(_u32(raw).astype(np.uint64).sum())
+            while tile[0] < m and tile[1] <= min(s0 + stage, m):
+                mine = has & (c0 < tile[1])
+                run += (part * mine).sum(0)
+                part[mine] = 0
+                close()
+            run += part.sum(0)
+        flags[r] = (lo >= 0).all(), (hi <= 0).all()
+        sp[r] = acc
+    sq = np.float32(0.0)
+    for t0 in range(0, m, bm):
+        sq = np.float32(sq + _f32_tile(int(_u32(q[t0:t0 + bm]).astype(np.uint64).sum())))
+    return flags, sp, sq
+
+
+def _row_body_case(m, packed, near_wrap, seed, wide=False):
+    """A query (around 1,000, or within 255 of INT32_MAX; ``wide``: every
+    fifth cell 70,000 higher, a span past 16 bits) and rows
+    around it: equal, ancestors, descendants, forked, random, and rows
+    whose base is -2^31 or 2^31 - 256 (packed) or that sit across the
+    int32 wrap point (int32)."""
+    g = np.random.default_rng(seed)
+    q0 = I32_MAX - 70255 if near_wrap and wide else I32_MAX - 255 if near_wrap else 1000
+    qr = g.integers(0, 200, m)
+    if wide:
+        qr[::5] += 70000
+    q = as_i32(q0 + qr)
+    kinds = 8
+    rows = np.repeat(qr[None], kinds, axis=0)
+    flip = g.random((kinds, m)) < 0.05
+    rows[1] += flip[1]
+    rows[2] -= flip[2] & (rows[2] > 0)
+    rows[3] += flip[3] * g.integers(-1, 2, m)
+    rows[4] = g.integers(0, 256, m)
+    rows = np.clip(rows, 0, 255)
+    base = np.full(kinds, q0, np.int64)
+    base[5], base[6], base[7] = -2 ** 31, 2 ** 31 - 256, q0 + 2 ** 31
+    rows[5:] = g.integers(0, 256, (3, m))
+    if wide:
+        rows[:4] = g.integers(0, 256, (4, m))      # the residuals cannot follow
+    if packed:
+        return q, rows.astype(np.uint8), as_i32(base)
+    return q, as_i32(rows + base[:, None]), None
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "i32"])
+@pytest.mark.parametrize("m", [1024, 1000, 1008, 520, 7, 1920])
+def test_one_vs_many_row_body_emulation(m, packed, wide):
+    """The CUDA row body's arithmetic (dp4a byte sums plus n·base in
+    uint32, running min/max of the wrapped delta with neutral padding,
+    tiles closed in the stage where they end: m = 520 and 1920 take 128-
+    and 384-cell tiles, several to a packed stage or across two; queries
+    whose span fits 16 bits and ``wide`` ones past it) gives the plain
+    version's and the Pallas kernel's flags and sums bit for bit."""
+    bm = tops.tile_width(m, 512)
+    for near_wrap in (False, True):
+        q, peers, base = _row_body_case(m, packed, near_wrap, seed=m, wide=wide)
+        flags, sp, sq = emulate_one_vs_many(q, peers, base, bm)
+        tq, tp = torch.as_tensor(q), torch.as_tensor(peers)
+        tb = None if base is None else torch.as_tensor(base)
+        w_flags, w_sums, _ = ref.one_vs_many_ref(tq, tp, tb, bm=bm)
+        np.testing.assert_array_equal(flags, w_flags.numpy())
+        np.testing.assert_array_equal(sp, w_sums[:, 1].numpy())
+        np.testing.assert_array_equal(np.full(len(sp), sq), w_sums[:, 0].numpy())
+        if packed:
+            want = jops._classify_vs_many_packed(
+                jnp.asarray(q), jnp.asarray(peers), jnp.asarray(base), bn=8,
+                bm=512, use_autotune=False)
+        else:
+            want = jops._classify_vs_many(jnp.asarray(q), jnp.asarray(peers))
+        np.testing.assert_array_equal(flags[:, 0], np.asarray(want["q_le_p"]))
+        np.testing.assert_array_equal(flags[:, 1], np.asarray(want["p_le_q"]))
+        np.testing.assert_array_equal(sp, np.asarray(want["sum_p"]))
+        assert sq == np.float32(want["sum_q"])
+        assert not flags[4].any()                     # the cases bite
+        assert flags[0].all() or wide
+
+
+def emulate_merge_compare(a, b, bm):
+    """``bloom_compare.cu``: lanes walk groups of 128 cells (4 a lane)
+    where m is a multiple of 4, else 32 cells (1 a lane); a tile closes
+    after the group that reaches its end and is reduced in uint32 and
+    added as float in order.  Returns (flags [B, 2] bool, sums [B, 2])."""
+    B, m = a.shape
+    group = 128 if m % 4 == 0 else 32
+    flags = np.zeros((B, 2), bool)
+    sums = np.zeros((B, 2), np.float32)
+    for r in range(B):
+        x, y = a[r].astype(np.int64), b[r].astype(np.int64)
+        acc = [np.float32(0.0), np.float32(0.0)]
+        run = [0, 0]
+        tile_end = min(bm, m)
+        for g0 in range(0, m, group):
+            run[0] += int(_u32(x[g0:g0 + group]).astype(np.uint64).sum())
+            run[1] += int(_u32(y[g0:g0 + group]).astype(np.uint64).sum())
+            if g0 + group >= tile_end:
+                for i in range(2):
+                    acc[i] = np.float32(acc[i] + _f32_tile(run[i] & 0xFFFFFFFF))
+                run = [0, 0]
+                tile_end = min(tile_end + bm, m)
+        flags[r] = (x <= y).all(), (x >= y).all()
+        sums[r] = acc
+    return flags, sums
+
+
+@pytest.mark.parametrize("m", [1024, 1000, 640, 7])
+def test_merge_compare_emulation(m):
+    """merge_compare's walk (128-cell groups or 32-cell ones, tiles closed
+    after the group that reaches their end) gives the plain version's and
+    the Pallas kernel's flags and sums bit for bit, sums wrapping."""
+    g = np.random.default_rng(m)
+    a = I32_MAX - g.integers(0, 60, (5, m))
+    b = np.minimum(a + g.integers(0, 2, a.shape) * (np.arange(5)[:, None] % 2), I32_MAX)
+    b[4] = a[4] - g.integers(0, 2, m)
+    a, b = as_i32(a), as_i32(b)
+    flags, sums = emulate_merge_compare(a, b, tops.tile_width(m, 512))
+    _, w_flags, w_sums, _ = ref.bloom_merge_compare_ref(
+        torch.as_tensor(a), torch.as_tensor(b), bm=tops.tile_width(m, 512))
+    np.testing.assert_array_equal(flags, w_flags.numpy())
+    np.testing.assert_array_equal(sums, w_sums.numpy())
+    want = jops.merge_compare(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_array_equal(flags[:, 0], np.asarray(want["a_le_b"]))
+    np.testing.assert_array_equal(sums[:, 1], np.asarray(want["sum_b"]))
+
+
+def test_plain_versions_return_bool_flags():
+    """The plain versions give the kernels' dtypes: flags torch.bool, so
+    a wrapper's raw (flags, sums, fp) compares with torch.equal on both
+    devices, and the classify dicts hold views of the flags."""
+    q, peers = _query_and_peers(6, 64, 7)
+    tq, tp = torch.as_tensor(q), torch.as_tensor(peers)
+    flags, sums, fp = ref.one_vs_many_ref(tq, tp, bm=128)
+    assert flags.dtype == torch.bool and sums.dtype == fp.dtype == torch.float32
+    _, mflags, _, _ = ref.bloom_merge_compare_ref(tp, tp, bm=128)
+    assert mflags.dtype == torch.bool
+    out = tops._classify_vs_many(tq, tp)
+    assert out["q_le_p"].dtype == torch.bool
+    assert (out["q_le_p"].untyped_storage().data_ptr()
+            == out["p_le_q"].untyped_storage().data_ptr())
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain version and launch nothing
 # ---------------------------------------------------------------------------
 

@@ -271,6 +271,23 @@ def test_runtime_lineage_and_admit_merge(fleet):
         np.asarray(jrt.clock_from_snapshot(snap).logical_cells()))
 
 
+def test_runtime_classify_matches_reference(fleet):
+    """``_classify`` (one kernel call, one wait for the card) returns the
+    reference's status, fp and merged cells for every kind of peer."""
+    jrt, trt = runtimes()
+    jc, tc = clocks_of(fleet)
+    seen = set()
+    for pid in jc:
+        js, jfp, jmerged = jrt._classify(jc[pid])
+        ts, tfp, tmerged = trt._classify(tc[pid])
+        assert ts == js, pid
+        assert_fp_close([tfp], [jfp])
+        assert isinstance(tmerged, np.ndarray) and tmerged.dtype == np.int32
+        np.testing.assert_array_equal(tmerged, np.asarray(jmerged))
+        seen.add(ts)
+    assert seen == {"ancestor", "descendant", "same", "forked"}
+
+
 # ---------------------------------------------------------------------------
 # gossip
 # ---------------------------------------------------------------------------
