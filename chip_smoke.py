@@ -44,7 +44,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bit-identical to a flat packed slab, and the two runs agree; then
    ``HybridEngine.pairs`` at 16,384 sessions on the card (exact hot-hot
    block) and at 2,048 on the card and the CPU, which must agree;
-7. times by one rule for kernels, plain versions and library calls:
+8. the serving path (``repro_torch.serve``) at ``ChurnConfig()``'s
+   defaults (m = 256, k = 4): the tick at the mint's B = 3,906 x 3
+   events and the replica's B = 1 x 4, packed one-vs-many at N = 256,
+   4,096, 16,384 and 65,536 and a batch with wide rows through the i32
+   overlay, each against its plain version; the full churn (1,000,000
+   sessions over 64 steps through ``AdmissionPipeline`` into a
+   ``TieredRegistry``) on the card with the launch counts reset just
+   before and read just after (tick and packed one-vs-many must have
+   run), fn == 0 and a non-empty cold tier, its latencies, qps, tier
+   movement and span split (``[serve]`` lines); ``TieredRegistry
+   .classify`` over the whole surviving population bit-identical to a
+   flat card slab of the same clocks; the audited quick churn on the
+   card and the CPU (deterministic fields and the stored clocks' CRC
+   identical, audit replay clean on both); one churn step under the
+   profiler (idle share); the tick and one-vs-many timed at the
+   serving shapes (``[time] serve`` lines, after phase 9's);
+9. times by one rule for kernels, plain versions and library calls:
    CUDA events around a loop of calls queued behind a sleep kernel (the
    card's time, no host gaps), with rotating input buffers larger than
    the L2 cache where the inputs are small; beside them the least time
@@ -62,7 +78,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    32-bit-lane kernel at N = M = 4096, T = 8192); a record's library
    time is the faster call; rect-i32 once more on slabs that fit in L2
    (time per pair and lane);
-8. one JSON line of kernel records, the card line, then the verdict line.
+10. one JSON line of kernel records, the card line, then the verdict line.
 
 No JAX and nothing of the JAX package is imported.
 """
@@ -363,6 +379,32 @@ def sass_counts() -> dict:
 # phase 3: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
+def compare_ovm(name, classify, q, peers, base) -> float:
+    """``classify(peers, base)`` against the plain version, on the rows
+    as given and once more one element into their buffers (scalar
+    loads)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    m = q.shape[0]
+    flags, sums, fp = ref.one_vs_many_ref(q, peers, base,
+                                          bm=ops.tile_width(m, 512))
+    e = 0.0
+    shifted = (offset_view(peers, 1),
+               None if base is None else offset_view(base, 1))
+    for p, b in ((peers, base), shifted):
+        out = classify(p, b)
+        what = f"{name} ptr%16={p.data_ptr() % 16}"
+        check(out["q_le_p"].dtype == torch.bool, f"{what}: flags not bool")
+        check_equal(host(out["q_le_p"]), host(flags[:, 0]), what)
+        check_equal(host(out["p_le_q"]), host(flags[:, 1]), what)
+        check_equal(host(out["sum_p"]), host(sums[:, 1]), what + " sum_p")
+        check_equal(host(out["sum_q"]), host(sums[0, 0]), what + " sum_q")
+        e = max(e, check_fp(host(out["fp_q_before_p"]), host(fp[:, 0]), what),
+                check_fp(host(out["fp_p_before_q"]), host(fp[:, 1]), what))
+    return e
+
+
 def check_kernels(dev) -> dict:
     """Returns name -> largest absolute error seen against the plain
     version (0 for integer outputs, which must be identical)."""
@@ -438,28 +480,6 @@ def check_kernels(dev) -> dict:
                 check_fp(host(got["fp_b_before_a"]), host(fp[:, 1]), what))
     print("[kernels] merge_compare: identical, fp within tolerance, flags "
           "torch.bool")
-
-    def compare_ovm(name, classify, q, peers, base):
-        """``classify(peers, base)`` against the plain version, on the rows
-        as given and once more one element into their buffers (scalar
-        loads)."""
-        m = q.shape[0]
-        flags, sums, fp = ref.one_vs_many_ref(q, peers, base,
-                                              bm=ops.tile_width(m, 512))
-        e = 0.0
-        shifted = (offset_view(peers, 1),
-                   None if base is None else offset_view(base, 1))
-        for p, b in ((peers, base), shifted):
-            out = classify(p, b)
-            what = f"{name} ptr%16={p.data_ptr() % 16}"
-            check(out["q_le_p"].dtype == torch.bool, f"{what}: flags not bool")
-            check_equal(host(out["q_le_p"]), host(flags[:, 0]), what)
-            check_equal(host(out["p_le_q"]), host(flags[:, 1]), what)
-            check_equal(host(out["sum_p"]), host(sums[:, 1]), what + " sum_p")
-            check_equal(host(out["sum_q"]), host(sums[0, 0]), what + " sum_q")
-            e = max(e, check_fp(host(out["fp_q_before_p"]), host(fp[:, 0]), what),
-                    check_fp(host(out["fp_p_before_q"]), host(fp[:, 1]), what))
-        return e
 
     # packed: N=65,536 at m=1024 with random bases, then one row, 7 rows
     # and more rows than the grid has warps (65,539), ragged shapes, and
@@ -1382,7 +1402,7 @@ def hybrid_pairs(device: str, n: int, n_head: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: times
+# phase 9: times
 # ---------------------------------------------------------------------------
 
 def events_ms(fn, n_buf: int, *, queued: bool, iters: int = 50,
@@ -1671,6 +1691,281 @@ def time_hybrid(dev, H: int, T: int) -> dict:
                 hot=H, tail=T)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving path
+# ---------------------------------------------------------------------------
+
+# the serving tier at ChurnConfig()'s defaults (src/repro/serve/churn.py:58-77,
+# bench_serve's full run, benchmarks/bench_serve.py:203-208): m = 256, k = 4;
+# a step mints a quarter of its 15,625 arrivals (~3,906) with P = 3 private
+# events each in one batched tick, and the replica ticks 4 events (B = 1)
+SERVE_M = 256
+SERVE_MINT = (3906, 3)
+SERVE_REPLICA = (1, 4)
+#: one-vs-many slabs of the path: a pipeline batch, the hot tier, a cold
+#: chunk, the warm tier
+SERVE_OVM_N = (256, 4096, 16384, 65536)
+SERVE_KERNELS = ("bloom_tick", "one_vs_many_packed", "one_vs_many_i32")
+#: churn report fields that do not depend on thread timing (batch
+#: boundaries move cache hits, latencies, qps and so promotions and the
+#: tier counts); the final stored clocks are compared by ``stored_crc``
+SERVE_DETERMINISTIC = ("sessions", "admitted", "rejected", "queries",
+                       "migrations", "expiries", "fn_violations",
+                       "concurrent_seen", "measured_fp")
+
+
+def serve_tick_inputs(g, B: int, E: int, dev):
+    """[B, m] int32 cells (one row at INT32_MAX) and the [B, E·k] probes
+    of E hashed events a row, at m = 256."""
+    import torch
+    from repro_torch.core.hashing import bloom_indices
+
+    cells = torch.as_tensor(g.integers(0, 1000, (B, SERVE_M)), dtype=torch.int32,
+                            device=dev)
+    cells[0, :] = torch.iinfo(torch.int32).max
+    ev = g.integers(0, 2 ** 32, (2, B, E), dtype=np.uint64).astype(np.int64)
+    probes = bloom_indices(ev[0], ev[1], K, SERVE_M, device=dev)
+    return cells, probes.reshape(B, -1).to(torch.int32).contiguous()
+
+
+def serve_slab(g, N: int, dev):
+    """A query and N packed rows around it at m = 256: ancestors,
+    descendants and unrelated rows, bases at the query's and anywhere."""
+    import torch
+
+    q_res = g.integers(0, 200, SERVE_M)
+    delta = g.integers(-1, 2, (N, SERVE_M)) * (g.random((N, SERVE_M)) < 0.05)
+    kind = g.integers(0, 3, (N, 1))
+    res = np.where(kind == 0, q_res + np.abs(delta),
+                   np.where(kind == 1, q_res - np.abs(delta),
+                            g.integers(0, 256, (N, SERVE_M))))
+    base = np.where(kind[:, 0] < 2, 5000, g.integers(-2 ** 31, 2 ** 31 - 256, N))
+    return (torch.as_tensor(q_res + 5000, dtype=torch.int32, device=dev),
+            torch.as_tensor(np.clip(res, 0, 255), dtype=torch.uint8, device=dev),
+            torch.as_tensor(base, dtype=torch.int32, device=dev))
+
+
+def check_serve_kernels(dev) -> dict:
+    """The tick and one-vs-many at the serving path's shapes against
+    their plain versions: cells, flags and sums identical, fp within
+    tolerance."""
+    import torch
+    from repro_torch.causal import CausalEngine, PackedSlab
+    from repro_torch.kernels import ops, ref
+
+    g = np.random.default_rng(SEED + 20)
+    err = {k: 0.0 for k in SERVE_KERNELS}
+    for B, E in (SERVE_MINT, SERVE_REPLICA):
+        cells, probes = serve_tick_inputs(g, B, E, dev)
+        got = ops.tick_probes(cells, probes)
+        check_equal(host(got), host(ref.bloom_tick_ref(cells, probes)),
+                    f"serve tick B={B} P={E} events m={SERVE_M}")
+    for N in SERVE_OVM_N:
+        q, peers, base = serve_slab(g, N, dev)
+        err["one_vs_many_packed"] = max(err["one_vs_many_packed"], compare_ovm(
+            f"serve packed N={N} m={SERVE_M}",
+            lambda p, b: ops._classify_vs_many_packed(q, p, b), q, peers, base))
+    # a pipeline batch with rim rows: the packed call plus the exact i32
+    # overlay of its wide rows, the card against the CPU's plain versions
+    q, peers, base = serve_slab(g, 256, dev)
+    wide = {i: (g.integers(0, 70000, SERVE_M) + 5000).astype(np.int32)
+            for i in (0, 3, 77, 255)}
+    wide[3][:] = np.iinfo(np.int32).max - g.integers(0, 50, SERVE_M)
+    rows = torch.as_tensor(np.stack([wide[i] for i in sorted(wide)]), device=dev)
+    err["one_vs_many_i32"] = compare_ovm(
+        f"serve i32 N={len(wide)} m={SERVE_M}",
+        lambda p, b: ops._classify_vs_many(q, p), q, rows, None)
+    eng = CausalEngine()
+    got = eng.classify(q, PackedSlab(peers, base, wide=wide)).to_host()
+    want = eng.classify(q.cpu(), PackedSlab(peers.cpu(), base.cpu(),
+                                            wide=wide)).to_host()
+    check(got.engine == want.engine == "packed+wide_overlay",
+          f"serve overlay engine {got.engine}")
+    for key in ("q_le_p", "p_le_q", "sum_p", "sum_q"):
+        check_equal(getattr(got, key), getattr(want, key), f"serve overlay {key}")
+    for key in ("fp_q_before_p", "fp_p_before_q"):
+        err["one_vs_many_i32"] = max(err["one_vs_many_i32"], check_fp(
+            getattr(got, key), getattr(want, key), f"serve overlay {key}"))
+    print(f"[kernels] serving shapes (m={SERVE_M}): tick at B={SERVE_MINT[0]} "
+          f"x {SERVE_MINT[1]} events and B=1 x {SERVE_REPLICA[1]}, packed "
+          f"one-vs-many at N={list(SERVE_OVM_N)}, a 256-row batch with 4 wide "
+          f"rows through the i32 overlay: identical to the plain versions, "
+          f"fp within tolerance")
+    return err
+
+
+def flat_check(tiers, replica) -> dict:
+    """``TieredRegistry.classify`` over every stored session against one
+    flat ``ClockRegistry`` on the card holding the same clocks under the
+    same pinned policy: statuses and sums identical, fp bit-identical."""
+    import dataclasses
+    import torch
+    from repro_torch.core import clock as bc
+    from repro_torch.fleet.registry import ClockRegistry
+    from repro_torch.kernels import pack
+
+    t0 = time.perf_counter()
+    sids = tiers.sids()
+    rows = np.empty((len(sids), tiers.m), np.int32)
+    at, slots = [], []
+    for i, sid in enumerate(sids):
+        cells, slot = tiers.stored_row(sid)
+        if cells is None:
+            at.append(i)
+            slots.append(slot)
+        else:
+            rows[i] = cells
+    idx = torch.as_tensor(slots, device=tiers.device)
+    rows[at] = host(pack.unpack_rows(tiers.hot.cells_u8[idx], tiers.hot.base[idx]))
+    flat = ClockRegistry(capacity=len(sids), m=tiers.m, k=tiers.k,
+                         policy=dataclasses.replace(tiers.policy, observer=None),
+                         device=tiers.device)
+    zero = torch.zeros((), dtype=torch.int32)
+    for lo in range(0, len(sids), 65536):
+        flat.admit_many({sids[i]: bc.BloomClock(cells=torch.from_numpy(rows[i]),
+                                                base=zero, k=tiers.k)
+                         for i in range(lo, min(lo + 65536, len(sids)))})
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view = tiers.classify(replica)
+    tiered_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fv = flat.classify_all(replica)
+    flat_ms = (time.perf_counter() - t0) * 1e3
+    check(view.sids == sids, "tiered classify session order")
+    fslots = np.fromiter((flat.slot_of(s) for s in sids), np.int64, len(sids))
+    check_equal(view.status, fv.status[fslots], "tiered vs flat statuses")
+    check_equal(view.sums, fv.sums[fslots], "tiered vs flat sums")
+    check_equal(view.fp.view(np.uint32), fv.fp[fslots].view(np.uint32),
+                "tiered vs flat fp bits")
+    return {"sessions": len(sids), "tiers": view.tier_counts(),
+            "counts": view.counts(), "engine": view.engine,
+            "flat_build_s": build_s, "tiered_classify_ms": tiered_ms,
+            "flat_classify_ms": flat_ms}
+
+
+def span_totals(events) -> dict:
+    out: dict = {}
+    for ev in events:
+        n, ms = out.get(ev["name"], (0, 0.0))
+        out[ev["name"]] = (n + 1, ms + ev["dur_us"] / 1e3)
+    return {k: {"n": n, "ms": ms} for k, (n, ms) in sorted(out.items())}
+
+
+def drive_serve() -> dict:
+    """The full churn on the card with the launch counts reset just
+    before it and read just after; then the flat-slab check on its final
+    store."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observer, Tracer
+    from repro_torch.serve import ChurnConfig, run_churn
+
+    tracer = Tracer()
+    out: dict = {}
+
+    def inspect(tiers, replica):
+        out["launches"] = {k: ops.LAUNCHES[k] for k in SERVE_KERNELS}
+        out["spans"] = span_totals(tracer.events())
+        n_run = len(tracer.events())
+        out["flat"] = flat_check(tiers, replica)
+        out["flat"]["spans"] = span_totals(tracer.events()[n_run:])
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report = run_churn(ChurnConfig(), observer=Observer(trace=tracer),
+                       device="cuda", inspect=inspect)
+    out["process_s"] = time.perf_counter() - t0
+    out["report"] = report.to_dict()
+    check(report.fn_violations == 0,
+          f"serve churn: {report.fn_violations} false negatives")
+    check(report.tier_counts.get("cold", 0) > 0, "serve churn: cold tier empty")
+    for kname in ("bloom_tick", "one_vs_many_packed"):
+        check(out["launches"][kname] > 0,
+              f"kernel {kname} was not launched on the serving path")
+    return out
+
+
+def stored_crc(tiers) -> int:
+    """CRC32 over every stored session's id and logical cells, in
+    session order: equal CRCs mean equal final clocks."""
+    import zlib
+    from repro_torch.core import wire
+
+    crc = 0
+    for sid in sorted(tiers.sids(), key=lambda s: int(s[1:])):
+        cells = host(tiers.get(sid, count=False).logical_cells())
+        crc = zlib.crc32(f"{sid}:{wire.cells_crc(cells)};".encode(), crc)
+    return crc
+
+
+def serve_quick() -> dict:
+    """``ChurnConfig.quick()`` (audited) on the card and on the CPU: the
+    deterministic fields and the CRC of every final stored clock
+    identical, audit replay clean on both."""
+    from repro_torch.serve import ChurnConfig, run_churn
+
+    res, crc = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = run_churn(ChurnConfig.quick(), device=d,
+                      inspect=lambda tiers, _, d=d: crc.update({d: stored_crc(tiers)}))
+        res[d] = r
+        check(r.fn_violations == 0, f"quick churn on {d}: fn != 0")
+        rp = r.replay
+        check(rp is not None and not rp["mismatches"]
+              and rp["checked"] == rp["matched"] > 0,
+              f"quick churn on {d}: audit replay {rp}")
+        print(f"[serve] quick churn on {d}: {time.perf_counter() - t0:.3f} s, "
+              f"replay {json.dumps(rp)}")
+    for key in SERVE_DETERMINISTIC:
+        check(getattr(res["cuda"], key) == getattr(res["cpu"], key),
+              f"quick churn {key} differs between devices")
+    check(crc["cuda"] == crc["cpu"], "quick churn: final stored clocks differ")
+    out = {key: getattr(res["cuda"], key) for key in SERVE_DETERMINISTIC}
+    out["stored_crc"] = crc["cuda"]
+    return out
+
+
+def time_serve(dev) -> dict:
+    """The tick at the mint's shape and one-vs-many at m = 256, N = 256
+    (a pipeline batch) and 65,536 (the warm tier): device ms of the
+    kernel, the plain version and (tick) ``scatter_add_``, with bytes
+    and operations."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = np.random.default_rng(SEED + 21)
+    bm = ops.tile_width(SERVE_M, 512)
+    out = {}
+    B, E = SERVE_MINT
+    P = E * K
+    nbytes = B * SERVE_M * 4 * 2 + B * P * 4
+    nb = n_buffers(nbytes)
+    bufs = [serve_tick_inputs(g, B, E, dev) for _ in range(nb)]
+    p64 = [p.to(torch.int64) for _, p in bufs]
+    ones = torch.ones((B, P), dtype=torch.int32, device=dev)
+    lib_in = measure(lambda i: bufs[i][0].scatter_add_(1, p64[i], ones), nb)["ms"]
+    lib_out = measure(lambda i: torch.scatter_add(bufs[i][0], 1, p64[i], ones),
+                      nb)["ms"]
+    k = measure(lambda i: ops.tick_probes(*bufs[i]), nb)
+    p = measure(lambda i: ref.bloom_tick_ref(*bufs[i]), nb, iters=10)
+    out["tick"] = dict(B=B, P=P, ms=k["ms"], call_ms=k["call_ms"],
+                       plain_ms=p["ms"], library_ms=min(lib_in, lib_out),
+                       scatter_add_ms=lib_in, scatter_add_out_ms=lib_out,
+                       bytes=nbytes, ops=B * SERVE_M + B * P)
+    for N in (SERVE_OVM_N[0], SERVE_OVM_N[-1]):
+        nbytes = N * SERVE_M + N * 4 + SERVE_M * 4 + N * ROW_OUT_BYTES
+        nb = n_buffers(nbytes)
+        slabs = [serve_slab(g, N, dev) for _ in range(nb)]
+        k = measure(lambda i: ops._classify_vs_many_packed(*slabs[i]), nb)
+        p = measure(lambda i: ref.one_vs_many_ref(*slabs[i], bm=bm), nb, iters=10)
+        out[f"packed_{N}"] = dict(N=N, ms=k["ms"], call_ms=k["call_ms"],
+                                  plain_ms=p["ms"], library_ms=None,
+                                  bytes=nbytes, ops=N * SERVE_M * 5)
+    return out
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -1808,6 +2103,38 @@ def main() -> int:
     del gp, cp, gres, cres
     launches["hybrid"] = hyb_launches["hybrid"]
 
+    serve_errs = check_serve_kernels(dev)
+    for kname, e in serve_errs.items():
+        errs[kname] = max(errs[kname], e)
+    srv = drive_serve()
+    r = srv["report"]
+    print(f"[serve] churn on the card ({r['sessions']} sessions, m={SERVE_M}): "
+          f"wall {r['wall_s']} s (process {srv['process_s']} s), p50 "
+          f"{r['p50_ms']} ms, p95 {r['p95_ms']} ms, p99 {r['p99_ms']} ms, qps "
+          f"{r['qps']}, tiers {json.dumps(r['tier_counts'])}, cache hits "
+          f"{r['cache_hits']} misses {r['cache_misses']}, promotions "
+          f"{r['promotions']}, demotions {r['demotions']}, spills {r['spills']}, "
+          f"fn {r['fn_violations']}, admitted {r['admitted']}, rejected "
+          f"{r['rejected']}, measured fp {r['measured_fp']}")
+    serve_launches = srv["launches"]
+    print(f"[serve] launches on the serving path: {json.dumps(serve_launches)}")
+    print(f"[serve] spans of the churn: {json.dumps(srv['spans'])}")
+    fl = srv["flat"]
+    print(f"[serve] TieredRegistry.classify over {fl['sessions']} sessions "
+          f"{json.dumps(fl['tiers'])} bit-identical to a flat card slab "
+          f"(statuses, sums, fp bits): {json.dumps(fl['counts'])}; tiered "
+          f"{fl['tiered_classify_ms']} ms, flat {fl['flat_classify_ms']} ms, "
+          f"flat slab built in {fl['flat_build_s']} s; spans "
+          f"{json.dumps(fl['spans'])}")
+    print(f"[serve] quick churn: card and CPU agree on "
+          f"{json.dumps(serve_quick())}")
+    from repro_torch.serve import ChurnConfig, run_churn
+    step = ChurnConfig().sessions // ChurnConfig().steps
+    print(f"[serve] one churn step ({step} arrivals, one step's queries and "
+          f"migrations) under the profiler: "
+          f"{json.dumps(profiled(lambda: run_churn(ChurnConfig(sessions=step, steps=1), device='cuda')))}")
+    del srv
+
     rate = hbm_rate(name)
     timed = time_kernels(dev, gpu["n_wide"])
     timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
@@ -1883,6 +2210,20 @@ def main() -> int:
           f"slots: all_pairs {health['all_pairs_ms']} ms, transfer "
           f"{health['to_host_ms']} ms, host "
           f"{health['spans_ms'].get('fleet.health.host')} ms)")
+    st = time_serve(dev)
+    for key, r in st.items():
+        t_bytes = r["bytes"] / rate * 1e3
+        t_ops = r["ops"] / INT_OPS * 1e3
+        what = (f"bloom_tick B={r['B']} P={r['P']} probes" if key == "tick"
+                else f"one_vs_many_packed N={r['N']}")
+        print(f"[time] serve {what} m={SERVE_M}: kernel {r['ms']} ms (call "
+              f"{r['call_ms']} ms), plain {r['plain_ms']} ms, library "
+              f"{r['library_ms']} ms"
+              + (f" (scatter_add_ in place {r['scatter_add_ms']}, torch.scatter_add "
+                 f"{r['scatter_add_out_ms']})" if key == "tick" else "")
+              + f", {r['bytes']} bytes, bound {max(t_bytes, t_ops)} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), launches in "
+              f"the churn {serve_launches['bloom_tick' if key == 'tick' else 'one_vs_many_packed']}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

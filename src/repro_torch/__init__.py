@@ -5,7 +5,7 @@ code is PyTorch; every Pallas TPU kernel on the ported path is a CUDA
 C++ kernel for ``sm_90a`` (``repro_torch.kernels.csrc``), built with
 ``nvcc`` at first use and bound with ``ctypes``.
 
-Ported so far (the main path, all-pairs, hybrid):
+Ported so far (the main path, all-pairs, hybrid, serving):
 
 - ``core``     hashing, the clock, wire frames, history, vector clock,
                the simulator (loopback gossip only)
@@ -13,16 +13,19 @@ Ported so far (the main path, all-pairs, hybrid):
                fused hybrid sweep, the all-pairs tri, rect-u8,
                rect-i32-stats and mxu kernels
 - ``causal``   policy, typed results, ``CausalEngine.classify``/``pairs``
-- ``obs``      trace spans, metrics, audit trail
-- ``fleet``    the registry slab, gossip, the loopback transport, the
-               fleet monitor
+- ``obs``      trace spans, metrics, audit trail, trace export
+- ``fleet``    the registry slab (with its eviction hook), gossip, the
+               loopback transport, the fleet monitor
 - ``hybrid``   ``HybridEngine`` (exact hot set over the packed tail) and
                the fp-budget ``AdaptivePolicy``
+- ``serve``    the tiered registry (hot card slab, pinned warm tier, cold
+               frames), the streaming admission pipeline, the churn
+               driver
 - ``runtime``  ``ClockRuntime``
 - ``convert``  builds the port's objects from the JAX package's state
 
 Entry points (``ClockRuntime``, ``ClockRegistry``, ``HybridEngine``,
-``run_gossip_sim``) run on the card unless the caller passes
+``TieredRegistry``, ``run_churn``, ``run_gossip_sim``) run on the card unless the caller passes
 ``device="cpu"``; functions on tensors follow their tensors' device.  This package never imports
 ``jax`` or ``repro``.
 """

@@ -2,7 +2,8 @@
 
 Builds the port's objects from the JAX package's state, given as numpy
 arrays (``np.asarray`` of its device arrays) and plain values, so the
-same clock, history, registry or hybrid engine runs in both.  The bits
+same clock, history, registry, hybrid engine or tiered registry runs in
+both.  The bits
 are copied as they are: int32 wrap-around, u8 residuals, bases, cached
 float32 sums and CRCs.
 """
@@ -17,7 +18,7 @@ from repro_torch.core import clock as bc
 from repro_torch.core import history as hist
 
 __all__ = ["clock_from_state", "history_from_state", "hybrid_from_state",
-           "registry_from_state"]
+           "registry_from_state", "tiered_from_state"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -125,3 +126,58 @@ def hybrid_from_state(state: dict, *, device=None, policy=None,
     for key in ("promotions", "demotions", "resizes"):
         setattr(eng, key, int(state[key]))
     return eng
+
+
+def tiered_from_state(state: dict, *, device=None, policy=None,
+                      spill_dir=None):
+    """A ``TieredRegistry`` holding the JAX tiered registry's three tiers,
+    so that both continue from the same state.
+
+    ``state`` keys: ``cfg`` (a dict of ``TierConfig`` fields; its
+    ``spill_dir`` is replaced by ``spill_dir``, a fresh temporary
+    directory when None), ``m``, ``k``, ``hot`` (the hot slab, keyed as
+    ``registry_from_state`` takes it, with ``free``), the warm arrays
+    ``w_u8`` [W, m] uint8, ``w_base`` [W] int64, ``w_sums`` [W] float32,
+    ``w_alive`` [W] bool, ``w_wide`` {slot: [m] int32 row},
+    ``w_slot_of`` {sid: slot}, ``w_free`` (the free-slot stack), ``cold``
+    {sid: frame bytes} in index order (appended to the port's own spill
+    file), the access bookkeeping ``tier_of``, ``access``, ``age``,
+    ``promoted_at`` (dicts) and ``age_seq``, ``window_touches``,
+    ``window_migrations``, ``promotions``, ``demotions``, ``spills``,
+    ``promotion_deferrals``.
+    """
+    from repro_torch.serve.tiers import TierConfig, TieredRegistry, _fold_i32
+
+    fields = {f.name for f in dataclasses.fields(TierConfig)} - {"spill_dir"}
+    cfg = TierConfig(**{k: v for k, v in state["cfg"].items() if k in fields},
+                     spill_dir=spill_dir)
+    m, k = int(state["m"]), int(state["k"])
+    t = TieredRegistry(cfg, m=m, k=k, policy=policy, device=device)
+    t.hot = registry_from_state(state["hot"], m, k, policy=t.policy,
+                                device=t.device)
+    t.hot.on_evict = t._ingest_warm
+    t.engine = t.hot.engine
+    w_u8 = np.asarray(state["w_u8"], np.uint8)
+    if w_u8.shape != t._w_u8.shape:
+        raise ValueError(f"w_u8 shape {w_u8.shape} != {t._w_u8.shape}")
+    t._w_u8[:] = w_u8
+    t._w_base[:] = np.asarray(state["w_base"], np.int64)
+    t._w_base32[:] = _fold_i32(t._w_base)
+    t._w_sums[:] = np.asarray(state["w_sums"], np.float32)
+    t._w_alive[:] = np.asarray(state["w_alive"], bool)
+    t._w_wide = {int(s): np.array(row, np.int32)
+                 for s, row in state["w_wide"].items()}
+    t._w_slot_of = dict(state["w_slot_of"])
+    t._w_free = [int(s) for s in state["w_free"]]
+    f = t._spill_handle()
+    for sid, frame in state["cold"].items():
+        t._cold_index[sid] = (f.tell(), len(frame))
+        f.write(bytes(frame))
+    f.flush()
+    for key in ("tier_of", "access", "age", "promoted_at"):
+        setattr(t, f"_{key}", dict(state[key]))
+    for key in ("age_seq", "window_touches", "window_migrations"):
+        setattr(t, f"_{key}", int(state[key]))
+    for key in ("promotions", "demotions", "spills", "promotion_deferrals"):
+        setattr(t, key, int(state[key]))
+    return t

@@ -18,12 +18,15 @@ Slot assignment is host-side (a dict and a free list).  Status codes
 (``FleetView.status``): DEAD < 0; ANCESTOR: peer ≼ local; SAME;
 DESCENDANT: local ≼ peer; FORKED: concurrent (exact, paper §3).
 
-The mesh-sharded slab and the eviction hook of the reference are not
+``on_evict`` hands the live rows an ``evict_many`` frees to a hook as
+``EvictedRow`` objects (the tiered store of ``repro_torch.serve``
+demotes through it).  The mesh-sharded slab of the reference is not
 ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ from repro_torch.obs.observer import resolve
 
 __all__ = [
     "ClockRegistry",
+    "EvictedRow",
     "FleetView",
     "view_from_classify",
     "DEAD",
@@ -75,6 +79,25 @@ STATUS_NAMES = {
     DESCENDANT: "descendant",
     FORKED: "forked",
 }
+
+
+@dataclasses.dataclass
+class EvictedRow:
+    """One row captured for an ``on_evict`` hook, in the slab's packed
+    representation: u8 residuals + base, plus the promoted int32
+    logical row when the slot was wide."""
+
+    cells_u8: np.ndarray      # [m] uint8 residuals
+    base: int                 # §4 window offset
+    sum: float                # cached clock sum (Eq. 3 input)
+    wide: Optional[np.ndarray] = None   # promoted int32 logical row
+
+    def logical(self) -> np.ndarray:
+        """Materialized int32 logical cells (mod-2^32 circle)."""
+        if self.wide is not None:
+            return np.asarray(self.wide, np.int32)
+        return (self.cells_u8.astype(np.int64)
+                + int(self.base)).astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -172,6 +195,10 @@ class ClockRegistry:
         self._mat: torch.Tensor | None = None    # materialized i32 cache
         self._slot_of: dict = {}
         self._free: list[int] = list(range(capacity - 1, -1, -1))
+        #: demotion hook: called as ``on_evict({peer_id: EvictedRow})``
+        #: with every ALIVE row an ``evict_many`` frees; quarantined
+        #: rows are never handed out
+        self.on_evict: Optional[Callable[[dict], None]] = None
 
     # ---- membership ----
     def __len__(self) -> int:
@@ -252,6 +279,7 @@ class ClockRegistry:
         idx = [self._slot_of[pid] for pid in peer_ids]
         if not idx:
             return
+        captured = self._capture_rows(peer_ids, idx)
         with self.obs.trace.span("registry.evict", n=len(idx)):
             for pid in peer_ids:
                 del self._slot_of[pid]
@@ -262,6 +290,33 @@ class ClockRegistry:
             self._free.extend(idx)
         self.obs.metrics.counter("registry_evictions").inc(len(idx))
         self._note_occupancy()
+        if captured:
+            self.on_evict(captured)
+
+    def _capture_rows(self, peer_ids: list, idx: list) -> Optional[dict]:
+        """Snapshot the alive rows an eviction is about to free, packed:
+        one gather of the victims' u8 rows and sums, one transfer."""
+        if self.on_evict is None:
+            return None
+        live = [(pid, slot) for pid, slot in zip(peer_ids, idx)
+                if self._alive_host[slot]]
+        if not live:
+            return None
+        jidx = torch.as_tensor([slot for _, slot in live], device=self.device)
+        sums = self.sums.index_select(0, jidx)
+        rows = torch.cat([self.cells_u8.index_select(0, jidx),
+                          sums.view(torch.uint8).reshape(len(live), 4)], 1)
+        rows = rows.cpu().numpy()
+        u8, sums = rows[:, :self.m], rows[:, self.m:].copy().view(np.float32)
+        return {
+            pid: EvictedRow(
+                cells_u8=u8[pos].copy(),
+                base=int(self._base_host[slot]),
+                sum=float(sums[pos, 0]),
+                wide=(None if slot not in self._wide
+                      else self._wide[slot].copy()))
+            for pos, (pid, slot) in enumerate(live)
+        }
 
     def evict(self, peer_id) -> None:
         self.evict_many([peer_id])

@@ -83,6 +83,9 @@ _SMEM_MAX = 232448
 #: 16-byte chunks a lane of the one-vs-many kernels takes a stage
 #: (one_vs_many.cu: OVM_CPL)
 OVM_CHUNKS_PER_LANE = 2
+#: one-vs-many blocks (bn warps a CTA, bm the m-tile) when a call gives
+#: none: the reference's built-in bn=8, bm=512
+OVM_BLOCKS = (8, 512)
 
 
 def reset_launches() -> None:
@@ -278,10 +281,9 @@ def _classify_vs_many_packed(q: torch.Tensor, peers: torch.Tensor,
                              base: torch.Tensor, *, bn: int | None = None,
                              bm: int | None = None) -> dict:
     """One-vs-many classify against a packed slab (u8 residuals + base).
-    Blocks default to the reference's built-in bn=8 (warps a CTA here),
-    bm=512."""
-    bn = bn or 8
-    bm = bm or 512
+    Blocks default to ``OVM_BLOCKS``."""
+    bn = bn or OVM_BLOCKS[0]
+    bm = bm or OVM_BLOCKS[1]
     _note_dispatch("one_vs_many", "packed", bn=bn, bm=bm)
     return _classify_dict(*_one_vs_many(q, peers, base.reshape(-1), bn, bm))
 

@@ -668,3 +668,221 @@ def test_cuda_hybrid_engine_matches_cpu(cuda):
     for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
         np.testing.assert_array_equal(gres[key], cres[key])
     assert gres.engine == cres.engine
+
+
+# ---------------------------------------------------------------------------
+# the serving tier (repro_torch.serve) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SERVE_M = 256
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,E", [(3906, 3), (1, 4), (4101, 3)])
+def test_cuda_tick_at_serving_shapes_matches_plain(cuda, B, E):
+    """The churn's batched mint (B ≈ 3,906 rows, 3 events of k = 4
+    probes) and the replica's B = 1 tick of 4 events, at m = 256."""
+    from repro_torch.core.hashing import bloom_indices
+    rng = np.random.default_rng(19)
+    cells = torch.as_tensor(rng.integers(0, 50, (B, SERVE_M)), dtype=torch.int32,
+                            device=cuda)
+    cells[0] = I32_MAX
+    ev = rng.integers(0, 2 ** 32, (2, B, E), dtype=np.uint64).astype(np.int64)
+    probes = bloom_indices(ev[0], ev[1], 4, SERVE_M, device=cuda)
+    probes = probes.reshape(B, -1).to(torch.int32).contiguous()
+    got = one_launch(lambda: ops.tick_probes(cells, probes), "bloom_tick")
+    assert torch.equal(got, tick_plain(cells, probes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 256, 4096, 16384, 65536])
+@pytest.mark.parametrize("near_wrap", [False, True])
+def test_cuda_one_vs_many_at_m256_matches_plain(cuda, n, near_wrap):
+    """Packed one-vs-many at the serving width m = 256 (one m-tile of
+    256 lanes): a pipeline batch, the hot tier, a cold chunk, the warm
+    tier."""
+    q, peers = query_and_peers(n, SERVE_M, 23, near_wrap)
+    tq = torch.as_tensor(q, device=cuda)
+    u8, base, _ = pack.pack_rows(torch.as_tensor(peers, device=cuda))
+    flags, sums, fp = ref.one_vs_many_ref(tq, u8, base, bm=256)
+    out = one_launch(lambda: ops._classify_vs_many_packed(tq, u8, base),
+                     "one_vs_many_packed")
+    assert torch.equal(out["q_le_p"], flags[:, 0])
+    assert torch.equal(out["p_le_q"], flags[:, 1])
+    assert torch.equal(out["sum_p"], sums[:, 1])
+    assert_fp_close(out["fp_q_before_p"], fp[:, 0])
+    assert_fp_close(out["fp_p_before_q"], fp[:, 1])
+
+
+def serve_clock(rng, m, hi=6, base=0):
+    from repro_torch.core import clock as bc
+    cells = ((rng.integers(0, hi, m).astype(np.int64) + base)
+             & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return bc.compress(bc.BloomClock(cells=torch.as_tensor(cells),
+                                     base=torch.zeros((), dtype=torch.int32), k=3))
+
+
+def serve_tiers(device, tmp_path, m=32):
+    from repro_torch.serve import TierConfig, TieredRegistry
+    return TieredRegistry(
+        TierConfig(hot_capacity=6, warm_capacity=10, promote_after=2,
+                   demote_batch=2, spill_batch=4, cold_batch=4,
+                   spill_dir=str(tmp_path / str(device))),
+        m=m, k=3, device=device)
+
+
+def assert_tier_views_equal(g, c):
+    assert g.sids == c.sids and g.tier == c.tier
+    np.testing.assert_array_equal(g.status, c.status)
+    np.testing.assert_array_equal(g.sums, c.sums)
+    assert_fp_close(torch.as_tensor(g.fp), torch.as_tensor(c.fp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_tiers_match_cpu(cuda, tmp_path, seed):
+    """Interleaved admit / release / touch (near-wrap rows among them)
+    on a card registry and a CPU one: the same tiers, verdicts, sums and
+    stored clocks; fp within tolerance."""
+    I = 2 ** 31 - 1
+    tiers = {d: serve_tiers(d, tmp_path) for d in (cuda, "cpu")}
+    g = np.random.default_rng(100 + seed)
+    live = set()
+    for _ in range(80):
+        op = int(g.integers(0, 3))
+        sid = f"s{int(g.integers(0, 40))}"
+        if op == 0:
+            base = I - int(g.integers(5, 60)) if g.integers(0, 4) == 0 else 0
+            c = serve_clock(np.random.default_rng(int(g.integers(1 << 30))), 32,
+                            base=base)
+            for t in tiers.values():
+                t.admit(sid, c)
+            live.add(sid)
+        elif sid in live:
+            for t in tiers.values():
+                (t.release if op == 1 else t.touch)(sid)
+            if op == 1:
+                live.discard(sid)
+    gt, ct = tiers[cuda], tiers["cpu"]
+    assert gt._tier_of == ct._tier_of and set(gt.sids()) == live
+    assert gt._w_u8_t.is_pinned() and not ct._w_u8_t.is_pinned()
+    q = serve_clock(g, 32, hi=10)
+    assert_tier_views_equal(gt.classify(q), ct.classify(q))
+    for sid in live:
+        got = gt.get(sid, count=False)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.logical_cells().cpu(),
+                           ct.get(sid, count=False).logical_cells())
+    for t in tiers.values():
+        t.close()
+
+
+@pytest.mark.gpu
+def test_cuda_warm_write_after_nonblocking_classify(cuda, tmp_path):
+    """A classify copies the pinned warm slab to the card without
+    blocking, queued behind a sleeping card; admits straight after it
+    demote rows into the same warm slots.  The classify must see the
+    rows before the write, the next one the rows after it."""
+    tiers = {d: serve_tiers(d, tmp_path) for d in (cuda, "cpu")}
+    rng = np.random.default_rng(5)
+    first = {f"s{i}": serve_clock(rng, 32) for i in range(14)}
+    more = {f"n{i}": serve_clock(rng, 32, hi=20) for i in range(8)}
+    q = serve_clock(rng, 32, hi=12)
+    views = {}
+    for d, t in tiers.items():
+        t.admit_many(first)
+        if d == cuda:
+            torch.cuda._sleep(50_000_000)
+        views[d] = [t.classify(q)]
+        t.admit_many(more)
+        views[d].append(t.classify(q))
+    assert tiers[cuda].demotions > len(first) - 6
+    for g, c in zip(views[cuda], views["cpu"]):
+        assert_tier_views_equal(g, c)
+    for t in tiers.values():
+        t.close()
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_matches_cpu(cuda, tmp_path):
+    """The admission pipeline on the card and on the CPU, fed the same
+    admits (related, forked, wide and near-wrap rows) and queries: the
+    same verdicts and admissions, fp within tolerance, the same stored
+    clocks."""
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.core import clock as bc
+    from repro_torch.core import wire
+    from repro_torch.serve import (AdmissionPipeline, PipelineConfig,
+                                   TierConfig, TieredRegistry)
+    m = SERVE_M
+
+    def chain(n, salt=0, device="cpu"):
+        c = bc.zeros(m, 4, device=device)
+        for i in range(n):
+            c = bc.tick(c, np.uint32(salt), np.uint32(i + 1))
+        return c
+
+    rng = np.random.default_rng(8)
+    frames = [wire.encode_clock(bc.to_wire(chain(int(rng.integers(1, 30)),
+                                                 int(rng.integers(0, 2)))))
+              for _ in range(300)]
+    frames.append(wire.encode_clock({"cells": rng.integers(0, 900, m).astype(
+        np.int32), "base": 0, "k": 4}))
+    frames.append(wire.encode_clock({"cells": rng.integers(0, 5, m).astype(
+        np.uint8), "base": I32_MAX - 10, "k": 4}))
+    queried = rng.permutation(len(frames))[:200]
+    out = {}
+    for d in (cuda, "cpu"):
+        tiers = TieredRegistry(TierConfig(hot_capacity=64, warm_capacity=128,
+                                          spill_dir=str(tmp_path / str(d))),
+                               m=m, k=4, policy=CausalPolicy(fp_threshold=1.0),
+                               device=d)
+        local = chain(24, device=d)
+        pipe = AdmissionPipeline(tiers, lambda: local,
+                                 PipelineConfig(batch_size=32))
+        tickets = [pipe.submit(f"s{i}", frame=f) for i, f in enumerate(frames)]
+        pipe.drain(timeout=300)
+        tickets += [pipe.submit(f"s{i}", kind="query") for i in queried]
+        pipe.drain(timeout=300)
+        pipe.close()
+        out[d] = ([t.result(1) for t in tickets],
+                  {s: tiers.get(s, count=False).logical_cells().cpu()
+                   for s in tiers.sids()})
+        tiers.close()
+    (gv, gs), (cv, cs) = out[cuda], out["cpu"]
+    for g, c in zip(gv, cv):
+        assert (g.sid, g.kind, g.verdict, g.admitted) == \
+            (c.sid, c.kind, c.verdict, c.admitted)
+        assert_fp_close(torch.tensor([g.fp]), torch.tensor([c.fp]))
+    assert {v.verdict for v in gv} >= {"ancestor", "forked"}
+    assert gs.keys() == cs.keys()
+    for s in gs:
+        assert torch.equal(gs[s], cs[s]), s
+
+
+@pytest.mark.gpu
+def test_cuda_quick_churn_matches_cpu(cuda):
+    """The audited quick churn on the card and the CPU: the fields the
+    seed fixes and every final stored clock identical."""
+    from repro_torch.serve import ChurnConfig, run_churn
+    stored = {}
+
+    def keep(d):
+        def inspect(tiers, replica):
+            stored[d] = {s: tiers.get(s, count=False).logical_cells().cpu()
+                         for s in tiers.sids()}
+        return inspect
+
+    n0 = ops.LAUNCHES["bloom_tick"]
+    r = {d: run_churn(ChurnConfig.quick(sessions=1200, steps=6), device=d,
+                      inspect=keep(d))
+         for d in (cuda, "cpu")}
+    assert ops.LAUNCHES["bloom_tick"] >= n0 + 12
+    for key in ("sessions", "admitted", "rejected", "queries", "migrations",
+                "expiries", "fn_violations", "concurrent_seen", "measured_fp"):
+        assert getattr(r[cuda], key) == getattr(r["cpu"], key), key
+    for rep in r.values():
+        assert rep.fn_violations == 0 and not rep.replay["mismatches"]
+    assert stored[cuda].keys() == stored["cpu"].keys()
+    for s in stored["cpu"]:
+        assert torch.equal(stored[cuda][s], stored["cpu"][s]), s
