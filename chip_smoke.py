@@ -44,6 +44,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bit-identical to a flat packed slab, and the two runs agree; then
    ``HybridEngine.pairs`` at 16,384 sessions on the card (exact hot-hot
    block) and at 2,048 on the card and the CPU, which must agree;
+7. the autotuner (``repro_torch.kernels.autotune``): (a) for every
+   kernel instance the occupancy formula of ``kernels.template`` equal
+   to ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and its shared
+   memory copy equal to the libraries' exports; (b) the measured sweep
+   at the paths' shapes (``autotune.DEFAULT_SIZES``) into a temporary
+   table, one ``[autotune]`` line each (winner, its time, the default
+   blocks' time, the model's rank of the winner, survivors of the
+   grid); (c) at each winner's blocks the kernel against its plain
+   version (flags identical, sums bit-identical, fp within tolerance)
+   and against the default blocks (flags identical; sums and fp
+   bit-identical at equal bm); (d) one ``[dispatch]`` line for the
+   engine and blocks each path resolves from the committed table;
 8. the serving path (``repro_torch.serve``) at ``ChurnConfig()``'s
    defaults (m = 256, k = 4): the tick at the mint's B = 3,906 x 3
    events and the replica's B = 1 x 4, packed one-vs-many at N = 256,
@@ -80,15 +92,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (time per pair and lane);
 10. one JSON line of kernel records, the card line, then the verdict line.
 
+Every card-vs-CPU comparison gives the CPU run the blocks the card
+resolves (``card_blocks``): the committed table's ``cuda`` entries under
+``cpu`` keys in a temporary table.
+
 No JAX and nothing of the JAX package is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -224,6 +243,36 @@ def check_equal(x, y, what: str) -> None:
 
 def host(t):
     return t.cpu().numpy()
+
+
+@contextlib.contextmanager
+def card_blocks():
+    """Within it, CPU calls resolve the blocks and engines the card
+    resolves: the committed autotune table with each ``cuda`` entry
+    copied under its ``cpu`` key, in a temporary table."""
+    from repro_torch.kernels import autotune
+
+    table = dict(autotune.load_table())
+    table.update({k.replace("|cuda|", "|cpu|"): v for k, v in table.items()
+                  if "|cuda|" in k})
+    old = os.environ.get("REPRO_TORCH_AUTOTUNE_TABLE")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "autotune_table.json")
+        with open(path, "w") as f:
+            json.dump(table, f)
+        os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = path
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["REPRO_TORCH_AUTOTUNE_TABLE"]
+            else:
+                os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = old
+
+
+def on(device: str):
+    """``card_blocks()`` for the CPU, nothing for the card."""
+    return card_blocks() if device == "cpu" else contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -379,16 +428,16 @@ def sass_counts() -> dict:
 # phase 3: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
-def compare_ovm(name, classify, q, peers, base) -> float:
-    """``classify(peers, base)`` against the plain version, on the rows
-    as given and once more one element into their buffers (scalar
-    loads)."""
+def compare_ovm(name, classify, q, peers, base, bm: int = 512) -> float:
+    """``classify(peers, base)`` against the plain version at the m-tile
+    ``bm`` the classify resolves, on the rows as given and once more one
+    element into their buffers (scalar loads)."""
     import torch
     from repro_torch.kernels import ops, ref
 
     m = q.shape[0]
     flags, sums, fp = ref.one_vs_many_ref(q, peers, base,
-                                          bm=ops.tile_width(m, 512))
+                                          bm=ops.tile_width(m, bm))
     e = 0.0
     shifted = (offset_view(peers, 1),
                None if base is None else offset_view(base, 1))
@@ -501,11 +550,12 @@ def check_kernels(dev) -> dict:
         base = np.where(kind[:, 0] < 2, 5000, g.integers(-2 ** 31, 2 ** 31 - 256, N))
         peers = torch.as_tensor(res, dtype=torch.uint8, device=dev)
         base_t = torch.as_tensor(base, dtype=torch.int32, device=dev)
+        bm = ops._one_vs_many_blocks(N, m, None, None, "cuda")[1]
         err["one_vs_many_packed"] = max(
             err["one_vs_many_packed"],
             compare_ovm(f"packed N={N} m={m} wide={wide}",
                         lambda p, b: ops._classify_vs_many_packed(q, p, b),
-                        q, peers, base_t))
+                        q, peers, base_t, bm))
     print("[kernels] one_vs_many packed: identical, fp within tolerance, "
           "flags torch.bool")
 
@@ -785,7 +835,8 @@ def check_hybrid_kernel(dev) -> dict:
         check(torch.equal(sums, w_sums), f"{what}: sums")
         check(bool((fp[:H] == 0).all()), f"{what}: hot fp not exactly 0")
         err = max(err, check_fp(host(fp), host(w_fp), what))
-        flat = ops._classify_vs_many_packed(q, tail, base)
+        flat = ops._classify_vs_many_packed(q, tail, base,
+                                            bm=ops.OVM_BLOCKS[1])
         out = ops._classify_dict(flags, sums, fp)
         for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
                     "fp_p_before_q"):
@@ -836,6 +887,7 @@ def drive(device: str, n_peers: int = N_PEERS, m: int = M,
     import torch
     from repro_torch.core import clock as bc
     from repro_torch.core import wire
+    from repro_torch.kernels import ops
     from repro_torch.runtime import ClockConfig, ClockRuntime
 
     def sync():
@@ -865,6 +917,7 @@ def drive(device: str, n_peers: int = N_PEERS, m: int = M,
     t0 = time.perf_counter()
     view = rt.classify_fleet(reg)
     out["times"]["classify_all_ms"] = (time.perf_counter() - t0) * 1e3
+    out["dispatch"] = dict(ops.LAST_DISPATCH)
     out["view0"] = (view.status.copy(), view.fp.copy(), np.asarray(view.sums).copy())
 
     pick = list(range(8, 8 + 40))
@@ -982,7 +1035,10 @@ def compare_runs(gpu: dict, cpu: dict) -> None:
 def sim_check() -> dict:
     from repro_torch.core.sim import SimConfig, run_gossip_sim
     cfg = SimConfig(n_nodes=64, n_events=4000, m=M, k=K)
-    res = {d: run_gossip_sim(cfg, device=d) for d in ("cuda", "cpu")}
+    res = {}
+    for d in ("cuda", "cpu"):
+        with on(d):
+            res[d] = run_gossip_sim(cfg, device=d)
     for d, r in res.items():
         print(f"[sim] {d}: {r.summary()}")
         check(r.false_negatives == 0, f"gossip sim on {d}: fn != 0")
@@ -1138,11 +1194,12 @@ def health_cpu_check() -> dict:
 
     out = {}
     for device in ("cuda", "cpu"):
-        reg = pairs_registry(device, N_SLOTS_CPU)
-        t0 = time.perf_counter()
-        health = fleet_health(reg)
-        ms = (time.perf_counter() - t0) * 1e3
-        out[device] = (health, reg.all_pairs().to_host(), ms)
+        with on(device):
+            reg = pairs_registry(device, N_SLOTS_CPU)
+            t0 = time.perf_counter()
+            health = fleet_health(reg)
+            ms = (time.perf_counter() - t0) * 1e3
+            out[device] = (health, reg.all_pairs().to_host(), ms)
     (gh, gp, gms), (ch, cp, cms) = out["cuda"], out["cpu"]
     check(gp.engine == cp.engine, f"engine {gp.engine} vs {cp.engine}")
     for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
@@ -1326,8 +1383,10 @@ def drive_hybrid(device: str) -> dict:
     # the tail rows against the same tail as a flat packed slab
     slab = eng.slab()
     H = slab.hot_count
+    bn, bm = ops._hybrid_blocks(H + slab.cells_u8.shape[0], H, eng.m, None,
+                                None, device)
     flat = eng.engine.classify(eng.local_clock(), PackedSlab(
-        slab.cells_u8, slab.base, wide=slab.wide)).to_host()
+        slab.cells_u8, slab.base, wide=slab.wide), bn=bn, bm=bm).to_host()
     last = out["views"][-1]
     for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
                 "fp_p_before_q"):
@@ -1399,6 +1458,260 @@ def hybrid_pairs(device: str, n: int, n_head: int) -> dict:
           f"pairs at {n}: engine {res.engine}")
     return {"res": res, "order": order, "ms": ms, "launches": launches,
             "engine": res.engine}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the autotuner
+# ---------------------------------------------------------------------------
+
+def occupancy_specs() -> list:
+    """Every kernel instance the autotuner's model describes, as (spec,
+    rect-i32's 4-byte staging): tri at its two tiles, rect-u8, rect-i32
+    (both stagings) and mxu (16- and 32-bit lanes) at every tile, and
+    one-vs-many (both instances; the packed one is the hybrid's) at
+    every bn for the paths' m and a ragged one."""
+    from repro_torch.kernels import template as tp
+    out = [(tp.CompareSpec(topology="tri", bi=b, bj=b), False)
+           for b in tp.TRI_TILES]
+    for bi in tp.PAIR_TILES:
+        for bj in tp.PAIR_TILES:
+            if bi * bj > tp.PAIR_MAX_PAIRS:
+                continue
+            out.append((tp.CompareSpec(topology="rect", bi=bi, bj=bj), False))
+            for scalar in (False, True):
+                out.append((tp.CompareSpec(topology="rect", pack="i32", bi=bi,
+                                           bj=bj, with_stats=True), scalar))
+            for T in (64, MXU_WIDE_T):
+                out.append((tp.CompareSpec(topology="mxu", bi=bi, bj=bj,
+                                           with_base=True, n_thresholds=T),
+                            False))
+    for m in (M, SERVE_M, 1000):
+        for bn in range(1, 33):
+            for pack in ("u8", "i32"):
+                out.append((tp.CompareSpec(topology="one_vs_many", pack=pack,
+                                           bi=bn, m=m, with_base=pack == "u8",
+                                           with_stats=True), False))
+    return out
+
+
+def check_occupancy() -> dict:
+    """(a): for every instance, ``template.ctas_per_sm`` from the built
+    registers equal to the runtime's occupancy, and ``smem_python`` (and
+    ``smem_estimate`` on the card) equal to the library's export."""
+    from repro_torch.kernels import template as tp
+
+    regs = {}
+    n = 0
+    for spec, scalar in occupancy_specs():
+        a = tp.c_attrs(spec, scalar)
+        what = spec.label() + (" scalar" if scalar else "")
+        check(a["threads"] == tp.threads_of(spec), f"{what}: threads {a}")
+        check(a["smem"] == tp.smem_python(spec) == tp.smem_estimate(spec, "cuda"),
+              f"{what}: shared memory {a['smem']} vs {tp.smem_python(spec)}")
+        want = tp.ctas_per_sm(a["threads"], a["regs"], a["smem"], a["static_smem"])
+        check(want == a["ctas"], f"{what}: model {want} CTAs an SM, runtime "
+              f"{a['ctas']} ({a})")
+        regs[what] = [a["regs"], a["ctas"]]
+        n += 1
+    a = tp.row_sums_attrs()
+    check(tp.ctas_per_sm(a["threads"], a["regs"], a["smem"], a["static_smem"])
+          == a["ctas"], f"row sums: {a}")
+    regs["rect_i32 row sums"] = [a["regs"], a["ctas"]]
+    return {"instances": n + 1, "regs_ctas": regs}
+
+
+def winner_rows(dev, g, N: int, m: int, near_wrap_share: float = 0.25):
+    """A query and a packed slab around it for the winner checks: equal,
+    ancestor, descendant and unrelated rows; a share of the bases far
+    away (large, wrapping tile sums)."""
+    import torch
+    q_res = g.integers(0, 200, m)
+    q = torch.as_tensor(q_res + 5000, dtype=torch.int32, device=dev)
+    kind = g.integers(0, 4, (N, 1))
+    delta = np.abs(g.integers(-1, 2, (N, m)) * (g.random((N, m)) < 0.05))
+    res = np.where(kind == 0, q_res, np.where(kind == 1, q_res + delta,
+                                              np.where(kind == 2, q_res - delta,
+                                                       g.integers(0, 256, (N, m)))))
+    base = np.full(N, 5000, np.int64)
+    far = g.random(N) < near_wrap_share
+    base[far] = g.integers(-2 ** 31, 2 ** 31 - 256, int(far.sum()))
+    return (q, torch.as_tensor(np.clip(res, 0, 255), dtype=torch.uint8, device=dev),
+            torch.as_tensor(base, dtype=torch.int32, device=dev))
+
+
+def same_rows(got: dict, want: dict, what: str, fp_bits: bool) -> float:
+    """Flags and sums identical; fp bit-identical (``fp_bits``) or within
+    tolerance; returns the largest fp error."""
+    for key in ("q_le_p", "p_le_q", "sum_p", "sum_q"):
+        check_equal(host(got[key]), host(want[key]), f"{what} {key}")
+    e = 0.0
+    for key in ("fp_q_before_p", "fp_p_before_q"):
+        if fp_bits:
+            check_equal(host(got[key]).view(np.uint32),
+                        host(want[key]).view(np.uint32), f"{what} {key} bits")
+        else:
+            e = max(e, check_fp(host(got[key]), host(want[key]), f"{what} {key}"))
+    return e
+
+
+def check_winner(dev, g, key: str, cfg: dict) -> None:
+    """(c): the kernel at the winner's blocks against its plain version
+    at the same blocks (flags, sums identical; fp within tolerance) and
+    against the default blocks (flags identical; sums and fp
+    bit-identical at equal bm)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    op, _, n_b, h_b, m_b, _ = key.split("|")
+    if op in ("one_vs_many", "hybrid"):
+        bn, bm = cfg["bn"], cfg["bm"]
+        dbn, dbm = ops.OVM_BLOCKS
+        N, m = int(n_b[1:]), int(m_b[1:])
+        if op == "one_vs_many":
+            q, peers, base = winner_rows(dev, g, N, m)
+            run = lambda bn, bm: ops._classify_vs_many_packed(  # noqa: E731
+                q, peers, base, bn=bn, bm=bm, use_autotune=False)
+            plain = ops._classify_dict(*ref.one_vs_many_ref(
+                q, peers, base, bm=ops.tile_width(m, bm)))
+        else:
+            H = int(h_b[1:])
+            q, V, meta, hs, tail, base = hybrid_inputs(g, H, N - H, m, dev)
+            run = lambda bn, bm: ops._classify_hybrid(  # noqa: E731
+                q, V, meta, hs, tail, base, bn=bn, bm=bm, use_autotune=False)
+            plain = ops._classify_dict(*ref.hybrid_classify_ref(
+                q, V, meta, hs, tail, base, bm=ops.tile_width(m, bm)))
+        got = run(bn, bm)
+        same_rows(got, plain, f"{key} winner vs plain", fp_bits=False)
+        dflt = run(dbn, dbm)
+        same_bm = ops.tile_width(m, bm) == ops.tile_width(m, dbm)
+        for k in ("q_le_p", "p_le_q"):
+            check_equal(host(got[k]), host(dflt[k]), f"{key} winner vs default {k}")
+        if same_bm:
+            same_rows(got, dflt, f"{key} winner vs default", fp_bits=True)
+        return
+    # matrix: the winner's engine at its blocks on a 2,048-row slab
+    N, m = N_SLOTS_CPU, int(m_b[1:])
+    engine, bi, bj, bm = cfg["engine"], cfg["bi"], cfg["bj"], cfg["bm"]
+    dbi, dbj, dbm = ops.MATRIX_BLOCKS
+    if engine == "i32":
+        rows = torch.as_tensor(g.integers(-2 ** 31, 2 ** 31, (N, m)),
+                               dtype=torch.int32, device=dev)
+        col_sums = ref.wrap_sum_i32(rows).to(torch.float32)
+        got = ops.rect_i32_stats(rows, rows, col_sums, bi=bi, bj=bj, bm=bm)
+        want = ref.rect_i32_stats_ref(rows, rows, col_sums,
+                                      bm=ops.tile_width(m, bm))
+        dflt = ops.rect_i32_stats(rows, rows, col_sums, bi=dbi, bj=dbj, bm=dbm)
+        for i, what in enumerate(("le", "ge", "row sums")):
+            check_equal(host(got[i]), host(want[i]), f"{key} {what} vs plain")
+        check_fp(host(got[3]), host(want[3]), f"{key} fp vs plain")
+        flags = (got[0], got[1])
+        dflags = (dflt[0], dflt[1])
+        if ops.tile_width(m, bm) == ops.tile_width(m, dbm):
+            check_equal(host(got[2]), host(dflt[2]), f"{key} row sums vs default")
+            check_equal(host(got[3]).view(np.uint32), host(dflt[3]).view(np.uint32),
+                        f"{key} fp bits vs default")
+    elif engine == "tri":
+        cells, base = (torch.as_tensor(x, device=dev) for x in pair_inputs(g, N, m))
+        flags = ops.tri_flags(cells, base, bt=bi)
+        want = ref.tri_flags_ref(cells, base)
+        dflags = ops.tri_flags(cells, base, bt=dbi)
+        for i in range(2):
+            check_equal(host(flags[i]), host(want[i]), f"{key} flags vs plain")
+    else:  # mxu
+        T = 32
+        rows, cols, rb, cb = (torch.as_tensor(x, device=dev)
+                              for x in mxu_inputs(g, N, N, m, T, 5000))
+        flags = (ops.mxu_viol(rows, cols, rb, cb, lo=5000, n_thresholds=T,
+                              bi=bi, bj=bj),)
+        want = ref.mxu_viol_ref(rows, cols, rb, cb, lo=5000, n_thresholds=T)
+        dflags = (ops.mxu_viol(rows, cols, rb, cb, lo=5000, n_thresholds=T,
+                               bi=dbi, bj=dbj),)
+        check_equal(host(flags[0]), host(want), f"{key} counts vs plain")
+    for i in range(len(flags)):
+        check_equal(host(flags[i]), host(dflags[i]), f"{key} vs default blocks")
+
+
+def drive_autotune(dev) -> dict:
+    """(a) occupancy and shared memory, (b) the sweep into a temporary
+    table with its ``[autotune]`` lines, (c) the winners' checks; the
+    committed table is neither read nor written here."""
+    from repro_torch.kernels import autotune
+
+    t0 = time.perf_counter()
+    occ = check_occupancy()
+    print(f"[autotune] (a) occupancy model = cudaOccupancyMaxActiveBlocksPerMultiprocessor "
+          f"and shared memory = the libraries' exports for {occ['instances']} "
+          f"instances: registers and CTAs an SM {json.dumps(occ['regs_ctas'])}")
+    t_occ = time.perf_counter() - t0
+    explains: dict = {}
+    shapes = [autotune.parse_size(s) for s in autotune.DEFAULT_SIZES]
+    before = dict(autotune.SEARCH_STATS)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        results = autotune.autotune_shapes(shapes, device=dev, explains=explains)
+        path = autotune.save_table(results, pathlib.Path(d) / "table.json")
+        check(json.loads(path.read_text()).keys() == results.keys(),
+              "temporary table round trip")
+    t_sweep = time.perf_counter() - t1
+    out = {}
+    for key, cfg in sorted(results.items()):
+        exp = explains[key]
+        win = {k: v for k, v in cfg.items() if k != "us"}
+        print(f"[autotune] {key} winner {json.dumps(win)} {cfg['us']} us default "
+              f"{json.dumps(exp['default'])} {exp['default_us']} us model_rank "
+              f"{exp['winner_rank']}/{exp['grid']} survivors "
+              f"{exp['survivors']}/{exp['grid']}")
+        out[key] = {"winner": win, "us": cfg["us"], "default_us": exp["default_us"],
+                    "rank": exp["winner_rank"], "grid": exp["grid"],
+                    "survivors": exp["survivors"],
+                    "measured": exp["measured"]}
+    g = np.random.default_rng(SEED + 30)
+    for key, cfg in sorted(results.items()):
+        check_winner(dev, g, key, cfg)
+    print(f"[autotune] (c) every winner identical to its plain version at its "
+          f"blocks and to the default blocks; occupancy {t_occ:.1f} s, sweep "
+          f"{t_sweep:.1f} s, search {json.dumps({k: autotune.SEARCH_STATS[k] - before[k] for k in before})}")
+    return out
+
+
+def dispatch_lines(gpu: dict, hot: int, tail: int) -> dict:
+    """(d): the engine and blocks each path resolves from the committed
+    table (the resolvers the paths call, at the paths' shapes); the main
+    path's classify must have dispatched the same."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ChurnConfig
+
+    tc = ChurnConfig()
+    res = {
+        "main one_vs_many N=65536 m=1024": dict(zip(
+            ("bn", "bm"), ops._one_vs_many_blocks(N_PEERS, M, None, None, "cuda"))),
+        f"hybrid N={hot + tail} H={hot} m={M}": dict(zip(
+            ("bn", "bm"), ops._hybrid_blocks(hot + tail, hot, M, None, None,
+                                             "cuda"))),
+        f"serving tiers pin N={tc.hot_capacity + tc.warm_capacity} m={SERVE_M}":
+            dict(zip(("bn", "bm"), ops._one_vs_many_blocks(
+                tc.hot_capacity + tc.warm_capacity, SERVE_M, None, None, "cuda"))),
+    }
+    from repro_torch.kernels import autotune
+    cfg = autotune.lookup("matrix", N_SLOTS, N_SLOTS, M, "cuda") or {}
+    engine = cfg.get("engine", "tri")
+    engine = "tri" if engine == "i32" else engine
+    res[f"all-pairs N={N_SLOTS} m={M} (symmetric)"] = dict(zip(
+        ("engine", "bi", "bj", "bm"),
+        (engine, *ops._matrix_blocks(engine, N_SLOTS, N_SLOTS, M, None, None,
+                                     None, "cuda"))))
+    res[f"all-pairs N={N_SLOTS} m={M} (rectangle)"] = dict(zip(
+        ("engine", "bi", "bj", "bm"),
+        ("full" if engine == "tri" else engine,
+         *ops._matrix_blocks("full" if engine == "tri" else engine, N_SLOTS,
+                             N_SLOTS, M, None, None, None, "cuda"))))
+    for what, r in res.items():
+        print(f"[dispatch] {what}: {json.dumps(r)}")
+    main = res["main one_vs_many N=65536 m=1024"]
+    d = gpu["dispatch"]
+    check(d.get("bn") == main["bn"] and d.get("bm") == main["bm"],
+          f"the main path dispatched {d}, the table resolves {main}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1519,10 +1832,13 @@ def time_kernels(dev, n_wide: int) -> dict:
     slabs = [(torch.as_tensor(g.integers(0, 256, (N, M)), dtype=torch.uint8, device=dev),
               torch.full((N,), 5000, dtype=torch.int32, device=dev))
              for _ in range(nb)]
+    blocks = ops._one_vs_many_blocks(N, M, None, None, "cuda")
     rec["one_vs_many_packed"] = entry(
         lambda i: ops._classify_vs_many_packed(q, *slabs[i]),
-        lambda i: ref.one_vs_many_ref(q, *slabs[i], bm=bm), nb, nbytes,
-        N * M * 5)
+        lambda i: ref.one_vs_many_ref(q, *slabs[i], bm=blocks[1]), nb, nbytes,
+        N * M * 5, blocks=blocks, default_ms=measure(
+            lambda i: ops._classify_vs_many_packed(q, *slabs[i], bn=ops.OVM_BLOCKS[0],
+                                                   bm=ops.OVM_BLOCKS[1]), nb)["ms"])
     del slabs
 
     # one-vs-many i32: the promoted-row overlay, at the main path's
@@ -1669,26 +1985,28 @@ def time_pair_kernels(dev, sass: dict) -> dict:
 
 def time_hybrid(dev, H: int, T: int) -> dict:
     """The hybrid kernel at the path's H hot and T tail rows, m = 1024:
-    its device time, the plain version's, and the packed one-vs-many
+    its device time at the blocks the path resolves and at the default
+    blocks, the plain version's, and the packed one-vs-many
     kernel's on the same tail, with the bytes the function must move
     (tail T·m + 4T, hot metadata and sums 12H, outputs 18(H+T), query
     4m)."""
     from repro_torch.kernels import ops, ref
 
     g = np.random.default_rng(SEED + 10)
-    bm = ops.tile_width(M, 512)
+    bn, bm = ops._hybrid_blocks(H + T, H, M, None, None, "cuda")
     nbytes = T * M + 4 * T + 12 * H + ROW_OUT_BYTES * (H + T) + 4 * M
     nb = n_buffers(nbytes)
     bufs = [hybrid_inputs(g, H, T, M, dev) for _ in range(nb)]
-    k = measure(lambda i: ops.hybrid(*bufs[i]), nb)
-    p = measure(lambda i: ref.hybrid_classify_ref(*bufs[i], bm=bm), nb,
-                iters=10)
+    k = measure(lambda i: ops.hybrid(*bufs[i], bn=bn, bm=bm), nb)
+    d = measure(lambda i: ops.hybrid(*bufs[i]), nb)
+    p = measure(lambda i: ref.hybrid_classify_ref(
+        *bufs[i], bm=ops.tile_width(M, bm)), nb, iters=10)
     o = measure(lambda i: ops._classify_vs_many_packed(bufs[i][0], bufs[i][4],
                                                        bufs[i][5]), nb)
     return dict(ms=k["ms"], call_ms=k["call_ms"], plain_ms=p["ms"],
                 plain_call_ms=p["call_ms"], library_ms=None, bytes=nbytes,
                 ops=T * M * 5, packed_ms=o["ms"], packed_call_ms=o["call_ms"],
-                hot=H, tail=T)
+                hot=H, tail=T, blocks=(bn, bm), default_ms=d["ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1762,9 +2080,11 @@ def check_serve_kernels(dev) -> dict:
                     f"serve tick B={B} P={E} events m={SERVE_M}")
     for N in SERVE_OVM_N:
         q, peers, base = serve_slab(g, N, dev)
+        bm = ops._one_vs_many_blocks(N, SERVE_M, None, None, "cuda")[1]
         err["one_vs_many_packed"] = max(err["one_vs_many_packed"], compare_ovm(
             f"serve packed N={N} m={SERVE_M}",
-            lambda p, b: ops._classify_vs_many_packed(q, p, b), q, peers, base))
+            lambda p, b: ops._classify_vs_many_packed(q, p, b), q, peers, base,
+            bm))
     # a pipeline batch with rim rows: the packed call plus the exact i32
     # overlay of its wide rows, the card against the CPU's plain versions
     q, peers, base = serve_slab(g, 256, dev)
@@ -1777,8 +2097,9 @@ def check_serve_kernels(dev) -> dict:
         lambda p, b: ops._classify_vs_many(q, p), q, rows, None)
     eng = CausalEngine()
     got = eng.classify(q, PackedSlab(peers, base, wide=wide)).to_host()
-    want = eng.classify(q.cpu(), PackedSlab(peers.cpu(), base.cpu(),
-                                            wide=wide)).to_host()
+    with card_blocks():
+        want = eng.classify(q.cpu(), PackedSlab(peers.cpu(), base.cpu(),
+                                                wide=wide)).to_host()
     check(got.engine == want.engine == "packed+wide_overlay",
           f"serve overlay engine {got.engine}")
     for key in ("q_le_p", "p_le_q", "sum_p", "sum_q"):
@@ -1908,8 +2229,10 @@ def serve_quick() -> dict:
     res, crc = {}, {}
     for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        r = run_churn(ChurnConfig.quick(), device=d,
-                      inspect=lambda tiers, _, d=d: crc.update({d: stored_crc(tiers)}))
+        with on(d):
+            r = run_churn(ChurnConfig.quick(), device=d,
+                          inspect=lambda tiers, _, d=d: crc.update(
+                              {d: stored_crc(tiers)}))
         res[d] = r
         check(r.fn_violations == 0, f"quick churn on {d}: fn != 0")
         rp = r.replay
@@ -2032,7 +2355,8 @@ def main() -> int:
         check(n > 0, f"kernel {kname} was not launched on the main path")
     print(f"[main] cuda: counts={gpu['counts']} promoted={gpu['n_wide']} "
           f"times={json.dumps(gpu['times'])}")
-    cpu = drive("cpu")
+    with card_blocks():
+        cpu = drive("cpu")
     print(f"[main] cpu: counts={cpu['counts']} "
           f"times={json.dumps(cpu['times'])}")
     compare_runs(gpu, cpu)
@@ -2071,7 +2395,8 @@ def main() -> int:
           f"classify under the profiler: "
           f"{json.dumps(profiled(hyb['eng'].classify))}")
     del hyb["eng"]
-    hyb_cpu = drive_hybrid("cpu")
+    with card_blocks():
+        hyb_cpu = drive_hybrid("cpu")
     del hyb_cpu["eng"]
     print(f"[hybrid] cpu: checks {json.dumps(hyb_cpu['acc'])}, times "
           f"{json.dumps(hyb_cpu['times'])}")
@@ -2090,7 +2415,9 @@ def main() -> int:
           f"hot-hot block exact, fp 0")
     del big
     n_small, head_small = HYB_PAIRS[1]
-    gp, cp = (hybrid_pairs(d, n_small, head_small) for d in ("cuda", "cpu"))
+    gp = hybrid_pairs("cuda", n_small, head_small)
+    with card_blocks():
+        cp = hybrid_pairs("cpu", n_small, head_small)
     check(gp["order"] == cp["order"] and gp["engine"] == cp["engine"],
           "hybrid pairs order or engine differs between devices")
     gres, cres = gp["res"].to_host(), cp["res"].to_host()
@@ -2102,6 +2429,9 @@ def main() -> int:
           f"tolerance")
     del gp, cp, gres, cres
     launches["hybrid"] = hyb_launches["hybrid"]
+
+    tuned = drive_autotune(dev)
+    dispatch = dispatch_lines(gpu, hyb["hot_rows"], hyb["tail_rows"])
 
     serve_errs = check_serve_kernels(dev)
     for kname, e in serve_errs.items():
@@ -2204,6 +2534,16 @@ def main() -> int:
           f"fused classify end to end at m={hyb['m0']} "
           f"{hyb['times']['classify_m1024_ms']} ms, at m={hyb['m']} "
           f"{hyb['times']['classify_m512_ms']} ms")
+    ov = timed["one_vs_many_packed"]
+    print(f"[time] tuned vs default blocks: one_vs_many_packed N={N_PEERS} "
+          f"m={M} at (bn, bm) {ov['blocks']} {ov['ms']} ms, at {ops.OVM_BLOCKS} "
+          f"{ov['default_ms']} ms; hybrid H={th['hot']} T={th['tail']} at "
+          f"{th['blocks']} {th['ms']} ms, at {ops.OVM_BLOCKS} {th['default_ms']} "
+          f"ms; matrix_tri at N={N_SLOTS}: the table's tiles "
+          f"{json.dumps(dispatch[f'all-pairs N={N_SLOTS} m={M} (symmetric)'])}, "
+          f"bt=64 {tr['ms']} ms, bt=32 {tr['bt32']['ms']} ms; sweep (one call "
+          f"each, us): " + json.dumps({k: [v["us"], v["default_us"]]
+                                        for k, v in tuned.items()}))
     print(f"[time] classify_all {gpu['times']['classify_all_ms']} ms, "
           f"gossip rounds {gpu['times']['gossip_round_ms']} ms (end to end, "
           f"65,536 peers); fleet_health {health['wall_ms']} ms ({N_SLOTS} "

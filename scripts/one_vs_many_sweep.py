@@ -7,11 +7,14 @@ loop queued behind a sleep kernel, input buffers rotated past the L2).
     python3 scripts/one_vs_many_sweep.py tree DIR
         the wrappers of the checkout at DIR (its ``src/repro_torch``):
         packed one-vs-many (N = 65,536, m = 1024) and the hybrid sweep
-        (H = 4,089, T = 65,539) at bn = 4, 8, 16, 32; then the packed
+        (H = 4,089, T = 65,539) at bn = 4, 8, 16, 32 and bm = 512 (the
+        blocks are given, so no checkout's autotune table picks them);
+        then the packed
         kernel's row loop in the built code (``chip_smoke.sass_row_loop``
         over ``cuobjdump -sass``)
     python3 scripts/one_vs_many_sweep.py slope
-        this checkout's packed one-vs-many at N = 8,192 .. 262,144 beside
+        this checkout's packed one-vs-many (bn = 8, bm = 512) at
+        N = 8,192 .. 262,144 beside
         one-pass PyTorch reads of the same slab (amax, clone)
 
 Only the public wrappers are called, so any checkout since the hybrid
@@ -69,7 +72,8 @@ def sweep_tree(tree: str) -> None:
     nb, slabs = packed_slabs(torch, cs, N, dev, g)
     for bn in (4, 8, 16, 32):
         emit(kernel="one_vs_many_packed", N=N, m=M, bn=bn, ms=cs.measure(
-            lambda i: ops._classify_vs_many_packed(q, *slabs[i], bn=bn), nb)["ms"])
+            lambda i: ops._classify_vs_many_packed(q, *slabs[i], bn=bn, bm=512),
+            nb)["ms"])
     del slabs
     hyb = [cs.hybrid_inputs(g, H, T, M, dev) for _ in range(nb)]
     for bn in (4, 8, 16, 32):
@@ -91,7 +95,8 @@ def sweep_slope() -> None:
     for N in (8192, 16384, 32768, 65536, 131072, 262144):
         nb, slabs = packed_slabs(torch, cs, N, dev, g)
         emit(kernel="one_vs_many_packed", N=N, m=M,
-             ms=cs.measure(lambda i: ops._classify_vs_many_packed(q, *slabs[i]), nb)["ms"],
+             ms=cs.measure(lambda i: ops._classify_vs_many_packed(
+                 q, *slabs[i], bn=8, bm=512), nb)["ms"],
              amax_ms=cs.measure(lambda i: torch.amax(slabs[i][0]), nb)["ms"],
              clone_ms=cs.measure(lambda i: slabs[i][0].clone(), nb)["ms"])
         del slabs

@@ -31,7 +31,7 @@ from repro_torch.causal.results import (
     ComparisonMatrix,
 )
 from repro_torch.core import clock as bc
-from repro_torch.kernels import ops, pack
+from repro_torch.kernels import autotune, ops, pack
 from repro_torch.obs.observer import resolve
 
 __all__ = ["CausalEngine", "PackedSlab", "compare"]
@@ -98,6 +98,22 @@ class CausalEngine:
         self.policy = policy or CausalPolicy()
         self.obs = resolve(self.policy.observer)
 
+    def _record_dispatch(self, verb: str, res, n: int, span,
+                         tune0: tuple[int, int]) -> None:
+        """Span attrs and dispatch counters for one front-door call,
+        with the autotune table's hits and misses during it."""
+        obs = self.obs
+        span.set(engine=res.engine, n=n,
+                 blocks=dict(res.blocks) if res.blocks else None)
+        obs.metrics.counter("engine_dispatch", verb=verb,
+                            engine=res.engine).inc()
+        hits = autotune.CACHE_STATS["hit"] - tune0[0]
+        misses = autotune.CACHE_STATS["miss"] - tune0[1]
+        if hits:
+            obs.metrics.counter("autotune_cache", outcome="hit").inc(hits)
+        if misses:
+            obs.metrics.counter("autotune_cache", outcome="miss").inc(misses)
+
     def classify(self, query, peers, *, bn: int | None = None,
                  bm: int | None = None) -> ClassifyResult:
         """Classify one query clock against N peers in one kernel call
@@ -107,14 +123,12 @@ class CausalEngine:
         if not obs:
             return self._classify(query, peers, bn=bn, bm=bm)
         packed = isinstance(peers, PackedSlab)
+        tune0 = (autotune.CACHE_STATS["hit"], autotune.CACHE_STATS["miss"])
         with obs.trace.span("causal.classify",
                             pack="slab" if packed else "i32") as sp:
             res = self._classify(query, peers, bn=bn, bm=bm)
             n = peers.capacity if packed else int(res.sum_p.shape[-1])
-            sp.set(engine=res.engine, n=n,
-                   blocks=dict(res.blocks) if res.blocks else None)
-            obs.metrics.counter("engine_dispatch", verb="classify",
-                                engine=res.engine).inc()
+            self._record_dispatch("classify", res, n, sp, tune0)
         return res
 
     def _classify(self, query, peers, *, bn, bm) -> ClassifyResult:
@@ -128,7 +142,8 @@ class CausalEngine:
             if hot_meta is not None and np.shape(hot_meta)[0] > 0:
                 return self._classify_hybrid(q, peers, bn, bm)
             out = ops._classify_vs_many_packed(
-                q, peers.cells_u8, peers.base, bn=bn, bm=bm)
+                q, peers.cells_u8, peers.base, bn=bn, bm=bm,
+                use_autotune=pol.autotune)
             engine, blocks = _dispatch_label("packed")
             if peers.wide:
                 widx = sorted(peers.wide)
@@ -155,7 +170,8 @@ class CausalEngine:
             np.asarray(peers.hot_sums, np.float32).reshape(-1), device=dev)
         out = ops._classify_hybrid(q, int(peers.local_version), hot_meta,
                                    hot_sums, peers.cells_u8, peers.base,
-                                   bn=bn, bm=bm)
+                                   bn=bn, bm=bm,
+                                   use_autotune=self.policy.autotune)
         engine, blocks = _dispatch_label("hybrid")
         if peers.wide:
             # wide keys index tail slots; result rows shift by the hot
@@ -193,13 +209,12 @@ class CausalEngine:
         if not obs:
             return self._pairs(clocks, cols, **kw)
         packed = isinstance(clocks, PackedSlab)
+        tune0 = (autotune.CACHE_STATS["hit"], autotune.CACHE_STATS["miss"])
         with obs.trace.span("causal.pairs",
                             pack="slab" if packed else "i32") as sp:
             res = self._pairs(clocks, cols, **kw)
-            sp.set(engine=res.engine, n=int(res.le.shape[0]),
-                   blocks=dict(res.blocks) if res.blocks else None)
-            obs.metrics.counter("engine_dispatch", verb="pairs",
-                                engine=res.engine).inc()
+            self._record_dispatch("pairs", res, int(res.le.shape[0]), sp,
+                                  tune0)
         return res
 
     def _pairs(self, clocks, cols=None, *, alive=None, engine=None, bi=None,
@@ -228,7 +243,7 @@ class CausalEngine:
             engine = "i32"
         cols_c = rows if cols is None else _as_cells(cols).to(rows.device)
         out = ops._compare_matrix(rows, cols_c, engine=engine, bi=bi, bj=bj,
-                                  bm=bm)
+                                  bm=bm, use_autotune=pol.autotune)
         eng, blocks = _dispatch_label(engine or "auto")
         return ComparisonMatrix.from_dict(out, engine=eng, blocks=blocks)
 
@@ -240,7 +255,8 @@ class CausalEngine:
         alive = (np.ones(cap, bool) if alive is None
                  else np.asarray(alive, bool))
         aidx = np.flatnonzero(alive)
-        kw = dict(engine=engine, bi=bi, bj=bj, bm=bm)
+        kw = dict(engine=engine, bi=bi, bj=bj, bm=bm,
+                  use_autotune=self.policy.autotune)
         if aidx.size == 0:
             false = torch.zeros((cap, cap), dtype=torch.bool, device=dev)
             zeros = torch.zeros((cap,), dtype=torch.float32, device=dev)
@@ -291,7 +307,8 @@ class CausalEngine:
         promoted row's span exceeds a byte by definition, so the int32
         engine is named outright; block shapes carry over."""
         dev = slab.cells_u8.device
-        rim_kw = {k: v for k, v in kw.items() if k in ("bi", "bj", "bm")}
+        rim_kw = {k: v for k, v in kw.items()
+                  if k in ("bi", "bj", "bm", "use_autotune")}
         wide_rows = torch.as_tensor(
             np.stack([slab.wide[int(s)] for s in widx]), device=dev)
         jaidx = torch.as_tensor(aidx, device=dev)

@@ -1,11 +1,12 @@
 """CausalPolicy: the one source of truth for causality decisions.
 
 A frozen dataclass threaded through ``ClockRuntime``, ``ClockRegistry``
-and gossip, and consumed by ``CausalEngine``.  The port has no autotune
-table yet, so block shapes not set here resolve to built-in defaults
-(one-vs-many bn=8, bm=512; all-pairs 64 x 64 pairs a CUDA block, bm=512)
-and the all-pairs engine to what the reference picks when its table is
-silent.
+and gossip, and consumed by ``CausalEngine``.  Block shapes and the
+all-pairs engine not set here resolve, as in the reference, through the
+measured table of ``kernels.autotune`` (unless ``autotune`` is False),
+else to built-in defaults (one-vs-many bn=8, bm=512; all-pairs 64 x 64
+pairs a CUDA block, bm=512; the engine the reference picks when its
+table is silent).
 """
 from __future__ import annotations
 
@@ -27,12 +28,15 @@ class CausalPolicy:
     pack           pack int32 all-pairs inputs on the fly when their value
                    span fits a byte (False pins the int32 kernel).
     bi / bj        all-pairs CUDA tile, pairs per block along rows / cols
-                   (32, 64 or 128; None = 64).  They change no result
-                   and are kept for API parity with the reference.
+                   (32, 64 or 128; None = the table's, else 64).  They
+                   change no result.
     bm / bn        m-tile width and one-vs-many warps per CUDA block
-                   (None = bm 512, bn 8).  bm fixes the float32 sum
-                   order of the int32 kernels, so their sums are
-                   bit-identical only at equal bm.
+                   (None = the table's, else bm 512, bn 8).  bm fixes
+                   the float32 sum order of the one-vs-many and int32
+                   kernels, so their sums are bit-identical only at
+                   equal bm.
+    autotune       consult the measured engine/block table
+                   (``kernels.autotune``); False = built-in defaults.
     observer       ``repro_torch.obs.Observer`` riding the policy (None =
                    null sinks).  Observers hash by identity, so the
                    policy stays hashable.
@@ -45,9 +49,25 @@ class CausalPolicy:
     bj: Optional[int] = None
     bm: Optional[int] = None
     bn: Optional[int] = None
+    autotune: bool = True
     observer: Any = None
 
     def __post_init__(self):
         if self.engine not in _ENGINES:
             raise ValueError(
                 f"unknown engine {self.engine!r}; pick one of {_ENGINES}")
+
+    def label(self) -> str:
+        """Compact human/JSON descriptor (bench records, dashboards)."""
+        parts = [f"fp<={self.fp_threshold:g}",
+                 f"engine={self.engine or 'auto'}"]
+        if not self.pack:
+            parts.append("pack=off")
+        if not self.autotune:
+            parts.append("autotune=off")
+        blocks = {k: v for k, v in
+                  (("bi", self.bi), ("bj", self.bj),
+                   ("bm", self.bm), ("bn", self.bn)) if v is not None}
+        if blocks:
+            parts.append(",".join(f"{k}{v}" for k, v in blocks.items()))
+        return " ".join(parts)

@@ -42,6 +42,7 @@ SOURCES = {
         "hybrid_classify": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _F, _I, _P],
         "one_vs_many_smem": [_I, _I, _I],
+        "one_vs_many_attrs": [_I, _I, _I, _P],
     }),
     "bloom_matrix": ("bloom_matrix.cu", {
         "matrix_tri_flags": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -49,10 +50,14 @@ SOURCES = {
                                  _I, _P],
         "matrix_rect_i32_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _F, _P],
+        "matrix_smem": [_I, _I, _I],
+        "matrix_attrs": [_I, _I, _I, _P],
     }),
     "bloom_mxu": ("bloom_mxu.cu", {
         "matrix_mxu_viol": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P],
+        "mxu_smem": [_I, _I, _I],
+        "mxu_attrs": [_I, _I, _I, _P],
     }),
 }
 

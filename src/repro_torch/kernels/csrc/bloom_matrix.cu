@@ -488,13 +488,14 @@ extern "C" int matrix_rect_u8_flags(const void* rows, const void* cols, const vo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+constexpr int SUM_WARPS = 8;  // warps a CTA of the row-sum pre-pass
+
 extern "C" int matrix_rect_i32_stats(const void* rows, const void* cols, const void* col_sums,
                                      void* le, void* ge, void* row_sums, void* fp, int N, int M,
                                      int m, int bi, int bj, int bm, float log_q, void* stream) {
   if (N == 0 || M == 0) return 0;
   if (bm <= 0 || !bloom::pair_tiles_ok(bi, bj)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  constexpr int SUM_WARPS = 8;
   row_tile_sums_kernel<<<(N + SUM_WARPS - 1) / SUM_WARPS, 32 * SUM_WARPS, 0, s>>>(
       static_cast<const int32_t*>(rows), static_cast<float*>(row_sums), N, m, bm);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
@@ -504,5 +505,47 @@ extern "C" int matrix_rect_i32_stats(const void* rows, const void* cols, const v
                                    log_q, s);
   PAIR_TILE_CASES(RECT_I32)
 #undef RECT_I32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel instances the autotuner's model describes: 0 rect-u8, 1 tri, 2
+// rect-i32 with 16-byte staging, 3 rect-i32 with 4-byte staging (bi x bj
+// pairs a CTA), 4 rect-i32's row-sum pre-pass (no tile).
+enum MatrixKind { KIND_RECT_U8 = 0, KIND_TRI, KIND_I32, KIND_I32_SCALAR, KIND_ROW_SUMS };
+
+// Dynamic shared memory of a CTA of instance `kind` at a bi x bj tile, as
+// its launcher asks for it; -1 for a tile the instance does not take.
+extern "C" int matrix_smem(int kind, int bi, int bj) {
+  if (kind == KIND_ROW_SUMS) return 0;
+  if (!bloom::pair_tiles_ok(bi, bj) || (kind == KIND_TRI && (bi != bj || bi > 64))) return -1;
+  if (kind == KIND_RECT_U8 || kind == KIND_TRI) return static_cast<int>(u16x2_smem_bytes(bi, bj));
+  if (kind == KIND_I32 || kind == KIND_I32_SCALAR)
+    return static_cast<int>(2 * static_cast<size_t>(bi + bj) * PAIR_LDK * sizeof(uint32_t));
+  return -1;
+}
+
+// Registers, thread limit, static and dynamic shared memory and the CTAs
+// an SM the runtime admits (common.cuh kernel_attrs) of instance `kind`
+// at a bi x bj tile, launched as its launcher starts it.
+extern "C" int matrix_attrs(int kind, int bi, int bj, int* out) {
+  if (kind == KIND_ROW_SUMS) return bloom::kernel_attrs(row_tile_sums_kernel, 32 * SUM_WARPS, 0, out);
+  const int smem = matrix_smem(kind, bi, bj);
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = bi * bj / (PAIR_RT * PAIR_CT);
+  if (kind == KIND_TRI) {
+    if (bi == 32) return bloom::kernel_attrs(rect_u8_u16x2_kernel<32, 32, true>, threads, smem, out);
+    return bloom::kernel_attrs(rect_u8_u16x2_kernel<64, 64, true>, threads, smem, out);
+  }
+#define ATTRS(BI, BJ)                                                                        \
+  if (bi == BI && bj == BJ) {                                                                \
+    if (kind == KIND_RECT_U8)                                                                \
+      return bloom::kernel_attrs(rect_u8_u16x2_kernel<BI, BJ, false>, threads, smem, out);  \
+    if (kind == KIND_I32)                                                                    \
+      return bloom::kernel_attrs(rect_i32_kernel<BI, BJ, true>, threads, smem, out);        \
+    if (kind == KIND_I32_SCALAR)                                                             \
+      return bloom::kernel_attrs(rect_i32_kernel<BI, BJ, false>, threads, smem, out);       \
+  }
+  PAIR_TILE_CASES(ATTRS)
+#undef ATTRS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -307,3 +307,29 @@ extern "C" int matrix_mxu_viol(const void* rows, const void* cols, const void* r
 #undef MXU_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Dynamic shared memory of a CTA at a bi x bj tile for thresholds T: the
+// 16-bit-lane kernel's two staged buffers, or the wide kernel's one
+// (T > MXU_T_MAX); -1 for a tile no instance takes.
+extern "C" int mxu_smem(int bi, int bj, int T) {
+  if (!bloom::pair_tiles_ok(bi, bj) || T < 1) return -1;
+  if (T > MXU_T_MAX) return static_cast<int>(bloom::pair_smem_bytes(bi, bj));
+  return static_cast<int>(2 * static_cast<size_t>(bi + bj) * PK_LDW * sizeof(uint32_t));
+}
+
+// Registers, thread limit, static and dynamic shared memory and the CTAs
+// an SM the runtime admits (common.cuh kernel_attrs) of the instance
+// that takes a bi x bj tile at thresholds T, launched as launch() or
+// launch_wide() starts it.
+extern "C" int mxu_attrs(int bi, int bj, int T, int* out) {
+  const int smem = mxu_smem(bi, bj, T);
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (bi / PAIR_RT) * (bj / PAIR_CT);
+  if (T > MXU_T_MAX) return bloom::kernel_attrs(mxu_viol_wide_kernel, threads, smem, out);
+#define MXU_ATTRS(BI, BJ) \
+  if (bi == BI && bj == BJ) return bloom::kernel_attrs(mxu_viol_s16x2_kernel<BI, BJ>, threads, smem, out);
+  MXU_ATTRS(32, 32) MXU_ATTRS(32, 64) MXU_ATTRS(32, 128) MXU_ATTRS(64, 32)
+  MXU_ATTRS(64, 64) MXU_ATTRS(64, 128) MXU_ATTRS(128, 32) MXU_ATTRS(128, 64)
+#undef MXU_ATTRS
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -70,6 +70,29 @@ int allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+// What the autotuner's occupancy model (kernels/template.py) is held to,
+// for one kernel instance launched with `threads` threads and `smem`
+// bytes of dynamic shared memory: out[0] registers a thread, out[1] the
+// most threads a CTA may take, out[2] static shared memory, out[3] the
+// CTAs an SM the runtime admits, out[4] threads, out[5] dynamic shared
+// memory.
+template <typename K>
+int kernel_attrs(K kernel, int threads, size_t smem, int* out) {
+  if (int err = allow_smem(kernel, smem)) return err;
+  cudaFuncAttributes a;
+  if (cudaError_t err = cudaFuncGetAttributes(&a, kernel)) return static_cast<int>(err);
+  int ctas = 0;
+  if (cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, smem))
+    return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = a.maxThreadsPerBlock;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = ctas;
+  out[4] = threads;
+  out[5] = static_cast<int>(smem);
+  return 0;
+}
+
 // Stage lanes [k0, k0 + kc) of rows [r0, r0 + tile_rows) into s as 32-bit
 // words, each passed through f(row, value).  Consecutive threads take
 // consecutive lanes of one row: coalesced loads, conflict-free stores.

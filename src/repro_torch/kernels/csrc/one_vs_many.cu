@@ -471,3 +471,15 @@ extern "C" int one_vs_many_smem(int m, int elem_bytes, int bn) {
   const size_t bytes = ovm_smem(m, 16 / elem_bytes, bn);
   return static_cast<int>(std::min(bytes, static_cast<size_t>(INT_MAX)));
 }
+
+// Registers, thread limit, static and dynamic shared memory and the CTAs
+// an SM the runtime admits (common.cuh kernel_attrs) of the instance for
+// elem_bytes (1: packed and hybrid, 4: i32) at a CTA of bn warps over
+// rows of m cells, as launch() would start it.
+extern "C" int one_vs_many_attrs(int m, int elem_bytes, int bn, int* out) {
+  if (bn < 1 || bn > 32 || m < 1 || (elem_bytes != 1 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ovm_smem(m, 16 / elem_bytes, bn);
+  if (elem_bytes == 1) return bloom::kernel_attrs(ovm_kernel<uint8_t, true>, 32 * bn, smem, out);
+  return bloom::kernel_attrs(ovm_kernel<int32_t, false>, 32 * bn, smem, out);
+}

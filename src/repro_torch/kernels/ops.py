@@ -13,6 +13,12 @@ the merge-compare, one-vs-many and hybrid kernels write their flags as
 all-pairs dispatch (op, engine and blocks), which ``CausalEngine``
 copies into its results.
 
+Blocks and the all-pairs engine resolve as the reference's do: an
+explicit argument, else the measured ``autotune`` table entry for the
+tensors' backend and shape (unless ``use_autotune=False``), else the
+built-in blocks (``OVM_BLOCKS``, ``MATRIX_BLOCKS``).  The shipped table
+holds only ``cuda`` keys, so CPU tensors resolve the built-in blocks.
+
 The m-tile width follows the JAX wrappers' tile plan (``tile_width``):
 m is padded to the 128-lane grain and the tile is the largest multiple
 of 128 up to ``bm`` that divides it.  The kernels do not pad; they mask
@@ -24,13 +30,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import bloom_indices
-from repro_torch.kernels import pack, ref
+from repro_torch.kernels import autotune, pack, ref
 from repro_torch.kernels._build import library
+from repro_torch.kernels.template import PAIR_TILES, CompareSpec, validate
 
 __all__ = [
     "LAUNCHES",
     "LAST_DISPATCH",
+    "MATRIX_BLOCKS",
     "MXU_SPAN_MAX",
+    "OVM_BLOCKS",
     "PAIR_TILES",
     "pick_block",
     "tile_width",
@@ -68,23 +77,20 @@ _MXU_SPAN_BUCKETS = (8, 16, 32, 64)
 #: (bloom_mxu.cu: MXU_T_MAX, the dispatch point)
 MXU_T_MAX = 65535 // 8
 
-#: tile edges (pairs) an all-pairs CUDA block may take: bi, bj, with at
-#: most _PAIR_MAX pairs a block (common.cuh: PAIR_MAX_PAIRS)
-PAIR_TILES = (32, 64, 128)
-_PAIR_MAX = 128 * 64
-_PAIR_TILE_DEFAULT = 64
+#: all-pairs blocks (bi x bj pairs a CUDA block, bm the m-tile of the
+#: i32 engine's sums) when neither the call nor the table gives them
+MATRIX_BLOCKS = (64, 64, 512)
 
 #: the most recent one-vs-many, hybrid or all-pairs dispatch: op, engine,
 #: blocks
 LAST_DISPATCH: dict = {}
 
-# largest dynamic shared memory a block may take on Hopper (bytes)
-_SMEM_MAX = 232448
 #: 16-byte chunks a lane of the one-vs-many kernels takes a stage
 #: (one_vs_many.cu: OVM_CPL)
 OVM_CHUNKS_PER_LANE = 2
-#: one-vs-many blocks (bn warps a CTA, bm the m-tile) when a call gives
-#: none: the reference's built-in bn=8, bm=512
+#: one-vs-many and hybrid blocks (bn warps a CTA, bm the m-tile) when
+#: neither the call nor the table gives them: the reference's bn=8,
+#: bm=512
 OVM_BLOCKS = (8, 512)
 
 
@@ -219,14 +225,15 @@ def _classify_dict(flags, sums, fp) -> dict:
     }
 
 
-def _check_ovm_block(name: str, m: int, vec: int, bn: int) -> None:
-    """bn warps a CTA, and the CTA's shared memory (the query and each
-    warp's ring, as the library computes it) within the card's limit."""
-    if not 1 <= bn <= 32:
-        raise ValueError(f"{name}: bn={bn} warps per block must be in [1, 32]")
-    if library("one_vs_many").one_vs_many_smem(m, 16 // vec, bn) > _SMEM_MAX:
-        raise ValueError(f"{name}: m={m} query row and bn={bn} rings do not "
-                         f"fit shared memory")
+def _check_ovm_block(name: str, m: int, pack_: str, bn: int) -> None:
+    """bn warps a CTA in [1, 32], and the CTA's shared memory (the query
+    and each warp's ring, as the library computes it) within the card's
+    limit: ``template.validate``."""
+    try:
+        validate(CompareSpec(topology="one_vs_many", pack=pack_, bi=bn, m=m,
+                             with_base=pack_ == "u8", with_stats=True), "cuda")
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
 
 
 def _one_vs_many(q: torch.Tensor, peers: torch.Tensor,
@@ -249,7 +256,7 @@ def _one_vs_many(q: torch.Tensor, peers: torch.Tensor,
     if packed:
         _check(base, f"{name} base", torch.int32, (N,))
     vec = 16 // peers.element_size()
-    _check_ovm_block(name, m, vec, bn)
+    _check_ovm_block(name, m, "u8" if packed else "i32", bn)
     vec_ok = int(m % vec == 0 and peers.data_ptr() % 16 == 0)
     dev = peers.device
     flags = torch.empty((N, 2), dtype=torch.bool, device=dev)
@@ -277,13 +284,27 @@ def _classify_vs_many(q: torch.Tensor, peers: torch.Tensor, *, bn: int = 8,
     return _classify_dict(*_one_vs_many(q, peers, None, bn, bm))
 
 
+def _one_vs_many_blocks(N: int, m: int, bn, bm, backend: str,
+                        use_table: bool = True) -> tuple[int, int]:
+    """Resolve one-vs-many blocks: explicit args > autotune table >
+    ``OVM_BLOCKS``."""
+    if bn is None or bm is None:
+        cfg = (autotune.lookup("one_vs_many", N, N, m, backend) or {}) \
+            if use_table else {}
+        bn = bn or cfg.get("bn", OVM_BLOCKS[0])
+        bm = bm or cfg.get("bm", OVM_BLOCKS[1])
+    return bn, bm
+
+
 def _classify_vs_many_packed(q: torch.Tensor, peers: torch.Tensor,
                              base: torch.Tensor, *, bn: int | None = None,
-                             bm: int | None = None) -> dict:
+                             bm: int | None = None,
+                             use_autotune: bool = True) -> dict:
     """One-vs-many classify against a packed slab (u8 residuals + base).
-    Blocks default to ``OVM_BLOCKS``."""
-    bn = bn or OVM_BLOCKS[0]
-    bm = bm or OVM_BLOCKS[1]
+    Blocks resolve through ``_one_vs_many_blocks``."""
+    N, m = peers.shape
+    bn, bm = _one_vs_many_blocks(N, m, bn, bm, autotune.backend_of(peers),
+                                 use_autotune)
     _note_dispatch("one_vs_many", "packed", bn=bn, bm=bm)
     return _classify_dict(*_one_vs_many(q, peers, base.reshape(-1), bn, bm))
 
@@ -333,7 +354,7 @@ def hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
     _check(hot_sums, "hybrid hot_sums", torch.float32, (H,))
     _check(tail, "hybrid tail", torch.uint8, (T, m))
     _check(tail_base, "hybrid tail_base", torch.int32, (T,))
-    _check_ovm_block("hybrid", m, 16, bn)
+    _check_ovm_block("hybrid", m, "u8", bn)
     vec_ok = int(m % 16 == 0 and tail.data_ptr() % 16 == 0)
     dev = tail.device
     flags = torch.empty((H + T, 2), dtype=torch.bool, device=dev)
@@ -349,23 +370,37 @@ def hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
     return flags, sums, fp
 
 
+def _hybrid_blocks(N: int, H: int, m: int, bn, bm, backend: str,
+                   use_table: bool = True) -> tuple[int, int]:
+    """Resolve hybrid blocks: explicit args > autotune table (keyed on
+    total rows AND hot count: the hot/tail split changes the winning
+    tile) > ``OVM_BLOCKS``."""
+    if bn is None or bm is None:
+        cfg = (autotune.lookup("hybrid", N, H, m, backend) or {}) \
+            if use_table else {}
+        bn = bn or cfg.get("bn", OVM_BLOCKS[0])
+        bm = bm or cfg.get("bm", OVM_BLOCKS[1])
+    return bn, bm
+
+
 def _classify_hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
                      hot_sums: torch.Tensor, tail: torch.Tensor,
                      tail_base: torch.Tensor, *, bn: int | None = None,
-                     bm: int | None = None) -> dict:
+                     bm: int | None = None,
+                     use_autotune: bool = True) -> dict:
     """One query vs an exact hot set plus a packed bloom tail, fused.
 
     Hot verdicts are integer compares of ``(v, n_private)`` against the
     local chain version ``v_local`` with fp = 0; tail rows are
     bit-identical to ``_classify_vs_many_packed`` at the same bm.  Blocks
-    default to the reference's built-in bn=8, bm=512.  Returns the
-    ``_classify_dict`` layout over H + T rows, hot first."""
+    resolve through ``_hybrid_blocks``.  Returns the ``_classify_dict``
+    layout over H + T rows, hot first."""
     (m,) = q.shape
     H, T = hot_meta.shape[0], tail.shape[0]
     assert H > 0 and T > 0, "hybrid needs both a hot set and a tail " \
         "(route single-representation slabs through the plain engines)"
-    bn = bn or 8
-    bm = bm or 512
+    bn, bm = _hybrid_blocks(H + T, H, m, bn, bm, autotune.backend_of(tail),
+                            use_autotune)
     _note_dispatch("hybrid", "fused_hot_tail", bn=bn, bm=tile_width(m, bm),
                    hot=H, tail=T)
     return _classify_dict(*hybrid(q, v_local, hot_meta, hot_sums, tail,
@@ -377,9 +412,7 @@ def _classify_hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_tiles(bi: int, bj: int) -> None:
-    if bi not in PAIR_TILES or bj not in PAIR_TILES or bi * bj > _PAIR_MAX:
-        raise ValueError(f"all-pairs tile bi={bi} bj={bj}: each must be one "
-                         f"of {PAIR_TILES}, and bi * bj at most {_PAIR_MAX}")
+    validate(CompareSpec(topology="rect", bi=bi, bj=bj))
 
 
 def _flag_pair(N: int, M: int, dev):
@@ -531,13 +564,20 @@ def _matrix_dict(le, ge, row_sums, col_sums, m: int) -> dict:
     }
 
 
-def _matrix_blocks(bi, bj, bm) -> tuple[int, int, int]:
-    """Blocks: explicit values, else the port's defaults (64 x 64 pairs a
-    CUDA block; bm 512, which fixes the i32 engine's sum order)."""
-    bi = bi or _PAIR_TILE_DEFAULT
-    bj = bj or _PAIR_TILE_DEFAULT
+def _matrix_blocks(engine: str, N: int, M: int, m: int, bi, bj, bm,
+                   backend: str, use_table: bool = True) -> tuple[int, int, int]:
+    """Resolve all-pairs blocks: explicit args > the autotune table's
+    entry for this shape when it names the same engine > ``MATRIX_BLOCKS``
+    (64 x 64 pairs a CUDA block; bm 512, which fixes the i32 engine's
+    sum order)."""
+    cfg = (autotune.lookup("matrix", N, M, m, backend) or {}) \
+        if use_table else {}
+    if cfg.get("engine") != engine:
+        cfg = {}
+    bi = bi or cfg.get("bi", MATRIX_BLOCKS[0])
+    bj = bj or cfg.get("bj", MATRIX_BLOCKS[1])
     _check_tiles(bi, bj)
-    return bi, bj, bm or 512
+    return bi, bj, bm or cfg.get("bm", MATRIX_BLOCKS[2])
 
 
 def _span_bucket(span: int) -> int:
@@ -571,31 +611,46 @@ def _mxu_finalize(viol, cells, base, cols, col_base, row_sums, col_sums,
     return _matrix_dict(le, ge, row_sums, col_sums, m)
 
 
+def _mxu_viable(cells, base, cols, col_base) -> bool:
+    _, span = _logical_bounds(cells, base, cols, col_base)
+    return span <= MXU_SPAN_MAX
+
+
 def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
                            cols: torch.Tensor | None = None,
                            col_base: torch.Tensor | None = None, *,
                            engine: str | None = None, bi: int | None = None,
                            bj: int | None = None, bm: int | None = None,
-                           uniform_base: bool | None = None) -> dict:
+                           uniform_base: bool | None = None,
+                           use_autotune: bool = True) -> dict:
     """Tiled all-pairs compare over packed u8 slab(s) (rows [N, m] +
     bases; ``cols`` None means symmetric).
 
-    Without an autotune table, dispatch resolves as the reference's
-    does when its table is silent: "tri" for a symmetric slab, "full"
-    when cols are given; "mxu" only when asked for, and then a logical
-    span above ``MXU_SPAN_MAX`` raises, as in the reference; "i32" is
-    not a packed engine and resolves to auto.  Returns the dict of
-    ``_compare_matrix``.
+    The engine resolves as the reference's does: asked for, else the
+    table's (its "i32" becomes "tri", its "mxu" stands only where the
+    logical span is at most ``MXU_SPAN_MAX``), else "tri"; "tri" over a
+    rectangle is "full".  An "mxu" asked for over a wider span raises,
+    as in the reference; "i32" is not a packed engine and resolves to
+    auto.  Returns the dict of ``_compare_matrix``.
     """
     symmetric = cols is None
     if symmetric:
         cols, col_base = cells, base
     N, m = cells.shape
+    M = cols.shape[0]
     base = base.reshape(-1)
     col_base = col_base.reshape(-1)
+    backend = autotune.backend_of(cells)
     if engine == "i32":
         engine = None
-    engine = engine or "tri"
+    if engine is None:
+        cfg = (autotune.lookup("matrix", N, M, m, backend) or {}) \
+            if use_autotune else {}
+        engine = cfg.get("engine", "tri")
+        if engine == "i32":
+            engine = "tri"
+        if engine == "mxu" and not _mxu_viable(cells, base, cols, col_base):
+            engine = "tri"
     if engine not in ("tri", "full", "mxu"):
         raise ValueError(f"unknown packed engine: {engine}")
     if engine == "tri" and not symmetric:
@@ -603,7 +658,8 @@ def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
     if uniform_base is None:
         b0 = base[:1]
         uniform_base = bool(((base == b0).all() & (col_base == b0).all()).item())
-    bi, bj, bm = _matrix_blocks(bi, bj, bm)
+    bi, bj, bm = _matrix_blocks(engine, N, M, m, bi, bj, bm, backend,
+                                use_autotune)
     _note_dispatch("matrix", engine, bi=bi, bj=bj, bm=bm)
 
     row_sums = _packed_row_sums(cells, base, m)
@@ -640,14 +696,16 @@ def _span_probe(rows: torch.Tensor,
 
 def _compare_matrix(rows: torch.Tensor, cols: torch.Tensor, *,
                     engine: str | None = None, bi: int | None = None,
-                    bj: int | None = None, bm: int | None = None) -> dict:
+                    bj: int | None = None, bm: int | None = None,
+                    use_autotune: bool = True) -> dict:
     """Tiled all-pairs compare of int32 logical rows [N, m] vs cols
     [M, m] (``rows is cols`` means symmetric).
 
     Unless the i32 engine is asked for, the slabs are packed on the fly
     when their global value span fits a byte (one shared window base)
-    and go to the packed engines; wider spans take the int32 kernel, and
-    a packed engine asked for by name then raises.  Returns [N, M]
+    and go to the packed engines; wider spans, or a table entry whose
+    measured winner is "i32", take the int32 kernel, and a packed engine
+    asked for by name over a wide span raises.  Returns [N, M]
     ``a_le_b`` / ``b_le_a`` / ``concurrent`` bool matrices, ``fp`` of
     "row before col", and per-row / per-col float32 sums.
     """
@@ -656,12 +714,19 @@ def _compare_matrix(rows: torch.Tensor, cols: torch.Tensor, *,
     M, mc = cols.shape
     if m != mc:
         raise ValueError(f"rows {tuple(rows.shape)} vs cols {tuple(cols.shape)}")
+    backend = autotune.backend_of(rows)
+    if engine is None and use_autotune:
+        # honour a measured "int32 wins here" verdict before the probe
+        cfg = autotune.lookup("matrix", N, M, m, backend) or {}
+        if cfg.get("engine") == "i32":
+            engine = "i32"
     if engine != "i32":
         lo, hi = _span_probe(rows, None if symmetric else cols)
         if hi - lo <= pack.U8_MAX:
             packed_rows = _shift_pack(rows, lo)
             base = torch.full((N,), lo, dtype=torch.int32, device=rows.device)
-            kw = dict(engine=engine, bi=bi, bj=bj, bm=bm, uniform_base=True)
+            kw = dict(engine=engine, bi=bi, bj=bj, bm=bm, uniform_base=True,
+                      use_autotune=use_autotune)
             if symmetric:
                 return _compare_matrix_packed(packed_rows, base, **kw)
             return _compare_matrix_packed(
@@ -671,7 +736,8 @@ def _compare_matrix(rows: torch.Tensor, cols: torch.Tensor, *,
         if engine is not None:
             raise ValueError(f"engine={engine} needs value span <= "
                              f"{pack.U8_MAX}, got {hi - lo}")
-    bi, bj, bm = _matrix_blocks(bi, bj, bm)
+    bi, bj, bm = _matrix_blocks("i32", N, M, m, bi, bj, bm, backend,
+                                use_autotune)
     _note_dispatch("matrix", "i32", bi=bi, bj=bj, bm=bm)
     rows = rows.to(torch.int32).contiguous()
     cols = rows if symmetric else cols.to(torch.int32).contiguous()

@@ -25,10 +25,12 @@ tier spills its least-touched rows to disk.
 through the same ``CausalEngine`` the flat slab uses, over the same
 packed layout, with the SAME kernel blocks, pinned once, because the
 float32 sum order (and so the Eq. 3 fp bits) depends on the m-tile.
-The port has no autotuner: the blocks are the policy's ``bn``/``bm``,
-else the built-in bn = 8, bm = 512.  The result is bit-identical per
-session to one flat ``ClockRegistry`` holding the whole population
-under the same policy.
+They resolve as the reference's do, once, at the flat-equivalent
+capacity hot + warm: the policy's ``bn``/``bm``, else the autotune
+table's entry for that shape (under ``policy.autotune``), else the
+built-in bn = 8, bm = 512.  The result is bit-identical per session to
+one flat ``ClockRegistry`` holding the whole population under the same
+(pinned) policy.
 
 Host writes into the warm arrays wait first for the last non-blocking
 copy out of them (``_warm_fence``).
@@ -49,7 +51,8 @@ from repro_torch.core import clock as bc
 from repro_torch.core import wire
 from repro_torch.fleet.registry import (ClockRegistry, FleetView, STATUS_NAMES,
                                         _near_wrap, view_from_classify)
-from repro_torch.kernels.ops import OVM_BLOCKS
+from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune, ops
 from repro_torch.obs.observer import resolve
 
 __all__ = ["TierConfig", "TieredRegistry", "TieredView"]
@@ -135,8 +138,14 @@ class TieredRegistry:
         self.m = m
         self.k = k
         base_pol = policy if policy is not None else CausalPolicy()
-        bn = base_pol.bn or OVM_BLOCKS[0]
-        bm = base_pol.bm or OVM_BLOCKS[1]
+        device = resolve_device(device)
+        # Pin the one-vs-many blocks ONCE, resolved at the flat-equivalent
+        # capacity: the table is keyed by slab N, and per-tier resolution
+        # could tile m differently per tier and break the flat-slab
+        # bit-identity.
+        bn, bm = ops._one_vs_many_blocks(
+            cfg.hot_capacity + cfg.warm_capacity, m, base_pol.bn,
+            base_pol.bm, autotune.backend_of(device), base_pol.autotune)
         self.policy = dataclasses.replace(base_pol, bn=bn, bm=bm)
         self.blocks = (bn, bm)
         self.hot = ClockRegistry(capacity=cfg.hot_capacity, m=m, k=k,

@@ -209,10 +209,10 @@ def test_cuda_one_vs_many_matches_plain(cuda, n, m, near_wrap, wide):
     tq = torch.as_tensor(q, device=cuda)
     tp = torch.as_tensor(peers, device=cuda)
     u8, base, _ = pack.pack_rows(tp)
-    bm = ops.tile_width(m, 512)
+    bm = ops.tile_width(m, ops._one_vs_many_blocks(n, m, None, None, "cuda")[1])
     for name, got, (flags, sums, fp) in (
             ("one_vs_many_i32", lambda p, b: ops._classify_vs_many(tq, p),
-             ref.one_vs_many_ref(tq, tp, bm=bm)),
+             ref.one_vs_many_ref(tq, tp, bm=ops.tile_width(m, 512))),
             ("one_vs_many_packed",
              lambda p, b: ops._classify_vs_many_packed(tq, p, b),
              ref.one_vs_many_ref(tq, u8, base, bm=bm))):
@@ -605,7 +605,7 @@ def test_cuda_hybrid_matches_plain_and_packed(cuda, H, T, m, near_wrap):
         assert_fp_close(fp, w_fp)
         assert bool((fp[:H] == 0).all())
         # the tail rows are the packed one-vs-many kernel's, bit for bit
-        flat = ops._classify_vs_many_packed(q, tail, base)
+        flat = ops._classify_vs_many_packed(q, tail, base, bm=512)
         out = ops._classify_dict(flags, sums, fp)
         assert_flag_views(out["q_le_p"], out["p_le_q"])
         for key in ("q_le_p", "p_le_q", "sum_p", "fp_q_before_p",
@@ -704,7 +704,9 @@ def test_cuda_one_vs_many_at_m256_matches_plain(cuda, n, near_wrap):
     q, peers = query_and_peers(n, SERVE_M, 23, near_wrap)
     tq = torch.as_tensor(q, device=cuda)
     u8, base, _ = pack.pack_rows(torch.as_tensor(peers, device=cuda))
-    flags, sums, fp = ref.one_vs_many_ref(tq, u8, base, bm=256)
+    bm = ops._one_vs_many_blocks(n, SERVE_M, None, None, "cuda")[1]
+    flags, sums, fp = ref.one_vs_many_ref(tq, u8, base,
+                                          bm=ops.tile_width(SERVE_M, bm))
     out = one_launch(lambda: ops._classify_vs_many_packed(tq, u8, base),
                      "one_vs_many_packed")
     assert torch.equal(out["q_le_p"], flags[:, 0])
@@ -886,3 +888,163 @@ def test_cuda_quick_churn_matches_cpu(cuda):
     assert stored[cuda].keys() == stored["cpu"].keys()
     for s in stored["cpu"]:
         assert torch.equal(stored[cuda][s], stored["cpu"][s]), s
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's model and the committed table
+# ---------------------------------------------------------------------------
+
+def _instance_specs(family):
+    """The kernel instances of one family, as (spec, rect-i32's 4-byte
+    staging)."""
+    from repro_torch.kernels import template as tp
+    tiles = [(bi, bj) for bi in tp.PAIR_TILES for bj in tp.PAIR_TILES
+             if bi * bj <= tp.PAIR_MAX_PAIRS]
+    if family == "tri":
+        return [(tp.CompareSpec(topology="tri", bi=b, bj=b), False)
+                for b in tp.TRI_TILES]
+    if family == "rect_u8":
+        return [(tp.CompareSpec(topology="rect", bi=bi, bj=bj), False)
+                for bi, bj in tiles]
+    if family.startswith("rect_i32"):
+        return [(tp.CompareSpec(topology="rect", pack="i32", bi=bi, bj=bj,
+                                with_stats=True), family.endswith("scalar"))
+                for bi, bj in tiles]
+    if family.startswith("mxu"):
+        T = 64 if family == "mxu" else ops.MXU_T_MAX + 1
+        return [(tp.CompareSpec(topology="mxu", bi=bi, bj=bj, with_base=True,
+                                n_thresholds=T), False) for bi, bj in tiles]
+    pack_ = "u8" if family == "one_vs_many_packed" else "i32"
+    return [(tp.CompareSpec(topology="one_vs_many", pack=pack_, bi=bn, m=m,
+                            with_base=pack_ == "u8", with_stats=True), False)
+            for m in (1024, 256, 1000, 7) for bn in range(1, 33)]
+
+
+_FAMILIES = ["tri", "rect_u8", "rect_i32", "rect_i32_scalar", "mxu", "mxu_wide",
+             "one_vs_many_packed", "one_vs_many_i32"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", _FAMILIES)
+def test_cuda_occupancy_model_matches_runtime(cuda, family):
+    """``template.ctas_per_sm`` at the built registers equals
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for every instance."""
+    from repro_torch.kernels import template as tp
+    for spec, scalar in _instance_specs(family):
+        a = tp.c_attrs(spec, scalar)
+        assert a["threads"] == tp.threads_of(spec) <= a["max_threads"]
+        assert tp.ctas_per_sm(a["threads"], a["regs"], a["smem"],
+                              a["static_smem"]) == a["ctas"] > 0, (spec, a)
+    if family == "rect_i32":
+        a = tp.row_sums_attrs()
+        assert tp.ctas_per_sm(a["threads"], a["regs"], a["smem"],
+                              a["static_smem"]) == a["ctas"] > 0, a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", _FAMILIES)
+def test_cuda_smem_estimate_matches_library(cuda, family):
+    """The Python copy of each library's shared-memory arithmetic equals
+    the library's export, and the launch's dynamic shared memory."""
+    from repro_torch.kernels import template as tp
+    for spec, scalar in _instance_specs(family):
+        want = tp.c_attrs(spec, scalar)["smem"]
+        assert tp.smem_python(spec) == tp.smem_estimate(spec, "cuda") == want
+        tp.validate(spec, "cuda")
+
+
+def _table_entries():
+    from repro_torch.kernels import autotune
+    return sorted((k, v) for k, v in autotune.load_table().items()
+                  if "|cuda|" in k)
+
+
+def _rows_case(rng, n, m):
+    q = rng.integers(0, 200, m)
+    kind = rng.integers(0, 4, (n, 1))
+    d = np.abs(rng.integers(-1, 2, (n, m)) * (rng.random((n, m)) < 0.05))
+    res = np.where(kind == 0, q, np.where(kind == 1, q + d, np.where(
+        kind == 2, q - d, rng.integers(0, 256, (n, m)))))
+    base = np.where(rng.random(n) < 0.25,
+                    rng.integers(-2 ** 31, 2 ** 31 - 256, n), 5000)
+    return (torch.as_tensor(q + 5000, dtype=torch.int32),
+            torch.as_tensor(np.clip(res, 0, 255), dtype=torch.uint8),
+            torch.as_tensor(base, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,cfg", _table_entries())
+def test_cuda_tuned_blocks_match_plain(cuda, key, cfg):
+    """Each committed table entry's blocks, on its op at its shape
+    bucket (rows capped at 16,384; all-pairs at 1,024): flags identical
+    to the plain version at the same blocks and to the default blocks,
+    sums identical to the plain version (and, at equal bm, sums and fp
+    bit-identical to the default blocks), fp within tolerance."""
+    op, _, n_b, h_b, m_b, _ = key.split("|")
+    m = int(m_b[1:])
+    rng = np.random.default_rng(31)
+    if op in ("one_vs_many", "hybrid"):
+        n = min(int(n_b[1:]), 16384)
+        bn, bm = cfg["bn"], cfg["bm"]
+        q, u8, base = (t.to(cuda) for t in _rows_case(rng, n, m))
+        if op == "one_vs_many":
+            def run(bn, bm):
+                return ops._classify_vs_many_packed(q, u8, base, bn=bn, bm=bm,
+                                                    use_autotune=False)
+            plain = ref.one_vs_many_ref(q, u8, base, bm=ops.tile_width(m, bm))
+        else:
+            H = min(int(h_b[1:]), n // 2)
+            meta = torch.as_tensor(np.stack([rng.integers(0, 40, H),
+                                             rng.integers(0, 3, H)], 1),
+                                   dtype=torch.int32, device=cuda)
+            hs = (4.0 * meta.sum(1)).to(torch.float32)
+
+            def run(bn, bm):
+                return ops._classify_hybrid(q, 20, meta, hs, u8[H:], base[H:],
+                                            bn=bn, bm=bm, use_autotune=False)
+            plain = ref.hybrid_classify_ref(q, 20, meta, hs, u8[H:], base[H:],
+                                            bm=ops.tile_width(m, bm))
+        got, dflt = run(bn, bm), run(*ops.OVM_BLOCKS)
+        flags, sums, fp = plain
+        assert torch.equal(got["q_le_p"], flags[:, 0])
+        assert torch.equal(got["p_le_q"], flags[:, 1])
+        assert torch.equal(got["sum_p"], sums[:, 1])
+        assert_fp_close(got["fp_q_before_p"], fp[:, 0])
+        assert_fp_close(got["fp_p_before_q"], fp[:, 1])
+        assert torch.equal(got["q_le_p"], dflt["q_le_p"])
+        assert torch.equal(got["p_le_q"], dflt["p_le_q"])
+        if ops.tile_width(m, bm) == ops.tile_width(m, ops.OVM_BLOCKS[1]):
+            for k in ("sum_p", "fp_q_before_p", "fp_p_before_q"):
+                assert torch.equal(got[k].view(torch.int32),
+                                   dflt[k].view(torch.int32)), k
+        return
+    n = 1024
+    engine, bi, bj, bm = cfg["engine"], cfg["bi"], cfg["bj"], cfg["bm"]
+    dbi, dbj, dbm = ops.MATRIX_BLOCKS
+    if engine == "i32":
+        rows = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (n, m)),
+                               dtype=torch.int32, device=cuda)
+        cs = ref.wrap_sum_i32(rows).to(torch.float32)
+        got = ops.rect_i32_stats(rows, rows, cs, bi=bi, bj=bj, bm=bm)
+        want = ref.rect_i32_stats_ref(rows, rows, cs, bm=ops.tile_width(m, bm))
+        dflt = ops.rect_i32_stats(rows, rows, cs, bi=dbi, bj=dbj, bm=dbm)
+        for i in range(3):
+            assert torch.equal(got[i], want[i])
+        assert_fp_close(got[3], want[3])
+        assert torch.equal(got[0], dflt[0]) and torch.equal(got[1], dflt[1])
+        return
+    u8, base = packed_slab(n, m, 31, _FAR)
+    u8, base = u8.to(cuda), base.to(cuda)
+    if engine == "tri":
+        got = ops.tri_flags(u8, base, bt=bi)
+        want = ref.tri_flags_ref(u8, base)
+        dflt = ops.tri_flags(u8, base, bt=dbi)
+    else:
+        lo, T = 1000, 64
+        got = (ops.mxu_viol(u8, u8, base, base, lo=lo, n_thresholds=T, bi=bi,
+                            bj=bj),)
+        want = (ref.mxu_viol_ref(u8, u8, base, base, lo=lo, n_thresholds=T),)
+        dflt = (ops.mxu_viol(u8, u8, base, base, lo=lo, n_thresholds=T,
+                             bi=dbi, bj=dbj),)
+    for g, w, d in zip(got, want, dflt):
+        assert torch.equal(g, w) and torch.equal(g, d)
