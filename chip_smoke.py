@@ -5,6 +5,10 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+On a host with several cards, ``python3 chip_smoke.py --shard-only``
+builds the kernels and runs phase 4b alone (with the unsharded gossip
+sim it is held to), its shards of s <= the card count on distinct cards.
+
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name
@@ -25,6 +29,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    verdicts, clocks, registry rows and wire bytes must be identical,
    fp within tolerance; then ``run_gossip_sim`` on both devices must
    report fn == 0 and the same verdict counts;
+4b. the mesh-sharded registry (``[shard]`` lines): the main path's
+   65,536 peers over 1, 2, 4 and 8 row shards (``make_fleet_mesh``,
+   on distinct cards where there are that many, else on the one card),
+   each held bit for bit to the unsharded card registry (``classify_all``
+   with its launches counted, one loopback gossip round), their times;
+   ``fleet_health`` at 2,048 slots over 4 shards; 4,096 peers over 4
+   shards on the card and on the CPU, which must agree; the gossip sim
+   over 8 shards, fn == 0 with the unsharded run's counts;
 5. the all-pairs path: ``fleet_health`` over a 16,384-slot registry
    (~1% evicted, 8 promoted rows) with the launch counts reset just
    before and read just after (tri and rect-i32 must have run), its
@@ -123,6 +135,10 @@ N_PEERS, BATCH = 65536, 4096
 # copies them to the host (~7 bytes a pair), so its slab is cut to 16,384
 # slots; the card-vs-CPU comparison runs at 2,048 to keep the CPU short
 N_SLOTS, N_SLOTS_CPU = 16384, 2048
+# the sharded fleet: the main path's registry over these shard counts;
+# its card-vs-CPU comparison at 4,096 peers
+SHARD_COUNTS = (1, 2, 4, 8)
+N_SHARD_CPU = 4096
 SEED = 0
 #: kernels of the main path (phase 4) and of the all-pairs paths (phase 5)
 MAIN_KERNELS = ("bloom_tick", "bloom_merge_compare", "one_vs_many_packed",
@@ -1051,12 +1067,274 @@ def sim_check() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the mesh-sharded fleet registry
+# ---------------------------------------------------------------------------
+
+def shard_mesh(shards: int):
+    """A fleet mesh of ``shards`` distinct cards where there are that
+    many, else every shard on the one card; and which it is."""
+    import torch
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    if torch.cuda.device_count() >= shards:
+        return make_fleet_mesh(shards), "distinct cards"
+    return make_fleet_mesh(shards, device="cuda"), "one card"
+
+
+def fill(reg, clocks) -> None:
+    for lo in range(0, len(clocks), BATCH):
+        reg.admit_many({f"p{i}": clocks[i]
+                        for i in range(lo, min(lo + BATCH, len(clocks)))})
+
+
+def classify_ms(reg, local, reps: int = 5) -> list:
+    """Host-clock ms of ``classify_all`` calls, each ending in a
+    synchronise (the view is on the host when the call returns)."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg.classify_all(local)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def same_view(got, want, what: str, fp_bits: bool = True) -> None:
+    check_equal(got.status, want.status, f"{what} statuses")
+    check_equal(got.sums, want.sums, f"{what} sums")
+    if fp_bits:
+        check_equal(got.fp, want.fp, f"{what} fp bits")
+    else:
+        check_fp(got.fp, want.fp, f"{what} fp")
+
+
+def same_round(got, want, what: str) -> None:
+    for key in ("accepted", "quarantined", "stragglers", "unconfident"):
+        check_equal(getattr(got, key), getattr(want, key), f"{what} {key}")
+    same_view(got.view, want.view, f"{what} view")
+    check(got.pushback_bytes == want.pushback_bytes,
+          f"{what} push-back bytes")
+
+
+def drive_shards() -> dict:
+    """The main path's registry (65,536 peers of ``make_peers``, m = 1024)
+    split over 1, 2, 4 and 8 row shards on the card, each held bit for
+    bit to the unsharded card registry: ``classify_all`` (with the
+    launch counts reset just before and read just after: s packed
+    one-vs-many launches and one for the promoted rows), one loopback
+    gossip round (verdicts, fp bits, push-back bytes, the merged
+    clock's frame, the slab after push-back).  Times: ``classify_all``
+    on the host clock, 2 passes over every registry in turn, 10 calls
+    each a pass; the device time of the (sharded) one-vs-many call."""
+    import torch
+    from repro_torch.core import clock as bc
+    from repro_torch.core import wire
+    from repro_torch.fleet import GossipConfig, gossip_round
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ClockConfig, ClockRuntime
+
+    rt = ClockRuntime(ClockConfig(m=M, k=K), device="cuda")
+    for s in range(256):
+        rt.tick_step(s)
+    local = rt.clock
+    rows = make_peers(host(local.logical_cells()), N_PEERS, SEED + 1)
+    zero = torch.zeros((), dtype=torch.int32)
+    clocks = [bc.BloomClock(cells=torch.from_numpy(rows[i]), base=zero, k=K)
+              for i in range(N_PEERS)]
+    cfg = GossipConfig(policy=rt.policy, straggler_gap=rt.cfg.straggler_gap)
+    q = local.logical_cells().to(torch.int32).contiguous()
+
+    regs = {"unsharded": rt.make_registry(N_PEERS)}
+    out = {"unsharded": {}}
+    for s in SHARD_COUNTS:
+        mesh, where = shard_mesh(s)
+        regs[s] = rt.make_registry(N_PEERS, mesh=mesh)
+        out[s] = {"mesh": where}
+    for reg in regs.values():
+        fill(reg, clocks)
+        check(len(reg._wide) == 8, f"{len(reg._wide)} promoted rows, "
+                                   f"expected 8")
+    want = regs["unsharded"].classify_all(local)
+    for s in SHARD_COUNTS:
+        reg = regs[s]
+        check(reg.n_shards == s, f"{reg.n_shards} shards, expected {s}")
+        ops.reset_launches()
+        got = reg.classify_all(local)
+        launches = {k: ops.LAUNCHES[k] for k in MAIN_KERNELS}
+        check(launches["one_vs_many_packed"] == s,
+              f"{launches['one_vs_many_packed']} packed launches at {s} shards")
+        check(launches["one_vs_many_i32"] == 1,
+              f"{launches['one_vs_many_i32']} overlay launches at {s} shards")
+        check(got.engine == "packed_sharded+wide_overlay",
+              f"engine {got.engine} at {s} shards")
+        same_view(got, want, f"classify_all at {s} shards")
+        out[s]["launches"] = launches
+        out[s]["blocks"] = {k: ops.LAST_DISPATCH.get(k) for k in ("bn", "bm")}
+    for _ in range(2):
+        for key, reg in regs.items():
+            out[key].setdefault("classify_all_ms", []).extend(
+                classify_ms(reg, local, reps=10))
+    for key, reg in regs.items():
+        sl = reg._slab()
+        if key == "unsharded":
+            fn = lambda i: ops._classify_vs_many_packed(q, sl.cells_u8, sl.base)
+        else:
+            fn = lambda i: ops._classify_vs_many_packed_sharded(
+                q, sl.cells_u8, sl.base, mesh=sl.mesh)
+        out[key]["device_ms"] = events_ms(fn, 1, queued=True)
+
+    def one_round(reg):
+        merged, rep = gossip_round(reg, local, cfg)
+        torch.cuda.synchronize()
+        return (rep, wire.encode_clock(bc.to_wire(merged)),
+                [host(getattr(reg, n)) for n in ("cells_u8", "base", "sums",
+                                                  "alive")])
+
+    want_round = one_round(regs.pop("unsharded"))
+    for s, reg in regs.items():
+        rep, frame, after = one_round(reg)
+        same_round(rep, want_round[0], f"gossip round at {s} shards")
+        check(rep.shards == s, f"report shards {rep.shards}")
+        check(frame == want_round[1], f"merged clock frame at {s} shards")
+        for n, a, b in zip(("cells_u8", "base", "sums", "alive"), after,
+                           want_round[2]):
+            check_equal(a, b, f"slab {n} after push-back at {s} shards")
+    for rec in out.values():
+        ms = rec["classify_all_ms"]
+        rec["classify_all_median_ms"] = float(np.median(ms))
+        rec["classify_all_range_ms"] = [min(ms), max(ms)]
+        del rec["classify_all_ms"]
+    out["device_count"] = torch.cuda.device_count()
+    return out
+
+
+def shard_health_check() -> dict:
+    """``fleet_health`` at 2,048 slots over 4 shards on the card against
+    the unsharded card registry: all-pairs matrices bit-identical and
+    the same health, with tri and the int32 rim launched."""
+    from repro_torch.fleet import fleet_health
+    from repro_torch.kernels import ops
+
+    mesh, where = shard_mesh(4)
+    ref = pairs_registry("cuda", N_SLOTS_CPU)
+    reg = pairs_registry("cuda", N_SLOTS_CPU, mesh=mesh)
+    want = fleet_health(ref)
+    ops.reset_launches()
+    got = fleet_health(reg)
+    launches = {k: ops.LAUNCHES[k] for k in HEALTH_KERNELS}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the sharded "
+                     f"fleet_health")
+    check(got.shards == 4 and "shards=4" in got.summary(), "health shards")
+    gp, wp = reg.all_pairs().to_host(), ref.all_pairs().to_host()
+    check(gp.engine == f"replicated_{wp.engine}",
+          f"engine {gp.engine} vs {wp.engine}")
+    for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+        check_equal(gp[key], wp[key], f"sharded all_pairs {key}")
+    check_equal(got.component, want.component, "sharded fork components")
+    check_equal(got.straggler_mask, want.straggler_mask, "sharded stragglers")
+    check_equal(got.fp_hist, want.fp_hist, "sharded fp histogram")
+    check(got.comparable_fraction == want.comparable_fraction
+          and got.mean_strict_fp == want.mean_strict_fp, "sharded health")
+    return {"mesh": where, "launches": launches, "engine": gp.engine,
+            "health": health_record(got)}
+
+
+def shard_cpu_check() -> dict:
+    """The sharded registry at 4,096 peers over 4 shards on the CPU (the
+    plain versions, given the card's blocks) against the same on the
+    card: classify_all and one gossip round."""
+    import torch
+    from repro_torch.core import clock as bc
+    from repro_torch.fleet import ClockRegistry, GossipConfig, gossip_round
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.runtime import ClockConfig, ClockRuntime
+
+    rows = None
+    res = {}
+    for device in ("cuda", "cpu"):
+        with on(device):
+            rt = ClockRuntime(ClockConfig(m=M, k=K), device=device)
+            for s in range(256):
+                rt.tick_step(s)
+            local = rt.clock
+            if rows is None:
+                rows = make_peers(host(local.logical_cells()), N_SHARD_CPU,
+                                  SEED + 7)
+            zero = torch.zeros((), dtype=torch.int32)
+            reg = ClockRegistry(N_SHARD_CPU, M, K,
+                                mesh=make_fleet_mesh(4, device=device))
+            fill(reg, [bc.BloomClock(torch.from_numpy(r), zero, K)
+                       for r in rows])
+            view = reg.classify_all(local)
+            _, rep = gossip_round(reg, local, GossipConfig())
+            res[device] = (view, rep)
+    (gv, gr), (cv, cr) = res["cuda"], res["cpu"]
+    same_view(gv, cv, "sharded classify_all, card vs CPU", fp_bits=False)
+    same_round(gr, cr, "sharded gossip round, card vs CPU")
+    return {"counts": gv.counts(), "accepted": int(gr.accepted.sum())}
+
+
+def shard_sim_check(want: dict) -> dict:
+    """The audited gossip sim with a registry over 8 shards on the card:
+    fn == 0 and the unsharded card run's counts."""
+    from repro_torch.core.sim import SimConfig, run_gossip_sim
+    from repro_torch.fleet import ClockRegistry
+    from repro_torch.kernels import ops
+
+    mesh, where = shard_mesh(8)
+    factory = lambda cap, m, k: ClockRegistry(cap, m, k, mesh=mesh)
+    ops.reset_launches()
+    r = run_gossip_sim(SimConfig(n_nodes=64, n_events=4000, m=M, k=K),
+                       device="cuda", registry_factory=factory)
+    check(r.false_negatives == 0, "sharded gossip sim: fn != 0")
+    check(ops.LAUNCHES["one_vs_many_packed"] == 8 * r.rounds,
+          f"{ops.LAUNCHES['one_vs_many_packed']} packed launches over "
+          f"{r.rounds} sharded rounds")
+    for key, v in want.items():
+        check(getattr(r, key) == v, f"sharded gossip sim {key} differs")
+    return {"mesh": where, "summary": r.summary()}
+
+
+def shard_phase(sim: dict) -> None:
+    """Phase 4b: drive the sharded registry and print its ``[shard]``
+    lines; ``sim`` holds the unsharded card sim's counts."""
+    shard = drive_shards()
+    u = shard["unsharded"]
+    print(f"[shard] {shard['device_count']} CUDA device(s); unsharded card "
+          f"registry ({N_PEERS} peers, m={M}): classify_all median "
+          f"{u['classify_all_median_ms']} ms (range "
+          f"{json.dumps(u['classify_all_range_ms'])}, 20 calls), one-vs-many "
+          f"device ms {u['device_ms']}")
+    for s in SHARD_COUNTS:
+        r = shard[s]
+        print(f"[shard] s={s} on {r['mesh']}: statuses, sums, fp bits, "
+              f"gossip verdicts, wire bytes and the slab identical to the "
+              f"unsharded card registry; launches a classify_all "
+              f"{json.dumps(r['launches'])} at (bn, bm) "
+              f"{json.dumps(r['blocks'])}; classify_all median "
+              f"{r['classify_all_median_ms']} ms (range "
+              f"{json.dumps(r['classify_all_range_ms'])}, 20 calls); sharded "
+              f"one-vs-many device ms {r['device_ms']}")
+    print(f"[shard] fleet_health at {N_SLOTS_CPU} slots over 4 shards "
+          f"bit-identical to unsharded: {json.dumps(shard_health_check())}")
+    print(f"[shard] {N_SHARD_CPU} peers over 4 shards: card and CPU agree "
+          f"(statuses, sums, gossip verdicts, push-back bytes; fp within "
+          f"tolerance): {json.dumps(shard_cpu_check())}")
+    print(f"[shard] gossip sim over 8 shards on the card: fn=0, the "
+          f"unsharded run's counts: {json.dumps(shard_sim_check(sim))}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the all-pairs path
 # ---------------------------------------------------------------------------
 
-def pairs_registry(device: str, n_slots: int, observer=None):
+def pairs_registry(device: str, n_slots: int, observer=None, mesh=None):
     """A registry of ``n_slots`` peers from ``make_peers`` around a ticked
-    local clock (8 promoted rows), with ~1% of the slots evicted."""
+    local clock (8 promoted rows), with ~1% of the slots evicted; over
+    ``mesh`` when one is given."""
     import torch
     from repro_torch.causal import CausalPolicy
     from repro_torch.core import clock as bc
@@ -1069,7 +1347,7 @@ def pairs_registry(device: str, n_slots: int, observer=None):
     rows = make_peers(host(rt.clock.logical_cells()), n_slots, SEED + 3)
     zero = torch.zeros((), dtype=torch.int32)
     reg = ClockRegistry(n_slots, M, K, policy=CausalPolicy(observer=observer),
-                        device=device)
+                        mesh=mesh, device=device)
     for lo in range(0, n_slots, BATCH):
         reg.admit_many({f"p{i}": bc.BloomClock(torch.from_numpy(rows[i]), zero, K)
                         for i in range(lo, min(lo + BATCH, n_slots))})
@@ -2023,6 +2301,8 @@ SERVE_REPLICA = (1, 4)
 #: one-vs-many slabs of the path: a pipeline batch, the hot tier, a cold
 #: chunk, the warm tier
 SERVE_OVM_N = (256, 4096, 16384, 65536)
+#: hot + warm capacity, the N at which the tiers pin their blocks
+SERVE_PIN_N = 4096 + 65536
 SERVE_KERNELS = ("bloom_tick", "one_vs_many_packed", "one_vs_many_i32")
 #: churn report fields that do not depend on thread timing (batch
 #: boundaries move cache hits, latencies, qps and so promotions and the
@@ -2252,14 +2532,14 @@ def serve_quick() -> dict:
 
 def time_serve(dev) -> dict:
     """The tick at the mint's shape and one-vs-many at m = 256, N = 256
-    (a pipeline batch) and 65,536 (the warm tier): device ms of the
-    kernel, the plain version and (tick) ``scatter_add_``, with bytes
-    and operations."""
+    (a pipeline batch), 65,536 (the warm tier) and 69,632 (hot + warm,
+    where the tiers pin their blocks) at the blocks the table gives that
+    N: device ms of the kernel, the plain version and (tick)
+    ``scatter_add_``, with bytes and operations."""
     import torch
     from repro_torch.kernels import ops, ref
 
     g = np.random.default_rng(SEED + 21)
-    bm = ops.tile_width(SERVE_M, 512)
     out = {}
     B, E = SERVE_MINT
     P = E * K
@@ -2277,15 +2557,19 @@ def time_serve(dev) -> dict:
                        plain_ms=p["ms"], library_ms=min(lib_in, lib_out),
                        scatter_add_ms=lib_in, scatter_add_out_ms=lib_out,
                        bytes=nbytes, ops=B * SERVE_M + B * P)
-    for N in (SERVE_OVM_N[0], SERVE_OVM_N[-1]):
+    for N in (SERVE_OVM_N[0], SERVE_OVM_N[-1], SERVE_PIN_N):
         nbytes = N * SERVE_M + N * 4 + SERVE_M * 4 + N * ROW_OUT_BYTES
         nb = n_buffers(nbytes)
         slabs = [serve_slab(g, N, dev) for _ in range(nb)]
-        k = measure(lambda i: ops._classify_vs_many_packed(*slabs[i]), nb)
-        p = measure(lambda i: ref.one_vs_many_ref(*slabs[i], bm=bm), nb, iters=10)
-        out[f"packed_{N}"] = dict(N=N, ms=k["ms"], call_ms=k["call_ms"],
-                                  plain_ms=p["ms"], library_ms=None,
-                                  bytes=nbytes, ops=N * SERVE_M * 5)
+        bn, bm_n = ops._one_vs_many_blocks(N, SERVE_M, None, None, "cuda")
+        k = measure(lambda i: ops._classify_vs_many_packed(*slabs[i], bn=bn,
+                                                           bm=bm_n), nb)
+        p = measure(lambda i: ref.one_vs_many_ref(
+            *slabs[i], bm=ops.tile_width(SERVE_M, bm_n)), nb, iters=10)
+        out[f"packed_{N}"] = dict(N=N, blocks=[bn, bm_n], ms=k["ms"],
+                                  call_ms=k["call_ms"], plain_ms=p["ms"],
+                                  library_ms=None, bytes=nbytes,
+                                  ops=N * SERVE_M * 5)
     return out
 
 
@@ -2312,6 +2596,11 @@ _SOURCES = {
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--shard-only"]):
+        print("usage: chip_smoke.py [--shard-only]", file=sys.stderr)
+        return 2
+    shard_only = bool(args)
     try:
         import torch
     except ImportError:
@@ -2337,6 +2626,13 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
 
     print(f"[build] all kernels built in {build():.1f} s")
+    if shard_only:
+        shard_phase(sim_check())
+        print(card)
+        print(json.dumps({"ok": True, "phase": "shard",
+                          "device": {"platform": "gpu", "kind": name,
+                                     "count": count}}))
+        return 0
     sass = sass_counts()
     for kname, c in sass.items():
         unit = "cell" if kname in _SASS_ROWS else "(pair, lane)"
@@ -2367,6 +2663,8 @@ def main() -> int:
     print(f"[trace] one more gossip round on the card, under the profiler: "
           f"{json.dumps(profile_round(gpu['rt'], gpu['reg']))}")
     del gpu["rt"], gpu["reg"], cpu
+
+    shard_phase(sim)
 
     health = drive_health(dev)
     print(f"[pairs] fleet_health at {N_SLOTS} slots on the card: "
@@ -2555,7 +2853,7 @@ def main() -> int:
         t_bytes = r["bytes"] / rate * 1e3
         t_ops = r["ops"] / INT_OPS * 1e3
         what = (f"bloom_tick B={r['B']} P={r['P']} probes" if key == "tick"
-                else f"one_vs_many_packed N={r['N']}")
+                else f"one_vs_many_packed N={r['N']} (bn, bm) {r['blocks']}")
         print(f"[time] serve {what} m={SERVE_M}: kernel {r['ms']} ms (call "
               f"{r['call_ms']} ms), plain {r['plain_ms']} ms, library "
               f"{r['library_ms']} ms"

@@ -5,7 +5,8 @@ code is PyTorch; every Pallas TPU kernel on the ported path is a CUDA
 C++ kernel for ``sm_90a`` (``repro_torch.kernels.csrc``), built with
 ``nvcc`` at first use and bound with ``ctypes``.
 
-Ported so far (the main path, all-pairs, hybrid, serving):
+Ported so far (the main path, all-pairs, hybrid, serving, the sharded
+fleet registry):
 
 - ``core``     hashing, the clock, wire frames, history, vector clock,
                the simulator (loopback gossip only)
@@ -14,8 +15,11 @@ Ported so far (the main path, all-pairs, hybrid, serving):
                rect-i32-stats and mxu kernels
 - ``causal``   policy, typed results, ``CausalEngine.classify``/``pairs``
 - ``obs``      trace spans, metrics, audit trail, trace export
-- ``fleet``    the registry slab (with its eviction hook), gossip, the
-               loopback transport, the fleet monitor
+- ``fleet``    the registry slab (with its eviction hook; on one device
+               or row-sharded over a fleet mesh), gossip, the loopback
+               transport, the fleet monitor
+- ``launch``   the fleet mesh (``make_fleet_mesh``), with ``sharding``'s
+               slot-to-shard helpers
 - ``hybrid``   ``HybridEngine`` (exact hot set over the packed tail) and
                the fp-budget ``AdaptivePolicy``
 - ``serve``    the tiered registry (hot card slab, pinned warm tier, cold

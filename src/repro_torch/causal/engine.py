@@ -13,13 +13,18 @@ A hot-carrying slab (``repro_torch.hybrid.HybridSlab``, duck typed on
 takes the same inputs but hot-carrying slabs: a slab is compared
 symmetrically, with dead slots compacted away and promoted rows patched
 in through the exact int32 rim; an int32 slab is packed on the fly when
-its value span fits a byte.  The sharded paths of the reference are not
-ported yet.
+its value span fits a byte.
+
+A sharded slab (``PackedSlab.mesh`` set, one tensor a row shard) runs
+``classify`` once a shard and ``pairs`` on a replica gathered onto
+``mesh.devices[0]`` (the reference's "replicated" strategy); every
+result is bit-identical to the unsharded slab's and lives on
+``mesh.devices[0]``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -53,21 +58,35 @@ class PackedSlab:
     promoted slot (span beyond a byte, or a near-wrap base) to its host
     int32 logical row; those rows are compared exactly.  ``base_host``
     (optional) lets ``pairs`` probe base uniformity without a device
-    sync.
+    sync.  With a ``mesh`` (``launch.mesh.FleetMesh``), ``cells_u8`` and
+    ``base`` are tuples of per-shard tensors in slot order, shard i on
+    ``mesh.devices[i]``; ``wide`` and ``base_host`` keep global slots.
     """
 
-    cells_u8: torch.Tensor                    # [N, m] uint8 residuals
-    base: torch.Tensor                        # [N] int32 offsets
+    cells_u8: torch.Tensor | tuple            # [N, m] uint8 residuals
+    base: torch.Tensor | tuple                # [N] int32 offsets
     base_host: Optional[np.ndarray] = None    # host copy of ``base``
     wide: dict = dataclasses.field(default_factory=dict)
+    mesh: Any = None
 
     @property
     def capacity(self) -> int:
+        if self.mesh is not None:
+            return sum(c.shape[0] for c in self.cells_u8)
         return self.cells_u8.shape[0]
 
     @property
     def m(self) -> int:
+        if self.mesh is not None:
+            return self.cells_u8[0].shape[1]
         return self.cells_u8.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        """Where results land: the slab's device, or the mesh's first."""
+        if self.mesh is not None:
+            return self.mesh.devices[0]
+        return self.cells_u8.device
 
     @property
     def packed(self) -> bool:
@@ -104,7 +123,8 @@ class CausalEngine:
         with the autotune table's hits and misses during it."""
         obs = self.obs
         span.set(engine=res.engine, n=n,
-                 blocks=dict(res.blocks) if res.blocks else None)
+                 blocks=dict(res.blocks) if res.blocks else None,
+                 shards=self.policy.shards)
         obs.metrics.counter("engine_dispatch", verb=verb,
                             engine=res.engine).inc()
         hits = autotune.CACHE_STATS["hit"] - tune0[0]
@@ -117,8 +137,8 @@ class CausalEngine:
     def classify(self, query, peers, *, bn: int | None = None,
                  bm: int | None = None) -> ClassifyResult:
         """Classify one query clock against N peers in one kernel call
-        (plus one for promoted rows).  The query moves to the peers'
-        device."""
+        (one a row shard on a sharded slab), plus one for promoted rows.
+        The query moves to the peers' device (every shard's)."""
         obs = self.obs
         if not obs:
             return self._classify(query, peers, bn=bn, bm=bm)
@@ -137,13 +157,18 @@ class CausalEngine:
         bm = bm if bm is not None else pol.bm
         ops.LAST_DISPATCH.clear()
         if isinstance(peers, PackedSlab):
-            q = _as_cells(query).to(peers.cells_u8.device).contiguous()
+            q = _as_cells(query).to(peers.device).contiguous()
             hot_meta = getattr(peers, "hot_meta", None)
             if hot_meta is not None and np.shape(hot_meta)[0] > 0:
                 return self._classify_hybrid(q, peers, bn, bm)
-            out = ops._classify_vs_many_packed(
-                q, peers.cells_u8, peers.base, bn=bn, bm=bm,
-                use_autotune=pol.autotune)
+            if peers.mesh is not None:
+                out = ops._classify_vs_many_packed_sharded(
+                    q, peers.cells_u8, peers.base, mesh=peers.mesh, bn=bn,
+                    bm=bm, use_autotune=pol.autotune)
+            else:
+                out = ops._classify_vs_many_packed(
+                    q, peers.cells_u8, peers.base, bn=bn, bm=bm,
+                    use_autotune=pol.autotune)
             engine, blocks = _dispatch_label("packed")
             if peers.wide:
                 widx = sorted(peers.wide)
@@ -251,12 +276,14 @@ class CausalEngine:
     def _pairs_slab(self, slab: PackedSlab, alive, engine, bi, bj, bm,
                     uniform_base) -> ComparisonMatrix:
         cap = slab.capacity
-        dev = slab.cells_u8.device
+        dev = slab.device
         alive = (np.ones(cap, bool) if alive is None
                  else np.asarray(alive, bool))
         aidx = np.flatnonzero(alive)
         kw = dict(engine=engine, bi=bi, bj=bj, bm=bm,
                   use_autotune=self.policy.autotune)
+        if slab.mesh is not None and aidx.size:
+            return self._pairs_replicated(slab, alive, uniform_base, kw)
         if aidx.size == 0:
             false = torch.zeros((cap, cap), dtype=torch.bool, device=dev)
             zeros = torch.zeros((cap,), dtype=torch.float32, device=dev)
@@ -283,6 +310,21 @@ class CausalEngine:
             return ComparisonMatrix.from_dict(
                 _expand_alive(sub, jidx, cap), engine=eng, blocks=blocks)
         return self._host_pairs(slab, alive, aidx, **kw)
+
+    def _pairs_replicated(self, slab: PackedSlab, alive: np.ndarray,
+                          uniform_base, kw: dict) -> ComparisonMatrix:
+        """A sharded slab's pairs by the "replicated" strategy: the
+        single-device assembly (dead-slot compaction, the int32 rim) runs
+        unchanged on the replica gathered onto ``mesh.devices[0]``.  The
+        engine label is ``replicated_<engine>``."""
+        cells, base = ops._replicate(slab.cells_u8, slab.base, mesh=slab.mesh)
+        res = self._pairs_slab(
+            PackedSlab(cells, base, base_host=slab.base_host, wide=slab.wide),
+            alive, kw["engine"], kw["bi"], kw["bj"], kw["bm"], uniform_base)
+        return dataclasses.replace(
+            res, engine=f"replicated_{res.engine}",
+            blocks=(*(res.blocks or ()), ("shards", len(slab.mesh.devices)),
+                    ("strategy", "replicated")))
 
     @staticmethod
     def _uniform_base(slab: PackedSlab, alive: np.ndarray) -> bool | None:

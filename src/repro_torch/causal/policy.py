@@ -6,12 +6,15 @@ all-pairs engine not set here resolve, as in the reference, through the
 measured table of ``kernels.autotune`` (unless ``autotune`` is False),
 else to built-in defaults (one-vs-many bn=8, bm=512; all-pairs 64 x 64
 pairs a CUDA block, bm=512; the engine the reference picks when its
-table is silent).
+table is silent).  A ``mesh`` (``launch.mesh.FleetMesh``) shards slab
+comparisons over its devices, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+from repro_torch.sharding import FLEET_AXIS
 
 __all__ = ["CausalPolicy"]
 
@@ -27,6 +30,11 @@ class CausalPolicy:
                    ask for a packed engine, "i32" for the int32 kernel.
     pack           pack int32 all-pairs inputs on the fly when their value
                    span fits a byte (False pins the int32 kernel).
+    mesh / axis    a ``launch.mesh.FleetMesh`` and its axis: slab
+                   comparisons run per row shard (one-vs-many once a
+                   shard) or on a gathered replica (all-pairs), with
+                   results bit-identical to one device at every shard
+                   count.
     bi / bj        all-pairs CUDA tile, pairs per block along rows / cols
                    (32, 64 or 128; None = the table's, else 64).  They
                    change no result.
@@ -45,6 +53,8 @@ class CausalPolicy:
     fp_threshold: float = 1e-4
     engine: Optional[str] = None
     pack: bool = True
+    mesh: Any = None
+    axis: str = FLEET_AXIS
     bi: Optional[int] = None
     bj: Optional[int] = None
     bm: Optional[int] = None
@@ -57,6 +67,19 @@ class CausalPolicy:
             raise ValueError(
                 f"unknown engine {self.engine!r}; pick one of {_ENGINES}")
 
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[self.axis]
+
+    def merged(self, **overrides) -> "CausalPolicy":
+        """Policy with the non-None overrides applied (per-call knobs)."""
+        kept = {k: v for k, v in overrides.items() if v is not None}
+        return dataclasses.replace(self, **kept) if kept else self
+
     def label(self) -> str:
         """Compact human/JSON descriptor (bench records, dashboards)."""
         parts = [f"fp<={self.fp_threshold:g}",
@@ -65,6 +88,8 @@ class CausalPolicy:
             parts.append("pack=off")
         if not self.autotune:
             parts.append("autotune=off")
+        if self.mesh is not None:
+            parts.append(f"shards={self.shards}:{self.axis}")
         blocks = {k: v for k, v in
                   (("bi", self.bi), ("bj", self.bj),
                    ("bm", self.bm), ("bn", self.bn)) if v is not None}

@@ -40,9 +40,10 @@ def history_from_state(cells, sums, count, k: int,
                         count=_t(count, np.int32, device), k=int(k))
 
 
-def registry_from_state(state: dict, m: int, k: int = 4, *, policy=None,
-                        device=None):
-    """A ``ClockRegistry`` holding the JAX registry's slab.
+def registry_from_state(state: dict, m: int, k: int = 4, *, mesh=None,
+                        policy=None, device=None):
+    """A ``ClockRegistry`` holding the JAX registry's slab, on one device
+    or row-sharded over ``mesh`` (``launch.mesh.FleetMesh``).
 
     ``state`` keys: ``cells_u8`` [N, m] uint8, ``base`` [N] int32,
     ``sums`` [N] float32, ``alive`` [N] bool, ``slot_of`` {peer: slot},
@@ -56,12 +57,11 @@ def registry_from_state(state: dict, m: int, k: int = 4, *, policy=None,
     capacity = cells_u8.shape[0]
     if cells_u8.shape != (capacity, m):
         raise ValueError(f"cells_u8 shape {cells_u8.shape} != ({capacity}, {m})")
-    reg = ClockRegistry(capacity, m, k, policy=policy, device=device)
-    reg.cells_u8.copy_(_t(cells_u8, np.uint8, reg.device))
-    reg.base.copy_(_t(state["base"], np.int32, reg.device))
-    reg.sums.copy_(_t(state["sums"], np.float32, reg.device))
+    reg = ClockRegistry(capacity, m, k, mesh=mesh, policy=policy,
+                        device=device)
     alive = np.asarray(state["alive"], bool)
-    reg.alive.copy_(_t(alive, np.bool_, reg.device))
+    reg._load(cells_u8, np.asarray(state["base"], np.int32),
+              np.asarray(state["sums"], np.float32), alive)
     reg._alive_host = alive.copy()
     reg._base_host = np.asarray(state["base"], np.int64).copy()
     reg._crc_host = np.asarray(state["crc"], np.int64).copy()

@@ -16,6 +16,7 @@ for a clock on the card, its plain version on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ __all__ = [
     "tick",
     "merge",
     "ordering",
+    "compare",
     "fp_rate",
     "compress",
     "decompress",
@@ -70,6 +72,9 @@ class BloomClock:
 
     def logical_cells(self) -> torch.Tensor:
         return self.cells + self.base[..., None].to(self.cells.dtype)
+
+    def sum(self) -> torch.Tensor:
+        return clock_sum(self)
 
 
 def zeros(m: int, k: int = 4, batch_shape: tuple = (), dtype=torch.int32,
@@ -155,6 +160,17 @@ def ordering(a: BloomClock, b: BloomClock) -> Ordering:
         fp_a_before_b=fp_rate(sa, sb, a.m),
         fp_b_before_a=fp_rate(sb, sa, a.m),
     )
+
+
+def compare(a: BloomClock, b: BloomClock) -> Ordering:
+    """DEPRECATED alias of ``ordering``; use ``repro_torch.causal.compare``
+    (typed ``Comparison``) or ``ordering`` directly."""
+    warnings.warn(
+        "repro_torch.core.clock.compare is deprecated; use "
+        "repro_torch.causal.compare (typed Comparison results) or "
+        "repro_torch.core.clock.ordering",
+        DeprecationWarning, stacklevel=2)
+    return ordering(a, b)
 
 
 def compress(c: BloomClock) -> BloomClock:

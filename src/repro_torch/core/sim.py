@@ -23,7 +23,7 @@ from repro_torch.core import clock as bc
 from repro_torch.core.hashing import bloom_indices
 
 __all__ = ["SimConfig", "SimResult", "run_sim",
-           "GossipSimResult", "run_gossip_sim"]
+           "GossipSimResult", "run_gossip_sim", "monte_carlo_overlap"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +192,8 @@ class GossipSimResult:
 
 
 def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
-                   gossip_cfg=None, transport: str = "loopback",
+                   gossip_cfg=None, registry_factory=None,
+                   transport: str = "loopback",
                    device=None) -> GossipSimResult:
     """Replay a random execution and interleave real fleet gossip rounds
     at node ``observer``, scoring every verdict against the exact
@@ -201,6 +202,11 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
     clocks contradict are false positives, whose measured rate must sit
     within the Eq. 3 band; accepted merges (and the push-back) are
     applied to both clock families so causality stays aligned.
+
+    ``registry_factory(capacity, m, k) -> ClockRegistry`` swaps the
+    observer's registry construction (default: one slab on ``device``);
+    a mesh-backed factory runs every audited verdict through the
+    sharded paths.  ``device`` places the replayed clocks.
     """
     from repro_torch.causal import CausalPolicy
     from repro_torch.device import resolve_device
@@ -220,7 +226,10 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
     n, m, k = cfg.n_nodes, cfg.m, cfg.k
     idx = _event_probe_indices(cfg)
 
-    registry = fr.ClockRegistry(max(8, n), m, k, device=device)
+    if registry_factory is None:
+        registry_factory = lambda cap, mm, kk: fr.ClockRegistry(
+            cap, mm, kk, device=device)
+    registry = registry_factory(max(8, n), m, k)
     peers = [p for p in range(n) if p != observer]
     # the instrumentation observer (not the observer NODE above): when
     # present, every audited verdict gets its ground truth attached
@@ -319,3 +328,16 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
         transport=tp.name,
         pushback_bytes=pushback_bytes,
     )
+
+
+def monte_carlo_overlap(m: int, sum_a: int, sum_b: int, trials: int,
+                        seed: int = 0) -> float:
+    """Empirical probability that a random clock with ``sum_b``
+    increments cell-wise dominates an independent random clock with
+    ``sum_a`` increments: the quantity Eq. 3 approximates (the paper's
+    m=6, ΣB=10, ΣA=7 -> 0.29 example).  numpy's ``default_rng(seed)``
+    draws, so the same arguments give the reference's float."""
+    rng = np.random.default_rng(seed)
+    a_cells = rng.multinomial(sum_a, np.full(m, 1.0 / m), size=trials)
+    b_cells = rng.multinomial(sum_b, np.full(m, 1.0 / m), size=trials)
+    return float(np.mean(np.all(a_cells <= b_cells, axis=1)))

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["indexed_device", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -18,3 +18,12 @@ def resolve_device(device=None) -> torch.device:
                 "versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def indexed_device(device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` -> ``cuda:<current>``),
+    so that it compares equal to the device of a tensor placed there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

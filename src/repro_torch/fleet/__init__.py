@@ -2,7 +2,7 @@
 
 - ``registry``  — fixed-capacity slab of peer clocks with batched
   admit/evict/update, a one-kernel-call ``classify_all`` and
-  ``all_pairs``;
+  ``all_pairs``, on one device or row-sharded over a fleet mesh;
 - ``gossip``    — anti-entropy round config/report + the loopback round;
 - ``transport`` — the session protocol over the loopback transport;
 - ``monitor``   — fleet health (fork components, stragglers, the fp
@@ -16,6 +16,7 @@ from repro_torch.fleet.registry import (
     SAME,
     STATUS_NAMES,
     ClockRegistry,
+    EvictedRow,
     FleetView,
     view_from_classify,
 )
@@ -35,6 +36,7 @@ from repro_torch.fleet.transport import (
 
 __all__ = [
     "ClockRegistry",
+    "EvictedRow",
     "FleetView",
     "view_from_classify",
     "GossipConfig",

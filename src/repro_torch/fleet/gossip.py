@@ -61,6 +61,7 @@ class GossipReport:
     digest_bytes: int = 0         # MEASURED inbound digest-exchange bytes
     delta_bytes: int = 0          # MEASURED inbound delta-frame bytes
     transport: str = "loopback"   # fabric the session ran over
+    shards: int = 1               # row shards the registry slab spans
     unreachable: tuple = ()       # peers skipped mid-session
     corrupted: tuple = ()         # rows that failed the CRC integrity check
 

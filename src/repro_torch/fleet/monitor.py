@@ -52,13 +52,21 @@ class FleetHealth:
     mean_strict_fp: float         # mean Eq. 3 fp over STRICT ordered pairs
                                   # (dominance holds, clocks differ);
                                   # 0.0 when no strict pair exists
+    shards: int = 1               # row shards the registry slab spans
+
+    @property
+    def mean_predicted_fp(self) -> float:
+        """The reference's older name of ``mean_strict_fp`` (the value
+        was always over strict pairs only)."""
+        return self.mean_strict_fp
 
     def summary(self) -> str:
         return (
             f"alive={self.n_alive} components={self.n_components} "
             f"comparable={self.comparable_fraction:.3f} "
             f"stragglers={int(self.straggler_mask.sum())} "
-            f"mean_strict_fp={self.mean_strict_fp:.3e}"
+            f"mean_strict_fp={self.mean_strict_fp:.3e} "
+            f"shards={self.shards}"
         )
 
 
@@ -168,6 +176,7 @@ def fleet_health(registry, *, straggler_gap: float = 64.0, fp_bins: int = 12,
         fp_hist=hist,
         fp_bin_edges=edges,
         mean_strict_fp=float(fps.mean()) if fps.size else 0.0,
+        shards=registry.n_shards,
     )
 
 
@@ -199,7 +208,7 @@ def watch(registry, *, interval: float = 5.0, samples: Optional[int] = None,
                   else registry.policy.observer)
     taken = 0
     while samples is None or taken < samples:
-        with obs.trace.span("fleet.health"):
+        with obs.trace.span("fleet.health", shards=registry.n_shards):
             health = fleet_health(registry, **health_kw)
         record_health(health, obs.metrics)
         taken += 1

@@ -1,7 +1,7 @@
 """ClockRegistry: a fixed-capacity quantized slab of peer bloom clocks.
 
-Peer state lives in four tensors on the registry's device, the §4
-packed layout (``kernels.pack``):
+Peer state lives in four tensors, the §4 packed layout
+(``kernels.pack``):
 
     cells_u8 [N, m] uint8  window-relative residuals per slot
     base     [N]    int32  per-slot window offset (logical = base + u8)
@@ -20,8 +20,20 @@ DESCENDANT: local ≼ peer; FORKED: concurrent (exact, paper §3).
 
 ``on_evict`` hands the live rows an ``evict_many`` frees to a hook as
 ``EvictedRow`` objects (the tiered store of ``repro_torch.serve``
-demotes through it).  The mesh-sharded slab of the reference is not
-ported yet.
+demotes through it).
+
+**Sharded mode** (``ClockRegistry(..., mesh=make_fleet_mesh(d))``): the
+slab is ``d`` row shards (``RowShard``), shard i holding slots
+``[i N/d, (i + 1) N/d)`` in its own four tensors on ``mesh.devices[i]``.
+One registry in one process drives every shard, as the reference's
+single controller does.  Every mutation writes each row to its owning
+shard, one indexed write a shard a batch; ``classify_all`` runs the
+packed one-vs-many kernel once a shard (the query replicated, blocks
+resolved at full N) and ``all_pairs`` the single-device engines on a
+replica gathered onto ``mesh.devices[0]``.  Both are bit-identical to
+the unsharded slab at every shard count, and results that are not per
+shard live on ``mesh.devices[0]`` (``device``).  The host mirrors
+(alive, bases, CRCs, promoted rows) keep global slots.
 """
 from __future__ import annotations
 
@@ -34,14 +46,16 @@ import torch
 from repro_torch.causal import CausalEngine, CausalPolicy, PackedSlab
 from repro_torch.core import clock as bc
 from repro_torch.core import wire
-from repro_torch.device import resolve_device
+from repro_torch.device import indexed_device, resolve_device
 from repro_torch.kernels import pack
 from repro_torch.obs.observer import resolve
+from repro_torch.sharding import FLEET_AXIS, shard_rows, slot_groups, split_rows
 
 __all__ = [
     "ClockRegistry",
     "EvictedRow",
     "FleetView",
+    "RowShard",
     "view_from_classify",
     "DEAD",
     "ANCESTOR",
@@ -111,6 +125,9 @@ class FleetView:
     local_sum: float          # the query clock's total increments
     engine: str = ""          # dispatch label that produced this view
 
+    def slots(self, code: int) -> np.ndarray:
+        return np.flatnonzero(self.status == code)
+
     def counts(self) -> dict[str, int]:
         return {name: int(np.sum(self.status == code))
                 for code, name in STATUS_NAMES.items()}
@@ -152,13 +169,14 @@ def _scatter_rows(cells_u8, base, sums, alive, idx, new_u8, new_base,
     alive[idx] = True
 
 
-def _union_rows_packed(cells_u8, base, mask, local_cells) -> torch.Tensor:
-    """max(local, max over masked logical rows) by the wrap-safe
-    ``local + relu(row - local)`` derivation."""
+def _union_gain(cells_u8, base, mask, local_cells) -> torch.Tensor:
+    """max over masked logical rows of relu(row - local): the gain of the
+    wrap-safe union ``local + relu(row - local)``; max is associative,
+    so the gains of row shards combine by another max."""
     logical = cells_u8.to(torch.int32) + base[:, None]
     gain = torch.where(mask[:, None], torch.clamp(logical - local_cells, min=0),
                        0)
-    return local_cells + gain.amax(0)
+    return gain.amax(0)
 
 
 def _broadcast_rows(cells_u8, base, sums, mask, row_u8, row_base,
@@ -169,23 +187,77 @@ def _broadcast_rows(cells_u8, base, sums, mask, row_u8, row_base,
     sums[mask] = row_sum
 
 
-class ClockRegistry:
-    """Peer clock registry: one slab on one device."""
+@dataclasses.dataclass
+class RowShard:
+    """One row shard of the slab: its four tensors on its device."""
 
-    def __init__(self, capacity: int, m: int, k: int = 4, *,
-                 policy: CausalPolicy | None = None, device=None):
+    cells_u8: torch.Tensor    # [rows, m] uint8
+    base: torch.Tensor        # [rows] int32
+    sums: torch.Tensor        # [rows] float32
+    alive: torch.Tensor       # [rows] bool
+
+    @classmethod
+    def zeros(cls, rows: int, m: int, device) -> "RowShard":
+        return cls(
+            cells_u8=torch.zeros((rows, m), dtype=torch.uint8, device=device),
+            base=torch.zeros((rows,), dtype=torch.int32, device=device),
+            sums=torch.zeros((rows,), dtype=torch.float32, device=device),
+            alive=torch.zeros((rows,), dtype=torch.bool, device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.cells_u8.device
+
+
+def _take(x: torch.Tensor, pos, device) -> torch.Tensor:
+    """Rows ``pos`` of ``x`` (all of them for None), on ``device``."""
+    if pos is not None:
+        x = x.index_select(0, torch.as_tensor(pos, device=x.device))
+    return x.to(device, non_blocking=True)
+
+
+class ClockRegistry:
+    """Peer clock registry: one slab on one device, or row shards over
+    a ``launch.mesh.FleetMesh``."""
+
+    def __init__(self, capacity: int, m: int, k: int = 4, *, mesh=None,
+                 axis: str = FLEET_AXIS, policy: CausalPolicy | None = None,
+                 device=None):
         self.capacity = capacity
         self.m = m
         self.k = k
-        self.device = resolve_device(device)
-        self.policy = policy if policy is not None else CausalPolicy()
+        # the mesh and axis fold into the policy (explicit arguments win),
+        # and every comparison goes through the resulting engine
+        base_policy = policy if policy is not None else CausalPolicy()
+        if mesh is None:
+            mesh = base_policy.mesh
+            if mesh is not None and axis == FLEET_AXIS:
+                axis = base_policy.axis
+        self.policy = (base_policy
+                       if (base_policy.mesh, base_policy.axis) == (mesh, axis)
+                       else dataclasses.replace(base_policy, mesh=mesh,
+                                                axis=axis))
         self.engine = CausalEngine(self.policy)
         self.obs = resolve(self.policy.observer)
-        dev = self.device
-        self.cells_u8 = torch.zeros((capacity, m), dtype=torch.uint8, device=dev)
-        self.base = torch.zeros((capacity,), dtype=torch.int32, device=dev)
-        self.sums = torch.zeros((capacity,), dtype=torch.float32, device=dev)
-        self.alive = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+        self.mesh = mesh
+        self.axis = axis if mesh is not None else None
+        if mesh is None:
+            self.device = resolve_device(device)
+            devices = (self.device,)
+        else:
+            shards = mesh.shape[axis]
+            if capacity % shards:
+                raise ValueError(
+                    f"capacity {capacity} not divisible by mesh axis "
+                    f"{axis!r} extent {shards}")
+            devices = tuple(mesh.devices)
+            self.device = devices[0]
+            if (device is not None
+                    and indexed_device(device) != self.device):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {self.device}")
+        self._rows = capacity // len(devices)
+        self.shards = [RowShard.zeros(self._rows, m, d) for d in devices]
         self._alive_host = np.zeros(capacity, bool)
         self._base_host = np.zeros(capacity, np.int64)
         # per-slot CRC32 of the logical cells, written at every mutation:
@@ -199,6 +271,83 @@ class ClockRegistry:
         #: with every ALIVE row an ``evict_many`` frees; quarantined
         #: rows are never handed out
         self.on_evict: Optional[Callable[[dict], None]] = None
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def _whole(self, name: str) -> torch.Tensor:
+        parts = [getattr(sh, name) for sh in self.shards]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device, non_blocking=True) for p in parts])
+
+    # the slab's tensors: on one device the registry's own, which it
+    # writes in place; on a mesh a copy on ``device``, gathered in slot
+    # order (mutate through the registry's methods)
+    @property
+    def cells_u8(self) -> torch.Tensor:
+        return self._whole("cells_u8")
+
+    @property
+    def base(self) -> torch.Tensor:
+        return self._whole("base")
+
+    @property
+    def sums(self) -> torch.Tensor:
+        return self._whole("sums")
+
+    @property
+    def alive(self) -> torch.Tensor:
+        return self._whole("alive")
+
+    def _groups(self, slots) -> list:
+        """``(shard, local rows on its device, positions in the batch)``
+        for each shard ``slots`` touch (positions None: the whole batch),
+        so each shard takes one indexed write."""
+        if self.mesh is None:
+            sh = self.shards[0]
+            return [(sh, torch.as_tensor(slots, device=sh.device), None)]
+        return [(self.shards[i], torch.as_tensor(local, device=self.shards[i].device),
+                 pos) for i, local, pos in slot_groups(slots, self._rows)]
+
+    def _rows_of(self, slots, *names: str) -> list:
+        """Rows ``slots`` of the named slab tensors, in that order, on
+        ``device``: one gather a shard."""
+        if self.mesh is None:
+            j = torch.as_tensor(slots, device=self.device)
+            return [getattr(self.shards[0], n).index_select(0, j) for n in names]
+        out = []
+        for n in names:
+            t = getattr(self.shards[0], n)
+            out.append(torch.empty((len(slots),) + tuple(t.shape[1:]),
+                                   dtype=t.dtype, device=self.device))
+        for sh, local, pos in self._groups(slots):
+            at = torch.as_tensor(pos, device=self.device)
+            for o, n in zip(out, names):
+                o[at] = getattr(sh, n).index_select(0, local).to(
+                    self.device, non_blocking=True)
+        return out
+
+    def _shard_masks(self, mask_h: np.ndarray):
+        """(shard, its slice of the host mask) for each shard with a set
+        slot."""
+        for i, sh in enumerate(self.shards):
+            part = mask_h[i * self._rows:(i + 1) * self._rows]
+            if part.any():
+                yield sh, part
+
+    def _load(self, cells_u8: np.ndarray, base: np.ndarray, sums: np.ndarray,
+              alive: np.ndarray) -> None:
+        """Replace every slab tensor by host arrays in slot order."""
+        devices = [sh.device for sh in self.shards]
+        for name, x in (("cells_u8", cells_u8), ("base", base),
+                        ("sums", sums), ("alive", alive)):
+            for sh, part in zip(self.shards,
+                                split_rows(torch.from_numpy(np.array(x)),
+                                           devices)):
+                setattr(sh, name, part)
+        self._mat = None
 
     # ---- membership ----
     def __len__(self) -> int:
@@ -223,6 +372,12 @@ class ClockRegistry:
         """True when every row is in the u8 fast-path representation."""
         return not self._wide
 
+    @property
+    def cells(self) -> torch.Tensor:
+        """Materialized int32 logical cells [capacity, m] on ``device``
+        (debug view; on a mesh the shards unpacked in slot order)."""
+        return self._materialized()
+
     def _materialized(self) -> torch.Tensor:
         if self._mat is None:
             mat = pack.unpack_rows(self.cells_u8, self.base)
@@ -234,8 +389,14 @@ class ClockRegistry:
         return self._mat
 
     def _slab(self) -> PackedSlab:
-        return PackedSlab(self.cells_u8, self.base, base_host=self._base_host,
-                          wide=self._wide)
+        if self.mesh is None:
+            sh = self.shards[0]
+            return PackedSlab(sh.cells_u8, sh.base, base_host=self._base_host,
+                              wide=self._wide)
+        return PackedSlab(tuple(sh.cells_u8 for sh in self.shards),
+                          tuple(sh.base for sh in self.shards),
+                          base_host=self._base_host, wide=self._wide,
+                          mesh=self.mesh)
 
     # ---- batched mutation ----
     def admit_many(self, peers: dict) -> dict:
@@ -283,7 +444,8 @@ class ClockRegistry:
         with self.obs.trace.span("registry.evict", n=len(idx)):
             for pid in peer_ids:
                 del self._slot_of[pid]
-            self.alive[torch.as_tensor(idx, device=self.device)] = False
+            for sh, local, _ in self._groups(idx):
+                sh.alive[local] = False
             self._alive_host[idx] = False
             for slot in idx:
                 self._wide.pop(slot, None)
@@ -302,10 +464,9 @@ class ClockRegistry:
                 if self._alive_host[slot]]
         if not live:
             return None
-        jidx = torch.as_tensor([slot for _, slot in live], device=self.device)
-        sums = self.sums.index_select(0, jidx)
-        rows = torch.cat([self.cells_u8.index_select(0, jidx),
-                          sums.view(torch.uint8).reshape(len(live), 4)], 1)
+        u8, sums = self._rows_of([slot for _, slot in live], "cells_u8",
+                                 "sums")
+        rows = torch.cat([u8, sums.view(torch.uint8).reshape(len(live), 4)], 1)
         rows = rows.cpu().numpy()
         u8, sums = rows[:, :self.m], rows[:, self.m:].copy().view(np.float32)
         return {
@@ -335,9 +496,11 @@ class ClockRegistry:
                                             device=self.device),
             k=clocks[0].k))
         new_u8, new_base, ok = pack.pack_rows(logical)
-        _scatter_rows(self.cells_u8, self.base, self.sums, self.alive,
-                      torch.as_tensor(idx, device=self.device), new_u8,
-                      new_base, new_sums)
+        for sh, local, pos in self._groups(idx):
+            dev = sh.device
+            _scatter_rows(sh.cells_u8, sh.base, sh.sums, sh.alive, local,
+                          _take(new_u8, pos, dev), _take(new_base, pos, dev),
+                          _take(new_sums, pos, dev))
         ok_h = ok.cpu().numpy()
         base_h = new_base.cpu().numpy()
         nw_h = _near_wrap(base_h)
@@ -386,7 +549,8 @@ class ClockRegistry:
         idx = [self._slot_of[pid] for pid in peer_ids]
         if not idx:
             return
-        self.alive[torch.as_tensor(idx, device=self.device)] = False
+        for sh, local, _ in self._groups(idx):
+            sh.alive[local] = False
         self._alive_host[idx] = False
         self._mat = None
 
@@ -397,13 +561,17 @@ class ClockRegistry:
                 cells=torch.as_tensor(self._wide[slot], device=self.device),
                 base=torch.zeros((), dtype=torch.int32, device=self.device),
                 k=self.k)
-        return bc.BloomClock(cells=self.cells_u8[slot].to(torch.int32),
-                             base=self.base[slot].clone(), k=self.k)
+        shard, row = shard_rows(slot, self._rows)
+        sh = self.shards[shard]
+        return bc.BloomClock(
+            cells=sh.cells_u8[row].to(torch.int32).to(self.device),
+            base=sh.base[row].clone().to(self.device), k=self.k)
 
     # ---- batched classification ----
     def classify_all(self, local: bc.BloomClock) -> FleetView:
         """Lineage status + Eq. 3 fp for EVERY slot: one packed
-        one-vs-many kernel call, plus one int32 call for promoted rows.
+        one-vs-many kernel call (one a row shard on a mesh), plus one
+        int32 call for promoted rows.
 
         A peer ≼ the local clock is an ANCESTOR, a peer the local clock
         is ≼ is a DESCENDANT, incomparable peers are FORKED (exact, §3).
@@ -417,7 +585,8 @@ class ClockRegistry:
 
         One ``engine.pairs`` call over the packed slab: dead slots are
         compacted away (they cost no compute) and promoted rows are
-        patched in through the exact int32 rim.  ``**kw`` carries
+        patched in through the exact int32 rim; a sharded slab runs the
+        same on a replica gathered onto ``device``.  ``**kw`` carries
         per-call dispatch overrides (engine, block shapes).
         """
         return self.engine.pairs(self._slab(), alive=self._alive_host, **kw)
@@ -433,12 +602,17 @@ class ClockRegistry:
         if midx.size == 0:
             return bc.BloomClock(cells=local_cells, base=zero, k=self.k)
         if self.packed:
-            merged = _union_rows_packed(
-                self.cells_u8, self.base,
-                torch.as_tensor(mask_h, device=self.device), local_cells)
+            gains = [_union_gain(sh.cells_u8, sh.base,
+                                 torch.as_tensor(part, device=sh.device),
+                                 local_cells.to(sh.device, non_blocking=True))
+                     .to(self.device, non_blocking=True)
+                     for sh, part in self._shard_masks(mask_h)]
+            gain = gains[0]
+            for g in gains[1:]:
+                gain = torch.maximum(gain, g)
+            merged = local_cells + gain
         else:
-            jmid = torch.as_tensor(midx, device=self.device)
-            rows = pack.unpack_rows(self.cells_u8[jmid], self.base[jmid])
+            rows = pack.unpack_rows(*self._rows_of(midx, "cells_u8", "base"))
             wsel = [(pos, int(s)) for pos, s in enumerate(midx)
                     if int(s) in self._wide]
             if wsel:
@@ -460,9 +634,12 @@ class ClockRegistry:
             cells=clock.cells.to(self.device), base=clock.base.to(self.device),
             k=clock.k))
         mask_h = np.asarray(mask, bool)
-        _broadcast_rows(self.cells_u8, self.base, self.sums,
-                        torch.as_tensor(mask_h, device=self.device),
-                        row_u8[0], row_base[0], row_sum)
+        for sh, part in self._shard_masks(mask_h):
+            dev = sh.device
+            _broadcast_rows(sh.cells_u8, sh.base, sh.sums,
+                            torch.as_tensor(part, device=dev),
+                            row_u8[0].to(dev), row_base[0].to(dev),
+                            row_sum.to(dev))
         midx = np.flatnonzero(mask_h)
         base0 = int(row_base[0])
         self._base_host[midx] = base0

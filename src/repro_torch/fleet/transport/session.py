@@ -99,7 +99,8 @@ def anti_entropy_session(
             "pulls from remote peers are not ported yet")
     obs = _session_observer(cfg, registry)
     t0 = time.perf_counter_ns()
-    with obs.trace.span("gossip.session", transport=transport.name) as sess_sp:
+    with obs.trace.span("gossip.session", transport=transport.name,
+                        shards=registry.n_shards) as sess_sp:
         corrupted: tuple = ()
         if cfg.verify_rows:
             with obs.trace.span("gossip.verify") as sp:
@@ -201,6 +202,7 @@ def anti_entropy_session(
         pushback_bytes=pushback_bytes,
         digest_bytes=digest_bytes,
         transport=transport.name,
+        shards=registry.n_shards,
         unreachable=tuple(sorted(unreachable)),
         corrupted=corrupted,
     )

@@ -11,7 +11,11 @@ the merge-compare, one-vs-many and hybrid kernels write their flags as
 ``torch.bool`` into the output, and the returned flags are views of it.
 ``LAST_DISPATCH`` records the most recent one-vs-many, hybrid or
 all-pairs dispatch (op, engine and blocks), which ``CausalEngine``
-copies into its results.
+copies into its results.  A row-sharded slab classifies with one
+launch a shard (``_classify_vs_many_packed_sharded``) and compares
+all-pairs on a replica gathered onto the mesh's first device
+(``_replicate``); a wrapper refuses a tensor that
+lies on another device than the one its kernel runs on.
 
 Blocks and the all-pairs engine resolve as the reference's do: an
 explicit argument, else the measured ``autotune`` table entry for the
@@ -119,9 +123,16 @@ def tile_width(m: int, want: int) -> int:
     return pick_block(-(-m // LANE) * LANE, want)
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape: tuple) -> None:
+def _check(t: torch.Tensor, name: str, dtype, shape: tuple,
+           device: torch.device | None = None) -> None:
+    """Refuse what the kernel cannot read: a tensor off the card, of
+    another dtype, shape or layout, or on another card than ``device``
+    (the device of the tensors it is launched beside)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the kernel runs on "
+                         f"{device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
@@ -157,7 +168,7 @@ def tick_probes(cells: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
     B, m = cells.shape
     P = probes.shape[1]
     _check(cells, "tick cells", cells.dtype, (B, m))
-    _check(probes, "tick probes", torch.int32, (B, P))
+    _check(probes, "tick probes", torch.int32, (B, P), cells.device)
     if cells.dtype not in (torch.int32, torch.int16):
         raise TypeError(f"tick: cells must be int32 or int16, got "
                         f"{cells.dtype}")
@@ -188,7 +199,7 @@ def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bm: int = 512) -> dict:
         merged, flags, sums, fp = ref.bloom_merge_compare_ref(a, b, bm=bm)
     else:
         _check(a, "merge_compare a", torch.int32, (B, m))
-        _check(b, "merge_compare b", torch.int32, (B, m))
+        _check(b, "merge_compare b", torch.int32, (B, m), a.device)
         merged = torch.empty_like(a)
         flags = torch.empty((B, 2), dtype=torch.bool, device=a.device)
         sums = torch.empty((B, 2), dtype=torch.float32, device=a.device)
@@ -250,15 +261,15 @@ def _one_vs_many(q: torch.Tensor, peers: torch.Tensor,
         return ref.one_vs_many_ref(q, peers, base, bm=bm)
     packed = base is not None
     name = "one_vs_many_packed" if packed else "one_vs_many_i32"
-    _check(q, f"{name} query", torch.int32, (m,))
+    dev = peers.device
     _check(peers, f"{name} peers", torch.uint8 if packed else torch.int32,
            (N, m))
+    _check(q, f"{name} query", torch.int32, (m,), dev)
     if packed:
-        _check(base, f"{name} base", torch.int32, (N,))
+        _check(base, f"{name} base", torch.int32, (N,), dev)
     vec = 16 // peers.element_size()
     _check_ovm_block(name, m, "u8" if packed else "i32", bn)
     vec_ok = int(m % vec == 0 and peers.data_ptr() % 16 == 0)
-    dev = peers.device
     flags = torch.empty((N, 2), dtype=torch.bool, device=dev)
     sums = torch.empty((N, 2), dtype=torch.float32, device=dev)
     fp = torch.empty((N, 2), dtype=torch.float32, device=dev)
@@ -309,6 +320,46 @@ def _classify_vs_many_packed(q: torch.Tensor, peers: torch.Tensor,
     return _classify_dict(*_one_vs_many(q, peers, base.reshape(-1), bn, bm))
 
 
+def _classify_vs_many_packed_sharded(q: torch.Tensor, peers: tuple,
+                                     base: tuple, *, mesh,
+                                     bn: int | None = None,
+                                     bm: int | None = None,
+                                     use_autotune: bool = True) -> dict:
+    """``_classify_vs_many_packed`` over a row-sharded slab: ``peers``
+    and ``base`` hold one [N/d, m] u8 and one [N/d] int32 tensor a
+    shard, shard i on ``mesh.devices[i]``.
+
+    The query is replicated onto every shard's device and each shard
+    takes one launch under its own device guard; every launch is queued
+    before any result is read, so shards on distinct cards overlap.
+    Blocks resolve ONCE at full N, so bm, and with it the float32 order
+    of the sums and the fp bits, is the same at every shard count as on
+    the unsharded slab.  Flags, sums and fp come back concatenated in
+    slot order on ``mesh.devices[0]``.
+    """
+    devices = mesh.devices
+    d = len(devices)
+    if len(peers) != d or len(base) != d:
+        raise ValueError(f"{len(peers)} row shards and {len(base)} base "
+                         f"shards on a mesh of {d} devices")
+    for i, (p, dev) in enumerate(zip(peers, devices)):
+        if p.device != dev:
+            raise ValueError(f"row shard {i} is on {p.device}, its mesh "
+                             f"device is {dev}")
+    (m,) = q.shape
+    N = sum(p.shape[0] for p in peers)
+    bn, bm = _one_vs_many_blocks(N, m, bn, bm, autotune.backend_of(peers[0]),
+                                 use_autotune)
+    _note_dispatch("one_vs_many", "packed_sharded", bn=bn, bm=bm, shards=d)
+    parts = [_one_vs_many(q.to(dev, non_blocking=True), p, b.reshape(-1),
+                          bn, bm)
+             for p, b, dev in zip(peers, base, devices)]
+    dev0 = devices[0]
+    flags, sums, fp = (torch.cat([part[j].to(dev0, non_blocking=True)
+                                  for part in parts]) for j in range(3))
+    return _classify_dict(flags, sums, fp)
+
+
 def _overlay_wide_classify(out: dict, q: torch.Tensor, wide_idx,
                            wide_rows: torch.Tensor) -> dict:
     """Re-classify just the promoted rows ``wide_rows`` [P, m] int32
@@ -349,14 +400,14 @@ def hybrid(q: torch.Tensor, v_local: int, hot_meta: torch.Tensor,
     if not tail.is_cuda:
         return ref.hybrid_classify_ref(q, v_local, hot_meta, hot_sums, tail,
                                        tail_base, bm=bm)
-    _check(q, "hybrid query", torch.int32, (m,))
-    _check(hot_meta, "hybrid hot_meta", torch.int32, (H, 2))
-    _check(hot_sums, "hybrid hot_sums", torch.float32, (H,))
+    dev = tail.device
     _check(tail, "hybrid tail", torch.uint8, (T, m))
-    _check(tail_base, "hybrid tail_base", torch.int32, (T,))
+    _check(q, "hybrid query", torch.int32, (m,), dev)
+    _check(hot_meta, "hybrid hot_meta", torch.int32, (H, 2), dev)
+    _check(hot_sums, "hybrid hot_sums", torch.float32, (H,), dev)
+    _check(tail_base, "hybrid tail_base", torch.int32, (T,), dev)
     _check_ovm_block("hybrid", m, "u8", bn)
     vec_ok = int(m % 16 == 0 and tail.data_ptr() % 16 == 0)
-    dev = tail.device
     flags = torch.empty((H + T, 2), dtype=torch.bool, device=dev)
     sums = torch.empty((H + T, 2), dtype=torch.float32, device=dev)
     fp = torch.empty((H + T, 2), dtype=torch.float32, device=dev)
@@ -431,7 +482,7 @@ def tri_flags(cells: torch.Tensor, base: torch.Tensor, *, bt: int = 64,
     if not cells.is_cuda:
         return ref.tri_flags_ref(cells, base if with_base else None)
     _check(cells, "matrix_tri cells", torch.uint8, (N, m))
-    _check(base, "matrix_tri base", torch.int32, (N,))
+    _check(base, "matrix_tri base", torch.int32, (N,), cells.device)
     le, ge = _flag_pair(N, N, cells.device)
     if N:
         with torch.cuda.device(cells.device):
@@ -457,9 +508,11 @@ def rect_u8_flags(rows: torch.Tensor, cols: torch.Tensor,
             return ref.rect_u8_flags_ref(rows, cols, row_base, col_base)
         return ref.rect_u8_flags_ref(rows, cols)
     _check(rows, "matrix_rect_u8 rows", torch.uint8, (N, m))
-    _check(cols, "matrix_rect_u8 cols", torch.uint8, (M, m))
-    _check(row_base, "matrix_rect_u8 row_base", torch.int32, (N,))
-    _check(col_base, "matrix_rect_u8 col_base", torch.int32, (M,))
+    _check(cols, "matrix_rect_u8 cols", torch.uint8, (M, m), rows.device)
+    _check(row_base, "matrix_rect_u8 row_base", torch.int32, (N,),
+           rows.device)
+    _check(col_base, "matrix_rect_u8 col_base", torch.int32, (M,),
+           rows.device)
     le, ge = _flag_pair(N, M, rows.device)
     if N and M:
         with torch.cuda.device(rows.device):
@@ -487,8 +540,9 @@ def rect_i32_stats(rows: torch.Tensor, cols: torch.Tensor,
     if not rows.is_cuda:
         return ref.rect_i32_stats_ref(rows, cols, col_sums, bm=bm)
     _check(rows, "matrix_rect_i32 rows", torch.int32, (N, m))
-    _check(cols, "matrix_rect_i32 cols", torch.int32, (M, m))
-    _check(col_sums, "matrix_rect_i32 col_sums", torch.float32, (M,))
+    _check(cols, "matrix_rect_i32 cols", torch.int32, (M, m), rows.device)
+    _check(col_sums, "matrix_rect_i32 col_sums", torch.float32, (M,),
+           rows.device)
     if N and not M:
         raise ValueError("matrix_rect_i32: row sums need at least one column")
     dev = rows.device
@@ -522,9 +576,9 @@ def mxu_viol(rows: torch.Tensor, cols: torch.Tensor, row_base: torch.Tensor,
         return ref.mxu_viol_ref(rows, cols, row_base, col_base, lo=lo,
                                 n_thresholds=n_thresholds)
     _check(rows, "matrix_mxu rows", torch.uint8, (N, m))
-    _check(cols, "matrix_mxu cols", torch.uint8, (M, m))
-    _check(row_base, "matrix_mxu row_base", torch.int32, (N,))
-    _check(col_base, "matrix_mxu col_base", torch.int32, (M,))
+    _check(cols, "matrix_mxu cols", torch.uint8, (M, m), rows.device)
+    _check(row_base, "matrix_mxu row_base", torch.int32, (N,), rows.device)
+    _check(col_base, "matrix_mxu col_base", torch.int32, (M,), rows.device)
     viol = torch.empty((N, M), dtype=torch.float32, device=rows.device)
     if N and M:
         with torch.cuda.device(rows.device):
@@ -677,6 +731,51 @@ def _compare_matrix_packed(cells: torch.Tensor, base: torch.Tensor,
                     n_thresholds=_span_bucket(span), bi=bi, bj=bj)
     return _mxu_finalize(viol, cells, base, cols, col_base, row_sums,
                          col_sums, m, lo)
+
+
+# ---------------------------------------------------------------------------
+# sharded all-pairs
+# ---------------------------------------------------------------------------
+
+# gather memo of the "replicated" strategy: registries call all_pairs
+# repeatedly on the same slab, so the copy is paid once a slab state, not
+# once a call.  Keyed on each shard's identity and version counter (every
+# in-place write bumps it) and guarded by strong references to the keyed
+# tensors, so an id cannot be reused while the cache holds its tensor.
+_REPLICA_CACHE: dict = {}
+
+
+def _gathered_replica(shards: tuple, dev: torch.device) -> torch.Tensor:
+    """The per-shard tensors ``shards`` concatenated in slot order on
+    ``dev`` (memoised)."""
+    key = (tuple((id(t), t._version) for t in shards), dev)
+    hit = _REPLICA_CACHE.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], shards)):
+        return hit[1]
+    if len(_REPLICA_CACHE) >= 8:
+        _REPLICA_CACHE.clear()
+    gathered = torch.cat([t.to(dev, non_blocking=True) for t in shards])
+    _REPLICA_CACHE[key] = (tuple(shards), gathered)
+    return gathered
+
+
+def _replicate(cells: tuple, base: tuple, *, mesh,
+               strategy: str | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sharded all-pairs operands by the "replicated" strategy: the
+    u8 row shards and their bases gathered onto ``mesh.devices[0]``
+    (memoised), where the single-device engines run on them unchanged,
+    bit-identical to the unsharded slab.  "replicated" is the only
+    strategy ported; the reference's default, "ring", comes with ROADMAP
+    queue 1, item 3b, and asking for it raises."""
+    if strategy == "ring":
+        raise NotImplementedError(
+            "the 'ring' sharded all-pairs strategy is not ported yet "
+            "(ROADMAP queue 1, item 3b); use strategy='replicated'")
+    if strategy not in (None, "replicated"):
+        raise ValueError(f"unknown sharded strategy: {strategy}")
+    dev0 = mesh.devices[0]
+    return _gathered_replica(cells, dev0), _gathered_replica(base, dev0)
 
 
 def _shift_pack(x: torch.Tensor, lo: int) -> torch.Tensor:

@@ -134,11 +134,16 @@ class ClockRuntime:
         clock in one kernel call (see ``registry.classify_all``)."""
         return registry.classify_all(self.clock)
 
-    def make_registry(self, capacity: int):
-        """Fleet registry sized to this runtime's clock config, on its
-        device, carrying its CausalPolicy."""
+    def make_registry(self, capacity: int, *, mesh=None,
+                      axis: str | None = None):
+        """Fleet registry sized to this runtime's clock config, carrying
+        its CausalPolicy: on the runtime's device, or sharded over a
+        mesh (``launch.mesh.make_fleet_mesh``), where ``classify_fleet``
+        runs once a row shard with results bit-identical to one slab."""
         from repro_torch.fleet.registry import ClockRegistry
-        return ClockRegistry(capacity, m=self.cfg.m, k=self.cfg.k,
+        from repro_torch.sharding import FLEET_AXIS
+        return ClockRegistry(capacity, m=self.cfg.m, k=self.cfg.k, mesh=mesh,
+                             axis=FLEET_AXIS if axis is None else axis,
                              policy=self.policy, device=self.device)
 
     def gossip(self, registry, cfg=None, transport=None):

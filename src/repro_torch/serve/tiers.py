@@ -138,6 +138,11 @@ class TieredRegistry:
         self.m = m
         self.k = k
         base_pol = policy if policy is not None else CausalPolicy()
+        if base_pol.mesh is not None:
+            # the tier split is a host-level construct; scale-out across
+            # devices stays the flat slab's job, and the pin below is
+            # resolved at the flat capacity
+            base_pol = dataclasses.replace(base_pol, mesh=None)
         device = resolve_device(device)
         # Pin the one-vs-many blocks ONCE, resolved at the flat-equivalent
         # capacity: the table is keyed by slab N, and per-tier resolution

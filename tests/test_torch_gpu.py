@@ -1048,3 +1048,150 @@ def test_cuda_tuned_blocks_match_plain(cuda, key, cfg):
                              bi=dbi, bj=dbj),)
     for g, w, d in zip(got, want, dflt):
         assert torch.equal(g, w) and torch.equal(g, d)
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded registry, every shard on the one card
+# ---------------------------------------------------------------------------
+
+def sharded_fleet(device, shards, n=512, m=1024, seed=5, evict=True,
+                  distinct=False):
+    """A registry of ``n`` peers around a query (4 of them promoted), on
+    one device or over ``shards`` shards of it (``distinct``: over the
+    first ``shards`` cards instead); ~1 in 16 evicted."""
+    from repro_torch.core import clock as bc
+    from repro_torch.fleet import ClockRegistry
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    q, peers = query_and_peers(n, m, seed)
+    peers = peers.astype(np.int64)
+    peers[1:5, 3] += 400                                  # span > 255
+    if shards is None:
+        mesh = None
+    elif distinct:
+        mesh = make_fleet_mesh(shards)
+    else:
+        mesh = make_fleet_mesh(shards, device=device)
+    reg = ClockRegistry(n, m, 4, mesh=mesh, device=device)
+    zero = torch.zeros((), dtype=torch.int32)
+    reg.admit_many({i: bc.BloomClock(torch.as_tensor(as_i32(r)), zero, 4)
+                    for i, r in enumerate(peers)})
+    if evict:
+        reg.evict_many(list(range(7, n, 16)))
+    return bc.BloomClock(torch.as_tensor(q), zero, 4), reg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_cuda_sharded_classify_matches_unsharded(cuda, shards):
+    """classify_all over s shards on the card: statuses, sums and fp
+    bits identical to the unsharded card registry, s packed launches
+    and one for the promoted rows."""
+    local, ref = sharded_fleet(cuda, None)
+    want = ref.classify_all(local)
+    _, reg = sharded_fleet(cuda, shards)
+    assert len(reg._wide) == 4
+    ops.reset_launches()
+    got = reg.classify_all(local)
+    assert ops.LAUNCHES["one_vs_many_packed"] == shards
+    assert ops.LAUNCHES["one_vs_many_i32"] == 1
+    np.testing.assert_array_equal(got.status, want.status)
+    assert (got.fp == want.fp).all() and (got.sums == want.sums).all()
+    assert got.engine == "packed_sharded+wide_overlay"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("evict", [False, True])
+def test_cuda_sharded_all_pairs_matches_unsharded(cuda, shards, evict):
+    _, ref = sharded_fleet(cuda, None, evict=evict)
+    _, reg = sharded_fleet(cuda, shards, evict=evict)
+    want, got = ref.all_pairs().to_host(), reg.all_pairs().to_host()
+    assert got.engine == f"replicated_{want.engine}"
+    for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_refuse_a_query_on_another_device(cuda):
+    """The kernel reads every pointer on the peers' card: ``_check``
+    refuses an operand on another card than the one its kernel runs on
+    (checked on one card against a named second device), and every
+    wrapper refuses an operand left on the CPU before the launch."""
+    q, peers = query_and_peers(64, 256, 3)
+    p = torch.as_tensor(peers, device=cuda)
+    here = p.device
+    there = torch.device("cuda", here.index + 1)
+    ops._check(p, "peers", torch.int32, (64, 256), here)
+    with pytest.raises(ValueError, match="runs on"):
+        ops._check(p, "peers", torch.int32, (64, 256), there)
+    q_cpu = torch.as_tensor(q)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops._classify_vs_many(q_cpu, p)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.merge_compare(p[:2].contiguous(), torch.as_tensor(peers[:2]))
+    u8 = torch.zeros((64, 256), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops._classify_vs_many_packed(q_cpu.to(cuda), u8,
+                                     torch.zeros(64, dtype=torch.int32))
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded registry over distinct cards (a host with several)
+# ---------------------------------------------------------------------------
+
+def need_cards(n: int) -> None:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, found "
+                    f"{torch.cuda.device_count()}")
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_refuses_a_query_on_another_card(cuda):
+    """A query on the first card beside a shard on the second is
+    refused before the launch, not read as a foreign pointer."""
+    need_cards(2)
+    q, peers = query_and_peers(64, 256, 3)
+    u8 = torch.zeros((64, 256), dtype=torch.uint8, device="cuda:1")
+    base = torch.zeros(64, dtype=torch.int32, device="cuda:1")
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="runs on"):
+        ops._classify_vs_many_packed(torch.as_tensor(q, device="cuda:0"),
+                                     u8, base)
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_sharded_on_distinct_cards_matches_unsharded(cuda, shards):
+    """Shards on distinct cards: each shard's rows, its launch and its
+    query copy live on its own card; classify_all, all-pairs and one
+    loopback gossip round are bit-identical to the unsharded registry
+    on the first card."""
+    from repro_torch.fleet import GossipConfig, gossip_round
+
+    need_cards(shards)
+    local, ref = sharded_fleet(cuda, None)
+    _, reg = sharded_fleet(cuda, shards, distinct=True)
+    assert [sh.cells_u8.device.index for sh in reg.shards] == \
+        list(range(shards))
+    want = ref.classify_all(local)
+    ops.reset_launches()
+    got = reg.classify_all(local)
+    assert ops.LAUNCHES["one_vs_many_packed"] == shards
+    np.testing.assert_array_equal(got.status, want.status)
+    assert (got.fp == want.fp).all() and (got.sums == want.sums).all()
+    wp, gp = ref.all_pairs().to_host(), reg.all_pairs().to_host()
+    assert gp.engine == f"replicated_{wp.engine}"
+    for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+        np.testing.assert_array_equal(gp[key], wp[key], err_msg=key)
+    _, wr = gossip_round(ref, local, GossipConfig())
+    _, gr = gossip_round(reg, local, GossipConfig())
+    assert gr.shards == shards
+    for key in ("accepted", "quarantined", "stragglers", "unconfident"):
+        np.testing.assert_array_equal(getattr(gr, key), getattr(wr, key))
+    assert gr.pushback_bytes == wr.pushback_bytes
+    for name in ("cells_u8", "base", "sums", "alive"):
+        assert torch.equal(getattr(reg, name).cpu(), getattr(ref, name).cpu())
