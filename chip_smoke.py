@@ -34,9 +34,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    on distinct cards where there are that many, else on the one card),
    each held bit for bit to the unsharded card registry (``classify_all``
    with its launches counted, one loopback gossip round), their times;
-   ``fleet_health`` at 2,048 slots over 4 shards; 4,096 peers over 4
-   shards on the card and on the CPU, which must agree; the gossip sim
-   over 8 shards, fn == 0 with the unsharded run's counts;
+   one round over ``MeshCollectiveTransport`` at 4 shards, held to the
+   same loopback round; ``fleet_health`` at 2,048 slots over 4 shards
+   under the ring and the replicated strategy, and the CPU ring; the bare
+   sharded all-pairs op at 16,384 x 1,024 over 1, 2, 4 and 8 shards
+   under both strategies (the ring's launches, results identical to the
+   unsharded tri, device ms); 4,096 peers over 4 shards on the card and
+   on the CPU, which must agree; the gossip sim over 8 shards on the
+   loopback and the mesh transport, fn == 0 with the unsharded run's
+   counts;
 5. the all-pairs path: ``fleet_health`` over a 16,384-slot registry
    (~1% evicted, 8 promoted rows) with the launch counts reset just
    before and read just after (tri and rect-i32 must have run), its
@@ -139,6 +145,8 @@ N_SLOTS, N_SLOTS_CPU = 16384, 2048
 # its card-vs-CPU comparison at 4,096 peers
 SHARD_COUNTS = (1, 2, 4, 8)
 N_SHARD_CPU = 4096
+#: the mesh transport's round at the main path's 65,536 peers
+MESH_TRANSPORT_SHARDS = 4
 SEED = 0
 #: kernels of the main path (phase 4) and of the all-pairs paths (phase 5)
 MAIN_KERNELS = ("bloom_tick", "bloom_merge_compare", "one_vs_many_packed",
@@ -1125,13 +1133,16 @@ def drive_shards() -> dict:
     launch counts reset just before and read just after: s packed
     one-vs-many launches and one for the promoted rows), one loopback
     gossip round (verdicts, fp bits, push-back bytes, the merged
-    clock's frame, the slab after push-back).  Times: ``classify_all``
+    clock's frame, the slab after push-back); one more registry over 4
+    shards runs its round over ``MeshCollectiveTransport`` (the digest
+    ring), held to the same loopback round.  Times: ``classify_all``
     on the host clock, 2 passes over every registry in turn, 10 calls
     each a pass; the device time of the (sharded) one-vs-many call."""
     import torch
     from repro_torch.core import clock as bc
     from repro_torch.core import wire
-    from repro_torch.fleet import GossipConfig, gossip_round
+    from repro_torch.fleet import (GossipConfig, MeshCollectiveTransport,
+                                   anti_entropy_session, gossip_round)
     from repro_torch.kernels import ops
     from repro_torch.runtime import ClockConfig, ClockRuntime
 
@@ -1152,7 +1163,10 @@ def drive_shards() -> dict:
         mesh, where = shard_mesh(s)
         regs[s] = rt.make_registry(N_PEERS, mesh=mesh)
         out[s] = {"mesh": where}
-    for reg in regs.values():
+    mesh, where = shard_mesh(MESH_TRANSPORT_SHARDS)
+    via_mesh = rt.make_registry(N_PEERS, mesh=mesh)
+    out["mesh_transport"] = {"mesh": where}
+    for reg in (*regs.values(), via_mesh):
         fill(reg, clocks)
         check(len(reg._wide) == 8, f"{len(reg._wide)} promoted rows, "
                                    f"expected 8")
@@ -1185,23 +1199,46 @@ def drive_shards() -> dict:
                 q, sl.cells_u8, sl.base, mesh=sl.mesh)
         out[key]["device_ms"] = events_ms(fn, 1, queued=True)
 
-    def one_round(reg):
-        merged, rep = gossip_round(reg, local, cfg)
+    def one_round(reg, transport=None):
+        if transport is None:
+            merged, rep = gossip_round(reg, local, cfg)
+        else:
+            merged, rep = anti_entropy_session(reg, local, transport(reg), cfg)
         torch.cuda.synchronize()
         return (rep, wire.encode_clock(bc.to_wire(merged)),
                 [host(getattr(reg, n)) for n in ("cells_u8", "base", "sums",
                                                   "alive")])
 
     want_round = one_round(regs.pop("unsharded"))
-    for s, reg in regs.items():
-        rep, frame, after = one_round(reg)
+    rounds = [(s, reg, None) for s, reg in regs.items()]
+    rounds.append((f"{MESH_TRANSPORT_SHARDS} (mesh transport)", via_mesh,
+                   MeshCollectiveTransport))
+    for s, reg, transport in rounds:
+        t0 = time.perf_counter()
+        rep, frame, after = one_round(reg, transport)
+        round_ms = (time.perf_counter() - t0) * 1e3
         same_round(rep, want_round[0], f"gossip round at {s} shards")
-        check(rep.shards == s, f"report shards {rep.shards}")
+        check(rep.shards == reg.n_shards, f"report shards {rep.shards}")
         check(frame == want_round[1], f"merged clock frame at {s} shards")
         for n, a, b in zip(("cells_u8", "base", "sums", "alive"), after,
                            want_round[2]):
             check_equal(a, b, f"slab {n} after push-back at {s} shards")
-    for rec in out.values():
+    d = MESH_TRANSPORT_SHARDS
+    check(rep.transport == "mesh", f"transport {rep.transport}")
+    check(rep.digest_bytes == 9 * N_PEERS * (d - 1) // d,
+          f"mesh digest bytes {rep.digest_bytes}")
+    digests, _ = MeshCollectiveTransport(via_mesh).digests()
+    check(len(digests) == len(via_mesh), f"{len(digests)} digests")
+    sums = host(via_mesh.sums)
+    check(all(g.clock_sum == float(sums[via_mesh.slot_of(pid)])
+              for pid, g in digests.items()), "mesh digests vs the slab")
+    out["mesh_transport"].update(
+        round_ms=round_ms, digest_bytes=rep.digest_bytes,
+        pushback_bytes=rep.pushback_bytes,
+        accepted=int(rep.accepted.sum()))
+    for key, rec in out.items():
+        if key == "mesh_transport":
+            continue
         ms = rec["classify_all_ms"]
         rec["classify_all_median_ms"] = float(np.median(ms))
         rec["classify_all_range_ms"] = [min(ms), max(ms)]
@@ -1210,10 +1247,30 @@ def drive_shards() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def strategy(name: str):
+    """Within it, every sharded all-pairs runs strategy ``name``: a CUDA
+    mesh whose shards share the one card reads no table entry, so this
+    is how the smoke runs "replicated" through ``fleet_health``."""
+    import functools
+    from repro_torch.kernels import ops
+
+    orig = ops._compare_matrix_packed_sharded
+    ops._compare_matrix_packed_sharded = functools.partial(orig,
+                                                           strategy=name)
+    try:
+        yield
+    finally:
+        ops._compare_matrix_packed_sharded = orig
+
+
 def shard_health_check() -> dict:
-    """``fleet_health`` at 2,048 slots over 4 shards on the card against
-    the unsharded card registry: all-pairs matrices bit-identical and
-    the same health, with tri and the int32 rim launched."""
+    """``fleet_health`` at 2,048 slots over 4 shards on the card under
+    each strategy against the unsharded card registry: all-pairs
+    matrices bit-identical and the same health, the ring's launches (4
+    tri, 6 rect-u8, the int32 rim); then the ring over 4 shards of the
+    CPU, whose statuses and flags must equal the card's (fp within
+    tolerance)."""
     from repro_torch.fleet import fleet_health
     from repro_torch.kernels import ops
 
@@ -1221,25 +1278,142 @@ def shard_health_check() -> dict:
     ref = pairs_registry("cuda", N_SLOTS_CPU)
     reg = pairs_registry("cuda", N_SLOTS_CPU, mesh=mesh)
     want = fleet_health(ref)
-    ops.reset_launches()
-    got = fleet_health(reg)
-    launches = {k: ops.LAUNCHES[k] for k in HEALTH_KERNELS}
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the sharded "
-                     f"fleet_health")
-    check(got.shards == 4 and "shards=4" in got.summary(), "health shards")
-    gp, wp = reg.all_pairs().to_host(), ref.all_pairs().to_host()
-    check(gp.engine == f"replicated_{wp.engine}",
-          f"engine {gp.engine} vs {wp.engine}")
-    for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
-        check_equal(gp[key], wp[key], f"sharded all_pairs {key}")
-    check_equal(got.component, want.component, "sharded fork components")
-    check_equal(got.straggler_mask, want.straggler_mask, "sharded stragglers")
-    check_equal(got.fp_hist, want.fp_hist, "sharded fp histogram")
-    check(got.comparable_fraction == want.comparable_fraction
-          and got.mean_strict_fp == want.mean_strict_fp, "sharded health")
-    return {"mesh": where, "launches": launches, "engine": gp.engine,
-            "health": health_record(got)}
+    wp = ref.all_pairs().to_host()
+    out = {"mesh": where}
+    for name, label in (("ring", "ring_full+wide_rim"),
+                        ("replicated", "replicated_tri+wide_rim")):
+        with strategy(name):
+            ops.reset_launches()
+            got = fleet_health(reg)
+            launches = {k: ops.LAUNCHES[k] for k in ENGINE_KERNELS}
+            gp = reg.all_pairs().to_host()
+        kernels = HEALTH_KERNELS + (("matrix_rect_u8",) if name == "ring"
+                                    else ())
+        for kname in kernels:
+            check(launches[kname] > 0, f"kernel {kname} was not launched by "
+                                       f"the sharded fleet_health ({name})")
+        if name == "ring":
+            check(launches["matrix_tri"] == 4
+                  and launches["matrix_rect_u8"] == 6,
+                  f"ring launches {launches} over 4 shards")
+        check(got.shards == 4 and "shards=4" in got.summary(),
+              "health shards")
+        check(gp.engine == label, f"engine {gp.engine}, expected {label}")
+        for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+            check_equal(gp[key], wp[key], f"sharded all_pairs {key} ({name})")
+        check_equal(got.component, want.component, "sharded fork components")
+        check_equal(got.straggler_mask, want.straggler_mask,
+                    "sharded stragglers")
+        check_equal(got.fp_hist, want.fp_hist, "sharded fp histogram")
+        check(got.comparable_fraction == want.comparable_fraction
+              and got.mean_strict_fp == want.mean_strict_fp, "sharded health")
+        out[name] = {"launches": launches, "engine": gp.engine}
+    from repro_torch.launch.mesh import make_fleet_mesh
+    with card_blocks():
+        creg = pairs_registry("cpu", N_SLOTS_CPU,
+                              mesh=make_fleet_mesh(4, device="cpu"))
+        ch = fleet_health(creg)
+        cp = creg.all_pairs().to_host()
+    check(cp.engine == "ring_full+wide_rim", f"CPU engine {cp.engine}")
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
+        check_equal(cp[key], wp[key], f"CPU ring all_pairs {key}")
+    check_fp(cp.fp, wp.fp, "CPU ring all_pairs fp")
+    check_equal(ch.component, want.component, "CPU ring fork components")
+    check_equal(ch.straggler_mask, want.straggler_mask, "CPU ring stragglers")
+    out["health"] = health_record(got)
+    return out
+
+
+def ring_inputs(dev):
+    """The narrow rows of the engines' check at 16,384 slots, packed with
+    a base a row, on ``dev``."""
+    import torch
+    from repro_torch.kernels import pack
+
+    rows = torch.as_tensor(narrow_rows(N_SLOTS), device=dev)
+    u8, base, ok = pack.pack_rows(rows)
+    check(bool(ok.all()), "ring rows must pack")
+    return u8, base
+
+
+def one_call_ms(fn, devices) -> dict:
+    """One call at a time: ``one_ms``, the best of 3 calls each queued
+    alone behind a sleep kernel on the first device (CUDA events, the
+    autotuner's rule, ``autotune._measure``), and ``host_ms``, the median
+    of 5 calls on the host clock, each ending in a synchronise of every
+    device of the mesh (the latency a caller sees)."""
+    import torch
+    from repro_torch.kernels import autotune
+
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn(0)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        host.append((time.perf_counter() - t0) * 1e3)
+    return {"one_ms": autotune._measure(lambda: fn(0), devices[0],
+                                        count=False) * 1e3,
+            "host_ms": float(np.median(host))}
+
+
+def ring_op_check() -> dict:
+    """The bare ``_compare_matrix_packed_sharded`` at N = 16,384, m =
+    1,024 over s = 1, 2, 4, 8 shards (distinct cards where there are
+    that many, else the one card) under both strategies: the ring's
+    launches a call (s tri, s(s - 1)/2 rect-u8), flags, sums and fp
+    identical to the unsharded tri (``_compare_matrix_packed``), and the
+    device ms of a call beside the unsharded one's; the ring at s = 4 and
+    the unsharded call once more under the profiler.  Times are CUDA
+    events on ``devices[0]``, whose stream waits for every card's work
+    (the block-rows and sums are copied onto it): ``ms`` a loop of 10
+    calls queued behind the sleep kernel, ``call_ms`` the same loop not
+    queued, ``one_ms`` one call queued alone (best of 3); ``host_ms``
+    the host clock around one call and a synchronise of every card."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import split_rows
+
+    dev = torch.device("cuda", 0)
+    u8, base = ring_inputs(dev)
+    want = ops._compare_matrix_packed(u8, base, engine="tri",
+                                      uniform_base=False)
+    check(bool(want["a_le_b"].any()) and bool(want["concurrent"].any()),
+          "ring inputs degenerate")
+    one = lambda i: ops._compare_matrix_packed(u8, base, engine="tri",
+                                               uniform_base=False)
+    out = {"unsharded": {**measure(one, 1, iters=10, warmup=2),
+                         **one_call_ms(one, (dev,))}}
+    for s in SHARD_COUNTS:
+        mesh, where = shard_mesh(s)
+        cells, bases = split_rows(u8, mesh.devices), split_rows(base,
+                                                                mesh.devices)
+        for name in ("ring", "replicated"):
+            def call(i, name=name):
+                return ops._compare_matrix_packed_sharded(
+                    cells, bases, mesh=mesh, strategy=name,
+                    uniform_base=False)
+            ops.reset_launches()
+            got = call(0)
+            launches = {k: ops.LAUNCHES[k]
+                        for k in ("matrix_tri", "matrix_rect_u8")}
+            if name == "ring":
+                check(launches == {"matrix_tri": s,
+                                   "matrix_rect_u8": s * (s - 1) // 2},
+                      f"ring launches {launches} at {s} shards")
+            for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+                check(torch.equal(got[key], want[key]),
+                      f"sharded {name} {key} at {s} shards vs unsharded tri")
+            del got
+            out[f"{name} s={s}"] = {"mesh": where, "launches": launches,
+                                    **measure(call, 1, iters=10, warmup=2),
+                                    **one_call_ms(call, mesh.devices)}
+            if name == "ring" and s == 4:
+                out["profile"] = {"ring s=4": profiled(lambda: call(0))}
+    out["profile"]["unsharded"] = profiled(
+        lambda: ops._compare_matrix_packed(u8, base, engine="tri",
+                                           uniform_base=False))
+    return out
 
 
 def shard_cpu_check() -> dict:
@@ -1278,24 +1452,34 @@ def shard_cpu_check() -> dict:
 
 
 def shard_sim_check(want: dict) -> dict:
-    """The audited gossip sim with a registry over 8 shards on the card:
-    fn == 0 and the unsharded card run's counts."""
+    """The audited gossip sim with a registry over 8 shards on the card,
+    over the loopback and the mesh transport: fn == 0 and the unsharded
+    card run's counts."""
     from repro_torch.core.sim import SimConfig, run_gossip_sim
     from repro_torch.fleet import ClockRegistry
     from repro_torch.kernels import ops
 
     mesh, where = shard_mesh(8)
     factory = lambda cap, m, k: ClockRegistry(cap, m, k, mesh=mesh)
-    ops.reset_launches()
-    r = run_gossip_sim(SimConfig(n_nodes=64, n_events=4000, m=M, k=K),
-                       device="cuda", registry_factory=factory)
-    check(r.false_negatives == 0, "sharded gossip sim: fn != 0")
-    check(ops.LAUNCHES["one_vs_many_packed"] == 8 * r.rounds,
-          f"{ops.LAUNCHES['one_vs_many_packed']} packed launches over "
-          f"{r.rounds} sharded rounds")
-    for key, v in want.items():
-        check(getattr(r, key) == v, f"sharded gossip sim {key} differs")
-    return {"mesh": where, "summary": r.summary()}
+    out = {"mesh": where}
+    for transport in ("loopback", "mesh"):
+        ops.reset_launches()
+        r = run_gossip_sim(SimConfig(n_nodes=64, n_events=4000, m=M, k=K),
+                           device="cuda", registry_factory=factory,
+                           transport=transport)
+        check(r.false_negatives == 0, f"sharded gossip sim ({transport}): "
+                                      f"fn != 0")
+        check(r.transport == transport, f"sim transport {r.transport}")
+        check(ops.LAUNCHES["one_vs_many_packed"] == 8 * r.rounds,
+              f"{ops.LAUNCHES['one_vs_many_packed']} packed launches over "
+              f"{r.rounds} sharded rounds")
+        for key, v in want.items():
+            check(getattr(r, key) == v,
+                  f"sharded gossip sim ({transport}) {key} differs")
+        check((r.digest_bytes > 0) == (transport == "mesh"),
+              f"sim digest bytes {r.digest_bytes} over {transport}")
+        out[transport] = r.summary()
+    return out
 
 
 def shard_phase(sim: dict) -> None:
@@ -1318,13 +1502,37 @@ def shard_phase(sim: dict) -> None:
               f"{r['classify_all_median_ms']} ms (range "
               f"{json.dumps(r['classify_all_range_ms'])}, 20 calls); sharded "
               f"one-vs-many device ms {r['device_ms']}")
-    print(f"[shard] fleet_health at {N_SLOTS_CPU} slots over 4 shards "
-          f"bit-identical to unsharded: {json.dumps(shard_health_check())}")
+    mt = shard["mesh_transport"]
+    print(f"[shard] one gossip round over MeshCollectiveTransport, "
+          f"{N_PEERS} peers over {MESH_TRANSPORT_SHARDS} shards on "
+          f"{mt['mesh']}: verdicts, fp bits, push-back bytes, merged frame "
+          f"and slab identical to the unsharded loopback round; digests the "
+          f"slab's sums: {json.dumps(mt)}")
+    print(f"[shard] fleet_health at {N_SLOTS_CPU} slots over 4 shards under "
+          f"ring and replicated bit-identical to unsharded, the CPU ring's "
+          f"statuses and flags identical: "
+          f"{json.dumps(shard_health_check())}")
+    ring = ring_op_check()
+    u = ring.pop("unsharded")
+    prof = ring.pop("profile")
+    print(f"[shard] all-pairs at N={N_SLOTS} m={M}: unsharded tri "
+          f"(_compare_matrix_packed) {u['ms']} ms (call {u['call_ms']} ms, "
+          f"one call {u['one_ms']} ms, host {u['host_ms']} ms), CUDA events "
+          f"on the first card")
+    for key, r in ring.items():
+        print(f"[shard] all-pairs {key} on {r['mesh']}: flags, sums and fp "
+              f"identical to the unsharded tri; launches a call "
+              f"{json.dumps(r['launches'])}; {r['ms']} ms (call "
+              f"{r['call_ms']} ms, one call {r['one_ms']} ms, host "
+              f"{r['host_ms']} ms)")
+    print(f"[shard] all-pairs at N={N_SLOTS}, one call under the profiler "
+          f"(device time by event): {json.dumps(prof)}")
     print(f"[shard] {N_SHARD_CPU} peers over 4 shards: card and CPU agree "
           f"(statuses, sums, gossip verdicts, push-back bytes; fp within "
           f"tolerance): {json.dumps(shard_cpu_check())}")
-    print(f"[shard] gossip sim over 8 shards on the card: fn=0, the "
-          f"unsharded run's counts: {json.dumps(shard_sim_check(sim))}")
+    print(f"[shard] gossip sim over 8 shards on the card, loopback and mesh "
+          f"transports: fn=0, the unsharded run's counts: "
+          f"{json.dumps(shard_sim_check(sim))}")
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,11 @@ in through the exact int32 rim; an int32 slab is packed on the fly when
 its value span fits a byte.
 
 A sharded slab (``PackedSlab.mesh`` set, one tensor a row shard) runs
-``classify`` once a shard and ``pairs`` on a replica gathered onto
-``mesh.devices[0]`` (the reference's "replicated" strategy); every
-result is bit-identical to the unsharded slab's and lives on
+``classify`` once a shard and ``pairs`` through
+``ops._compare_matrix_packed_sharded`` at full capacity (the
+reference's block-row ring by default, or its "replicated" strategy),
+with promoted rows patched in and dead slots masked on the device;
+every result is bit-identical to the unsharded slab's and lives on
 ``mesh.devices[0]``.
 """
 from __future__ import annotations
@@ -282,8 +284,6 @@ class CausalEngine:
         aidx = np.flatnonzero(alive)
         kw = dict(engine=engine, bi=bi, bj=bj, bm=bm,
                   use_autotune=self.policy.autotune)
-        if slab.mesh is not None and aidx.size:
-            return self._pairs_replicated(slab, alive, uniform_base, kw)
         if aidx.size == 0:
             false = torch.zeros((cap, cap), dtype=torch.bool, device=dev)
             zeros = torch.zeros((cap,), dtype=torch.float32, device=dev)
@@ -293,6 +293,24 @@ class CausalEngine:
                 row_sums=zeros, col_sums=zeros, engine="empty")
         if uniform_base is None:
             uniform_base = self._uniform_base(slab, alive)
+        if slab.mesh is not None:
+            # the bulk at full capacity, by either strategy; the fully
+            # alive packed slab returns it as it is
+            bulk = ops._compare_matrix_packed_sharded(
+                slab.cells_u8, slab.base, mesh=slab.mesh,
+                uniform_base=uniform_base, **kw)
+            eng, blocks = _dispatch_label("ring_full")
+            if aidx.size == cap and slab.packed:
+                return ComparisonMatrix.from_dict(bulk, engine=eng,
+                                                  blocks=blocks)
+            if not slab.packed:
+                # promoted rows: the O(P x A) int32 rim patched in on
+                # the device
+                bulk = self._device_wide_overlay(slab, bulk, aidx, **kw)
+                eng += "+wide_rim"
+            return ComparisonMatrix.from_dict(
+                _mask_dead_pairs(bulk, torch.as_tensor(alive, device=dev)),
+                engine=eng, blocks=blocks)
         if aidx.size == cap and slab.packed:
             out = ops._compare_matrix_packed(slab.cells_u8, slab.base,
                                              uniform_base=uniform_base, **kw)
@@ -310,21 +328,6 @@ class CausalEngine:
             return ComparisonMatrix.from_dict(
                 _expand_alive(sub, jidx, cap), engine=eng, blocks=blocks)
         return self._host_pairs(slab, alive, aidx, **kw)
-
-    def _pairs_replicated(self, slab: PackedSlab, alive: np.ndarray,
-                          uniform_base, kw: dict) -> ComparisonMatrix:
-        """A sharded slab's pairs by the "replicated" strategy: the
-        single-device assembly (dead-slot compaction, the int32 rim) runs
-        unchanged on the replica gathered onto ``mesh.devices[0]``.  The
-        engine label is ``replicated_<engine>``."""
-        cells, base = ops._replicate(slab.cells_u8, slab.base, mesh=slab.mesh)
-        res = self._pairs_slab(
-            PackedSlab(cells, base, base_host=slab.base_host, wide=slab.wide),
-            alive, kw["engine"], kw["bi"], kw["bj"], kw["bm"], uniform_base)
-        return dataclasses.replace(
-            res, engine=f"replicated_{res.engine}",
-            blocks=(*(res.blocks or ()), ("shards", len(slab.mesh.devices)),
-                    ("strategy", "replicated")))
 
     @staticmethod
     def _uniform_base(slab: PackedSlab, alive: np.ndarray) -> bool | None:
@@ -348,19 +351,48 @@ class CausalEngine:
         the promoted rows' true values over their clipped residuals.  A
         promoted row's span exceeds a byte by definition, so the int32
         engine is named outright; block shapes carry over."""
-        dev = slab.cells_u8.device
+        dev = slab.device
         rim_kw = {k: v for k, v in kw.items()
                   if k in ("bi", "bj", "bm", "use_autotune")}
         wide_rows = torch.as_tensor(
             np.stack([slab.wide[int(s)] for s in widx]), device=dev)
-        jaidx = torch.as_tensor(aidx, device=dev)
-        alive_i32 = pack.unpack_rows(slab.cells_u8.index_select(0, jaidx),
-                                     slab.base.index_select(0, jaidx))
+        alive_i32 = pack.unpack_rows(*_take_rows(slab, aidx))
         wpos = {int(s): i for i, s in enumerate(aidx)}
         alive_i32[torch.as_tensor([wpos[int(s)] for s in widx],
                                   device=dev)] = wide_rows
         return ops._compare_matrix(wide_rows, alive_i32, engine="i32",
                                    **rim_kw)
+
+    def _device_wide_overlay(self, slab: PackedSlab, bulk: dict,
+                             aidx: np.ndarray, **kw) -> dict:
+        """Patch the promoted rows' and columns' flags into a
+        full-capacity bulk and re-finalise fp from the corrected sums,
+        on the device (the reference's counterpart of ``_host_pairs`` on
+        a sharded slab): only the O(P x A) rim is computed.  The bulk's
+        tensors are fresh, so they are patched in place."""
+        cap, m = slab.capacity, slab.m
+        widx = self._alive_widx(slab, aidx)
+        if widx.size == 0:
+            return bulk
+        rim = self._wide_rim(slab, aidx, widx, **kw)
+        dev = bulk["a_le_b"].device
+        jw = torch.as_tensor(widx, device=dev)
+        ja = torch.as_tensor(aidx, device=dev)
+
+        def patch(mat, row_pa, col_pa):
+            full = torch.zeros((2, len(widx), cap), dtype=torch.bool,
+                               device=dev)
+            full[0].index_copy_(1, ja, row_pa)
+            full[1].index_copy_(1, ja, col_pa)
+            mat.index_copy_(0, jw, full[0])
+            return mat.index_copy_(1, jw, full[1].T)
+
+        le = patch(bulk["a_le_b"], rim["a_le_b"], rim["b_le_a"])
+        ge = patch(bulk["b_le_a"], rim["b_le_a"], rim["a_le_b"])
+        sums = bulk["row_sums"].index_copy(0, jw, rim["row_sums"])
+        return {"a_le_b": le, "b_le_a": ge, "concurrent": ~(le | ge),
+                "fp": ops.eq3_outer(sums, sums, m), "row_sums": sums,
+                "col_sums": sums}
 
     def _host_pairs(self, slab: PackedSlab, alive: np.ndarray,
                     aidx: np.ndarray, **kw) -> ComparisonMatrix:
@@ -407,6 +439,41 @@ class CausalEngine:
         fp = torch.where(pair, ops.eq3_outer(sums, sums, m), 0.0)
         return ComparisonMatrix(le=le, ge=ge, conc=conc, fp=fp,
                                 row_sums=sums, col_sums=sums, engine=eng)
+
+
+def _take_rows(slab: PackedSlab, slots: np.ndarray):
+    """(u8 rows, bases) of the given sorted global slots on
+    ``slab.device``: one gather a shard on a sharded slab."""
+    if slab.mesh is None:
+        j = torch.as_tensor(slots, device=slab.device)
+        return slab.cells_u8.index_select(0, j), slab.base.index_select(0, j)
+    rows = slab.cells_u8[0].shape[0]
+    parts = []
+    for i, (c, b) in enumerate(zip(slab.cells_u8, slab.base)):
+        local = slots[(slots >= i * rows) & (slots < (i + 1) * rows)] - i * rows
+        if local.size:
+            j = torch.as_tensor(local, device=c.device)
+            parts.append((c.index_select(0, j).to(slab.device),
+                          b.reshape(-1).index_select(0, j).to(slab.device)))
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+
+
+def _mask_dead_pairs(bulk: dict, alive: torch.Tensor) -> dict:
+    """Dead-slot masking of a full-capacity all-pairs bulk on its device,
+    the sharded path's counterpart of ``_expand_alive`` (same contract:
+    dead rows and columns report all-False flags and zero fp and sums)."""
+    pair = alive[:, None] & alive[None, :]
+    le = bulk["a_le_b"] & pair
+    ge = bulk["b_le_a"] & pair
+    sums = torch.where(alive, bulk["row_sums"], 0.0)
+    return {
+        "a_le_b": le,
+        "b_le_a": ge,
+        "concurrent": ~(le | ge) & pair,
+        "fp": torch.where(pair, bulk["fp"], 0.0),
+        "row_sums": sums,
+        "col_sums": sums,
+    }
 
 
 def _put_block(mat: torch.Tensor, ridx: torch.Tensor, cidx: torch.Tensor,

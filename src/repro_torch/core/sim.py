@@ -176,8 +176,14 @@ class GossipSimResult:
     within_eq3_band: bool     # measured consistent with predicted
     merges: int               # peers actually merged across rounds
     quarantines: int          # FORKED verdicts (all truth-concurrent when fn == 0)
-    transport: str = "loopback"
+    transport: str = "loopback"   # fabric the audited sessions ran over
+    digest_bytes: int = 0     # MEASURED inbound digest bytes across rounds
+    delta_bytes: int = 0      # MEASURED inbound delta-frame bytes
     pushback_bytes: int = 0   # MEASURED outbound push-back frame bytes
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.digest_bytes + self.delta_bytes + self.pushback_bytes
 
     def summary(self) -> str:
         return (
@@ -187,13 +193,13 @@ class GossipSimResult:
             f"predicted_fp={self.mean_predicted_fp:.4f} "
             f"band_ok={self.within_eq3_band} merges={self.merges} "
             f"quarantines={self.quarantines} "
-            f"wire={self.pushback_bytes}B[{self.transport}]"
+            f"wire={self.wire_bytes}B[{self.transport}]"
         )
 
 
 def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
                    gossip_cfg=None, registry_factory=None,
-                   transport: str = "loopback",
+                   transport="loopback",
                    device=None) -> GossipSimResult:
     """Replay a random execution and interleave real fleet gossip rounds
     at node ``observer``, scoring every verdict against the exact
@@ -206,19 +212,25 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
     ``registry_factory(capacity, m, k) -> ClockRegistry`` swaps the
     observer's registry construction (default: one slab on ``device``);
     a mesh-backed factory runs every audited verdict through the
-    sharded paths.  ``device`` places the replayed clocks.
+    sharded paths.  ``transport`` picks the fabric the audited sessions
+    run over: ``"loopback"`` (peer rows admitted into the slab directly),
+    ``"mesh"`` (``MeshCollectiveTransport`` over the factory's sharded
+    registry: the digest ring between its devices), or a callable
+    ``transport(registry) -> Transport``; the socket fabric is not
+    ported.  Reported wire bytes are measured frame lengths, summed over
+    the rounds' reports.  ``device`` places the replayed clocks.
     """
     from repro_torch.causal import CausalPolicy
     from repro_torch.device import resolve_device
     from repro_torch.fleet import gossip as fg
     from repro_torch.fleet import monitor as fm
     from repro_torch.fleet import registry as fr
-    from repro_torch.fleet.transport import LoopbackTransport, anti_entropy_session
+    from repro_torch.fleet import transport as ft
     from repro_torch.obs.observer import resolve
 
-    if transport != "loopback":
+    if not (callable(transport) or transport in ("loopback", "mesh")):
         raise ValueError(f"unknown transport {transport!r} (the port has "
-                         "the loopback transport only)")
+                         "the loopback and mesh transports)")
     device = resolve_device(device)
     fg_cfg = gossip_cfg if gossip_cfg is not None else fg.GossipConfig(
         policy=CausalPolicy(fp_threshold=1.0), straggler_gap=np.inf)
@@ -236,14 +248,20 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
     obs = resolve(fg_cfg.observer
                   or (fg_cfg.policy.observer if fg_cfg.policy is not None
                       else None))
-    tp = LoopbackTransport(registry)
+    if callable(transport):
+        tp = transport(registry)
+    elif transport == "mesh":
+        tp = ft.MeshCollectiveTransport(registry)
+    else:
+        tp = ft.LoopbackTransport(registry)
 
     def as_clock(cells_row: np.ndarray) -> bc.BloomClock:
         return bc.BloomClock(
             cells=torch.as_tensor(cells_row.astype(np.int32), device=device),
             base=torch.zeros((), dtype=torch.int32, device=device), k=k)
 
-    fn = fp_count = claims = merges = quarantines = pushback_bytes = 0
+    fn = fp_count = claims = merges = quarantines = 0
+    digest_bytes = delta_bytes = pushback_bytes = 0
     predicted: list[float] = []
     round_marks = set(
         np.linspace(cfg.n_events // max(n_rounds, 1), cfg.n_events - 1,
@@ -257,7 +275,10 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
             registry.admit_many({p: as_clock(bloom[p]) for p in peers})
             local = as_clock(bloom[observer])
             audit_mark = len(obs.audit.records) if obs.audit else 0
-            merged, report = anti_entropy_session(registry, local, tp, fg_cfg)
+            merged, report = ft.anti_entropy_session(registry, local, tp,
+                                                     fg_cfg)
+            digest_bytes += report.digest_bytes
+            delta_bytes += report.delta_bytes
             pushback_bytes += report.pushback_bytes
 
             vo = vec[observer]
@@ -326,6 +347,8 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
         merges=merges,
         quarantines=quarantines,
         transport=tp.name,
+        digest_bytes=digest_bytes,
+        delta_bytes=delta_bytes,
         pushback_bytes=pushback_bytes,
     )
 

@@ -4,7 +4,8 @@
   admit/evict/update, a one-kernel-call ``classify_all`` and
   ``all_pairs``, on one device or row-sharded over a fleet mesh;
 - ``gossip``    — anti-entropy round config/report + the loopback round;
-- ``transport`` — the session protocol over the loopback transport;
+- ``transport`` — the session protocol over the loopback and
+  mesh-collective transports;
 - ``monitor``   — fleet health (fork components, stragglers, the fp
   profile) from one all-pairs call, ``watch`` and the Eq. 3 band check.
 """
@@ -30,6 +31,7 @@ from repro_torch.fleet.monitor import (
 )
 from repro_torch.fleet.transport import (
     LoopbackTransport,
+    MeshCollectiveTransport,
     Transport,
     anti_entropy_session,
 )
@@ -45,6 +47,7 @@ __all__ = [
     "anti_entropy_session",
     "Transport",
     "LoopbackTransport",
+    "MeshCollectiveTransport",
     "ANCESTOR",
     "SAME",
     "DESCENDANT",

@@ -9,8 +9,8 @@ A transport answers three questions for one node's gossip session:
 
 Every method returns MEASURED byte counts.  An ``authoritative``
 transport holds the peer rows in the session's own registry slab, so
-there is nothing to pull.  The port has only the loopback transport so
-far; the socket, mesh and chaos fabrics are still to come.
+there is nothing to pull.  The port has the loopback and mesh
+transports; the socket and chaos fabrics are still to come.
 """
 from __future__ import annotations
 

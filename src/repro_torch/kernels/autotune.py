@@ -36,11 +36,22 @@ back to the built-in blocks when the table has no entry.  The shipped
 table holds only ``cuda`` keys, so a CPU run resolves the built-in
 blocks.
 
+The ``matrix_sharded`` op records a **strategy** for a row-sharded
+slab: ``ring`` (the halved block-row ring) or ``replicated`` (gather
+the slab onto the first card, run tri there), which
+``ops._compare_matrix_packed_sharded`` dispatches on
+(``predict_sharded_cost``, ``autotune_matrix_sharded``, ``--shards``).
+Its entries are measured on distinct cards and read only there: a CUDA
+mesh whose shards share a card neither writes nor reads one
+(``sharded_table_ok``), and keeps the default, ``ring``.
+
 Regenerate the shipped table on the card with
 
     PYTHONPATH=src python -m repro_torch.kernels.autotune --write --explain
 
-which sweeps the shapes the paths run (``DEFAULT_SIZES``) and merges the
+(add ``--sizes matrix:16384x1024 --shards 2 4`` on a host with four
+cards for the sharded entries) which sweeps the shapes the paths run
+(``DEFAULT_SIZES``) and merges the
 winners into ``autotune_table.json`` next to this module (or ``--out
 PATH`` / ``$REPRO_TORCH_AUTOTUNE_TABLE``).  ``--explain`` prints the
 model's predicted ranking next to the measured times; ``--trace-dir``
@@ -69,6 +80,7 @@ __all__ = [
     "SEARCH_STATS",
     "autotune_hybrid",
     "autotune_matrix",
+    "autotune_matrix_sharded",
     "autotune_one_vs_many",
     "autotune_shapes",
     "backend_of",
@@ -79,8 +91,10 @@ __all__ = [
     "predict_cost",
     "predict_hybrid_cost",
     "predict_one_vs_many_cost",
+    "predict_sharded_cost",
     "prune",
     "save_table",
+    "sharded_table_ok",
     "table_path",
 ]
 
@@ -182,10 +196,17 @@ def lookup(op: str, N: int, M: int, m: int, backend: str,
 #          (4 warp instructions a clock x 132 SMs x 1.98 GHz, chip_smoke
 #          INT_OPS), reached only with 32 resident warps an SM to hide
 #          latency; a wave of CTAs 1 us; a launch 4 us.
+#          NVLink: 450 GB/s each way between two cards of a host (NVIDIA's
+#          H100 data sheet: 900 GB/s in all); a copy between cards costs a
+#          launch and an event besides its bytes.  The sharded ring's
+#          strided bool block copies into its block-rows move ~0.5 TB/s
+#          (measured on the H100: 2.12 ms for 4 N^2 bytes at N = 16,384,
+#          PERF.md §6).
 _MODEL = {
     "cpu": dict(step_overhead=2.0e-3, elem=4.0e-10, mxu_flop=4.0e-11),
     "cuda": dict(hbm=3.35e12, issue=128 * 132 * 1.98e9, warps_target=32,
-                 wave=1.0e-6, launch=4.0e-6),
+                 wave=1.0e-6, launch=4.0e-6, nvlink=450e9, copy=10.0e-6,
+                 assemble=0.5e12),
 }
 
 #: instructions a pair and lane (all-pairs) or a cell (one-vs-many) in
@@ -347,6 +368,75 @@ def predict_hybrid_cost(N: int, H: int, m: int, bn: int, bm: int,
              + H * _HOT_ROW)
     return (hopper_time(spec, _regs(spec, regs), ctas, nbytes, instr)
             + -(-ctas // tp.HOPPER["sms"]) * _CTA_SETUP)
+
+
+def sharded_table_ok(mesh) -> bool:
+    """Whether a ``matrix_sharded`` entry may be read or written for this
+    mesh: always on the CPU (the counterpart of the reference's forced
+    host devices), on CUDA only when every shard has its own card, since
+    the entries are measured there and read there."""
+    devices = mesh.devices
+    return devices[0].type != "cuda" or len(set(devices)) == len(devices)
+
+
+def predict_sharded_cost(strategy: str, N: int, m: int, shards: int,
+                         backend: str, *, parallel: int | None = None,
+                         bi: int | None = None, bj: int | None = None,
+                         bm: int = 512, uniform_base: bool = True,
+                         regs: dict | None = None) -> float:
+    """Predicted seconds for one sharded all-pairs sweep of N rows over
+    ``shards`` row shards, ``parallel`` of them on distinct devices
+    (default: all, at least 1).
+
+    ``ring``: d tri launches of N/d rows and d(d - 1)/2 rect-u8 launches
+    of N/d x N/d, spread over ``parallel`` cards, no card doing less than
+    the busiest shard (tri and d // 2 rects at an even d); every pair's
+    two flags are copied once more into the block-rows (4 N^2 bytes read
+    and written, at the measured ``assemble`` rate, spread likewise);
+    across cards each of the d // 2 steps copies a shard (N/d m bytes,
+    and 4 N/d of bases when they are not uniform) and ships the mirror
+    flags (2 (N/d)^2 bytes) over NVLink, and the block-rows of the other
+    cards then cross to the first, (d - 1)/d of 2 N^2 bytes.  On one card
+    the copies are none.  ``replicated``: (d - 1)/d of the slab's N m
+    bytes gathered onto the first card, then the one-card tri.  Both
+    finalise on the first card alike, which the model leaves out.  On
+    the CPU it is the reference's model of forced host devices, which
+    run in turn: the ring pays its steps and buys no parallelism."""
+    if shards == 1:
+        strategy = "replicated"          # a 1-wide ring is the plain sweep
+    if strategy not in ("ring", "replicated"):
+        raise ValueError(strategy)
+    bi = bi or 64
+    bj = bj or bi
+    regs = regs or {}
+    tri = predict_cost("tri", N, N, m, max(bi, bj), max(bi, bj), bm, backend,
+                       regs=regs.get("tri"))
+    if backend == "cpu":
+        if strategy == "replicated":
+            return tri + N * m * 1e-9
+        steps = 1 + shards // 2
+        return tri + steps * 2.0e-3 + steps * shards * 1.0e-3
+    c = _MODEL["cuda"]
+    d = shards
+    p = max(1, min(d, parallel if parallel is not None else d))
+    link = p > 1
+    if strategy == "replicated":
+        gather = (d - 1) / d * N * m / c["nvlink"] + c["copy"] if link else 0.0
+        return tri + gather
+    nd = -(-N // d)
+    tri_s = predict_cost("tri", nd, nd, m, max(bi, bj), max(bi, bj), bm,
+                         backend, regs=regs.get("tri"))
+    rect_s = predict_cost("full", nd, nd, m, bi, bj, bm, backend,
+                          regs=regs.get("full"))
+    steps = d // 2
+    work = max((d * tri_s + d * (d - 1) // 2 * rect_s) / p,
+               tri_s + steps * rect_s)
+    ring = 4 * N * N / c["assemble"] / p
+    if link:
+        shard = nd * m + (0 if uniform_base else 4 * nd)
+        ring += steps * ((shard + 2 * nd * nd) / c["nvlink"] + 3 * c["copy"])
+        ring += (d - 1) / d * 2 * N * N / c["nvlink"] + 2 * c["copy"]
+    return work + ring
 
 
 def prune(candidates: list, predicted: list[float]) -> list:
@@ -520,6 +610,66 @@ def autotune_matrix(N: int, m: int, *, span: int = 30, device=None,
                  ("tri",) + ops.MATRIX_BLOCKS)
 
 
+def autotune_matrix_sharded(N: int, m: int, shards: int, *, span: int = 30,
+                            device=None, mesh=None, verbose: bool = False,
+                            explain: dict | None = None) -> dict:
+    """Race "ring" against "replicated" for the sharded symmetric
+    all-pairs at [N, m] over ``shards`` row shards; returns
+    ``{"strategy", "bi", "bj", "bm", "us"}``, the entry
+    ``ops._compare_matrix_packed_sharded`` reads under
+    ``key_for("matrix_sharded", N, N, m, backend, shards)``.
+
+    The mesh is ``mesh``, else ``shards`` distinct cards (``device`` on
+    CUDA) or ``shards`` shards of the CPU.  A CUDA mesh whose shards
+    share a card is refused, as the reference refuses fewer devices than
+    shards: its entry would be read on distinct cards.  Blocks are the
+    ``matrix`` entry's where it names tri (the ring's diagonal runs tri
+    at them), else the built-in ones."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.sharding import split_rows
+
+    if mesh is None:
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            n = torch.cuda.device_count()
+            if n < shards:
+                raise RuntimeError(f"{shards}-shard sweep needs {shards} "
+                                   f"CUDA devices, have {n}")
+            mesh = make_fleet_mesh(shards)
+        else:
+            mesh = make_fleet_mesh(shards, device=dev)
+    if len(mesh.devices) != shards:
+        raise ValueError(f"a mesh of {len(mesh.devices)} devices for a "
+                         f"{shards}-shard sweep")
+    if not sharded_table_ok(mesh):
+        raise RuntimeError(
+            f"{shards}-shard sweep on a CUDA mesh whose shards share a card: "
+            "matrix_sharded entries are measured on distinct cards")
+    dev = mesh.devices[0]
+    backend = backend_of(dev)
+    cells, base = _rand_packed(N, m, span, dev)
+    cells, base = split_rows(cells, mesh.devices), split_rows(base, mesh.devices)
+    bi, bj, bm = ops._matrix_blocks("tri", N, N, m, None, None, None,
+                                    backend)
+
+    grid = [("ring",), ("replicated",)]
+    parallel = len(set(mesh.devices))
+    predicted = [predict_sharded_cost(st, N, m, shards, backend,
+                                      parallel=parallel, bi=bi, bj=bj, bm=bm)
+                 for (st,) in grid]
+    _explain(explain, grid, predicted, grid, ("strategy",))
+
+    def run(cfg):
+        return lambda: ops._compare_matrix_packed_sharded(
+            cells, base, mesh=mesh, strategy=cfg[0], bi=bi, bj=bj, bm=bm,
+            uniform_base=True, use_autotune=False)
+
+    best = _race(grid, ("strategy",), run, dev, verbose,
+                 f"matrix_sharded s={shards}", explain, ("ring",))
+    return {**best, "bi": bi, "bj": bj, "bm": bm}
+
+
 def _rows_candidates(m: int) -> list:
     return [(bn, bm) for bn in BNS for bm in _bm_choices(m)]
 
@@ -611,12 +761,16 @@ def parse_size(text: str) -> tuple:
     return op, int(N), int(m), None if hot is None else int(hot)
 
 
-def autotune_shapes(shapes, *, device=None, verbose: bool = False,
-                    observer=None, explains: dict | None = None) -> dict:
-    """Sweep shapes; returns {table_key: cfg}.
+def autotune_shapes(shapes, *, shard_counts=(), device=None,
+                    verbose: bool = False, observer=None,
+                    explains: dict | None = None) -> dict:
+    """Sweep shapes (and shard counts); returns {table_key: cfg}.
 
     A shape is ``(N, m)`` (matrix, one-vs-many and hybrid, hot N // 8,
     as in the reference) or ``(op, N, m, hot)`` from ``parse_size``.
+    Each matrix shape is also raced ring against replicated at every
+    shard count d >= 2 of ``shard_counts`` that divides N
+    (``autotune_matrix_sharded``: distinct cards on CUDA).
     ``observer`` (a ``repro_torch.obs.Observer``) gets one
     ``autotune.sweep`` span per (op, shape) with the search counters as
     attributes and ``autotune.{candidates,pruned,measured}`` counters;
@@ -640,7 +794,7 @@ def autotune_shapes(shapes, *, device=None, verbose: bool = False,
         for k in SEARCH_STATS:
             obs.metrics.counter(f"autotune.{k}", op=op).inc(
                 SEARCH_STATS[k] - before[k])
-        key = key_for(op, N, kw.get("M", N), m, backend)
+        key = key_for(op, N, kw.get("M", N), m, backend, kw.get("shards", 1))
         if explains is not None:
             explains[key] = exp
         if verbose:
@@ -654,6 +808,15 @@ def autotune_shapes(shapes, *, device=None, verbose: bool = False,
                 print(f"[autotune] matrix N={N} m={m}")
             swept("matrix", N, m, lambda explain: autotune_matrix(
                 N, m, device=dev, verbose=verbose, explain=explain))
+            for d in shard_counts:
+                if d < 2 or N % d:
+                    continue
+                if verbose:
+                    print(f"[autotune] matrix_sharded N={N} m={m} shards={d}")
+                swept("matrix_sharded", N, m,
+                      lambda explain, d=d: autotune_matrix_sharded(
+                          N, m, d, device=dev, verbose=verbose,
+                          explain=explain), shards=d)
         if op in (None, "one_vs_many"):
             if verbose:
                 print(f"[autotune] one_vs_many N={N} m={m}")
@@ -719,6 +882,9 @@ def main(argv=None) -> None:
     p.add_argument("--sizes", nargs="*", default=list(DEFAULT_SIZES),
                    help="shapes to sweep: NxM (peers x cells, every op), "
                         "op:NxM, or hybrid:NxMhH (H hot rows)")
+    p.add_argument("--shards", nargs="*", type=int, default=[],
+                   help="also race ring against replicated for each matrix "
+                        "shape at these shard counts (distinct cards)")
     p.add_argument("--device", default=None,
                    help="device to tune on (default: the card)")
     p.add_argument("--write", action="store_true",
@@ -741,7 +907,8 @@ def main(argv=None) -> None:
         from repro_torch.obs import Observer
         observer = Observer.to_dir(args.trace_dir)
     explains: dict | None = {} if (args.explain or args.explain_out) else None
-    results = autotune_shapes(shapes, device=args.device, verbose=True,
+    results = autotune_shapes(shapes, shard_counts=tuple(args.shards),
+                              device=args.device, verbose=True,
                               observer=observer, explains=explains)
     if observer is not None:
         observer.close()

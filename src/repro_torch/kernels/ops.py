@@ -13,9 +13,10 @@ the merge-compare, one-vs-many and hybrid kernels write their flags as
 all-pairs dispatch (op, engine and blocks), which ``CausalEngine``
 copies into its results.  A row-sharded slab classifies with one
 launch a shard (``_classify_vs_many_packed_sharded``) and compares
-all-pairs on a replica gathered onto the mesh's first device
-(``_replicate``); a wrapper refuses a tensor that
-lies on another device than the one its kernel runs on.
+all-pairs by the reference's block-row ring or on a replica gathered
+onto the mesh's first device (``_compare_matrix_packed_sharded``); a
+wrapper refuses a tensor that lies on another device than the one its
+kernel runs on, so each shard's launch runs on its own card.
 
 Blocks and the all-pairs engine resolve as the reference's do: an
 explicit argument, else the measured ``autotune`` table entry for the
@@ -31,12 +32,15 @@ tile sums and their float32 accumulation order match the reference.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from repro_torch.core.hashing import bloom_indices
 from repro_torch.kernels import autotune, pack, ref
 from repro_torch.kernels._build import library
 from repro_torch.kernels.template import PAIR_TILES, CompareSpec, validate
+from repro_torch.sharding import arrive, mark, send_to
 
 __all__ = [
     "LAUNCHES",
@@ -55,6 +59,7 @@ __all__ = [
     "rect_u8_flags",
     "rect_i32_stats",
     "mxu_viol",
+    "compare_matrix_packed_sharded",
 ]
 
 LANE = 128  # the reference's lane grain; fixes its m-tile widths
@@ -338,16 +343,8 @@ def _classify_vs_many_packed_sharded(q: torch.Tensor, peers: tuple,
     slot order on ``mesh.devices[0]``.
     """
     devices = mesh.devices
-    d = len(devices)
-    if len(peers) != d or len(base) != d:
-        raise ValueError(f"{len(peers)} row shards and {len(base)} base "
-                         f"shards on a mesh of {d} devices")
-    for i, (p, dev) in enumerate(zip(peers, devices)):
-        if p.device != dev:
-            raise ValueError(f"row shard {i} is on {p.device}, its mesh "
-                             f"device is {dev}")
-    (m,) = q.shape
-    N = sum(p.shape[0] for p in peers)
+    d, nd, m = _mesh_shards("one_vs_many_sharded", peers, base, mesh)
+    N = nd * d
     bn, bm = _one_vs_many_blocks(N, m, bn, bm, autotune.backend_of(peers[0]),
                                  use_autotune)
     _note_dispatch("one_vs_many", "packed_sharded", bn=bn, bm=bm, shards=d)
@@ -619,15 +616,23 @@ def _matrix_dict(le, ge, row_sums, col_sums, m: int) -> dict:
 
 
 def _matrix_blocks(engine: str, N: int, M: int, m: int, bi, bj, bm,
-                   backend: str, use_table: bool = True) -> tuple[int, int, int]:
+                   backend: str, use_table: bool = True,
+                   shards: int = 1) -> tuple[int, int, int]:
     """Resolve all-pairs blocks: explicit args > the autotune table's
     entry for this shape when it names the same engine > ``MATRIX_BLOCKS``
     (64 x 64 pairs a CUDA block; bm 512, which fixes the i32 engine's
-    sum order)."""
-    cfg = (autotune.lookup("matrix", N, M, m, backend) or {}) \
-        if use_table else {}
-    if cfg.get("engine") != engine:
+    sum order).  A sharded ring (``shards > 1``) reads the
+    ``matrix_sharded`` entry of the global shape and shard count, never
+    the ``matrix`` entry, as in the reference."""
+    if not use_table:
         cfg = {}
+    elif shards > 1:
+        cfg = autotune.lookup("matrix_sharded", N, M, m, backend,
+                              shards=shards) or {}
+    else:
+        cfg = autotune.lookup("matrix", N, M, m, backend) or {}
+        if cfg.get("engine") != engine:
+            cfg = {}
     bi = bi or cfg.get("bi", MATRIX_BLOCKS[0])
     bj = bj or cfg.get("bj", MATRIX_BLOCKS[1])
     _check_tiles(bi, bj)
@@ -759,23 +764,206 @@ def _gathered_replica(shards: tuple, dev: torch.device) -> torch.Tensor:
     return gathered
 
 
-def _replicate(cells: tuple, base: tuple, *, mesh,
-               strategy: str | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The sharded all-pairs operands by the "replicated" strategy: the
-    u8 row shards and their bases gathered onto ``mesh.devices[0]``
-    (memoised), where the single-device engines run on them unchanged,
-    bit-identical to the unsharded slab.  "replicated" is the only
-    strategy ported; the reference's default, "ring", comes with ROADMAP
-    queue 1, item 3b, and asking for it raises."""
-    if strategy == "ring":
-        raise NotImplementedError(
-            "the 'ring' sharded all-pairs strategy is not ported yet "
-            "(ROADMAP queue 1, item 3b); use strategy='replicated'")
-    if strategy not in (None, "replicated"):
-        raise ValueError(f"unknown sharded strategy: {strategy}")
+def _ring_flags(cells: tuple, base: tuple, devices: tuple, bi: int, bj: int,
+                with_base: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(le, ge) bool [N, N] on ``devices[0]`` of the symmetric all-pairs
+    over the row shards ``cells`` / ``base`` (shard i [N/d, m] on
+    ``devices[i]``): the reference's block-row ring
+    (``src/repro/kernels/ops.py::_sharded_ring_fn``) as copies between
+    cards.
+
+    Step 0 runs tri over each resident shard (the kernel writes the mirror
+    of its upper tiles itself).  Step 1 <= s <= d // 2 brings shard i + s
+    to shard i and runs rect-u8 of the resident rows against it, block
+    (i, i + s); the transposed flags (``le(j, i) = ge(i, j)^T``) go to
+    shard i + s as its block (i + s, i).  At the half-way offset of an
+    even d only shards i < d/2 compute.  So the ring launches tri d times
+    and rect-u8 d(d - 1)/2 times, and each pair's flags are computed
+    once, exactly as on one slab.
+
+    Double buffered: the copies of step s + 1 are queued on side streams
+    before step s's kernels, each after an event taken when the ring
+    starts (the shard's last write), and a card's current stream waits
+    only on the copy its next kernel reads.  A visiting shard comes from
+    its owner, not from a neighbour: on NVLink, all to all, that is the
+    same hop and no copy waits on another.  Bases travel only when they
+    are not uniform.  Mirror blocks are written after the last step, so
+    no card waits on another before its own sweep is queued.  Each
+    shard's [N/d, N] block-row is a view of the output where the shard
+    lies on ``devices[0]``, else a buffer on its card copied there at the
+    end, which also makes ``devices[0]``'s current stream wait on every
+    card."""
+    d = len(devices)
+    nd = cells[0].shape[0]
+    N = nd * d
+    dev0 = devices[0]
+    if d == 1:
+        return tri_flags(cells[0], base[0], bt=max(bi, bj),
+                         with_base=with_base)
+    le, ge = _flag_pair(N, N, dev0)
+    rows = [(le[i * nd:(i + 1) * nd], ge[i * nd:(i + 1) * nd])
+            if dev == dev0 else _flag_pair(nd, N, dev)
+            for i, dev in enumerate(devices)]
+    ready = [mark(dev) for dev in devices]
+    steps = d // 2 + 1
+
+    def computes(s: int, i: int) -> bool:
+        return not (d % 2 == 0 and s == d // 2) or i < d // 2
+
+    def visit(s: int) -> list:
+        out = []
+        for i, dev in enumerate(devices):
+            j = (i + s) % d
+            if s >= steps or not computes(s, i):
+                out.append(None)
+            elif with_base:
+                out.append((send_to(cells[j], dev, ready[j]),
+                            send_to(base[j], dev, ready[j])))
+            else:
+                out.append((send_to(cells[j], dev, ready[j]),
+                            (base[i], None)))
+        return out
+
+    mirrors = []
+    nxt = visit(1)
+    for s in range(steps):
+        cur = nxt
+        if s:
+            nxt = visit(s + 1)      # queued before this step's kernels
+        for i, dev in enumerate(devices):
+            if not computes(s, i):
+                continue
+            j = (i + s) % d
+            if s == 0:
+                lf, gf = tri_flags(cells[i], base[i], bt=max(bi, bj),
+                                   with_base=with_base)
+            else:
+                cols, cb = (arrive(x, dev) for x in cur[i])
+                lf, gf = rect_u8_flags(cells[i], cols, base[i], cb, bi=bi,
+                                       bj=bj, with_base=with_base)
+            rows[i][0][:, j * nd:(j + 1) * nd] = lf
+            rows[i][1][:, j * nd:(j + 1) * nd] = gf
+            if s:
+                # block (j, i) of shard j: the transposed flags
+                if devices[j] == dev:
+                    mirrors.append((j, i, (gf.T, None), (lf.T, None)))
+                else:
+                    mirrors.append((j, i,
+                                    send_to(gf.T.contiguous(), devices[j]),
+                                    send_to(lf.T.contiguous(), devices[j])))
+    for j, i, le_m, ge_m in mirrors:
+        rows[j][0][:, i * nd:(i + 1) * nd] = arrive(le_m, devices[j])
+        rows[j][1][:, i * nd:(i + 1) * nd] = arrive(ge_m, devices[j])
+    for i, dev in enumerate(devices):
+        if dev != dev0:
+            le[i * nd:(i + 1) * nd].copy_(rows[i][0])
+            ge[i * nd:(i + 1) * nd].copy_(rows[i][1])
+    return le, ge
+
+
+def _mesh_shards(what: str, cells: tuple, base: tuple, mesh) -> tuple:
+    """(d, rows a shard, m) of a row-sharded slab, refusing shards that
+    do not match the mesh: their count, devices and equal row counts."""
+    devices = mesh.devices
+    d = len(devices)
+    if len(cells) != d or len(base) != d:
+        raise ValueError(f"{what}: {len(cells)} row shards and {len(base)} "
+                         f"base shards on a mesh of {d} devices")
+    nd, m = cells[0].shape
+    for i, (c, dev) in enumerate(zip(cells, devices)):
+        if c.device != dev:
+            raise ValueError(f"{what}: row shard {i} is on {c.device}, its "
+                             f"mesh device is {dev}")
+        if tuple(c.shape) != (nd, m):
+            raise ValueError(f"{what}: row shard {i} is {tuple(c.shape)}, "
+                             f"shard 0 is {(nd, m)}")
+    return d, nd, m
+
+
+def _compare_matrix_packed_sharded(cells: tuple, base: tuple, *, mesh,
+                                   engine: str | None = None,
+                                   strategy: str | None = None,
+                                   bi: int | None = None,
+                                   bj: int | None = None,
+                                   bm: int | None = None,
+                                   uniform_base: bool | None = None,
+                                   use_autotune: bool = True) -> dict:
+    """Symmetric all-pairs over a row-sharded packed slab: ``cells`` and
+    ``base`` hold one [N/d, m] u8 and one [N/d] int32 tensor a shard,
+    shard i on ``mesh.devices[i]``.  Returns ``_compare_matrix``'s dict
+    on ``mesh.devices[0]``.
+
+    The strategy is the argument, else the autotune table's
+    ``matrix_sharded`` entry for this backend, global shape and shard
+    count, else "ring", the reference's default.  A CUDA mesh whose shards
+    share a card reads no entry (``autotune.sharded_table_ok``): the
+    entries are measured on distinct cards.
+
+    - "ring" (``_ring_flags``): tri on each shard's diagonal block,
+      rect-u8 on the halved off-diagonal blocks, the mirrors shipped;
+      blocks from ``_matrix_blocks("full", ..., shards=d)``.
+    - "replicated": the shards gathered onto ``mesh.devices[0]``
+      (memoised, ``_gathered_replica``) and the one-device engines run
+      there unchanged (``_compare_matrix_packed``, no engine hint, as in
+      the reference).
+
+    Both are bit-identical to the unsharded slab: flags are exact, and
+    sums and fp are finalised on ``mesh.devices[0]`` through the same
+    ``_packed_row_sums`` / ``eq3_outer`` as every engine.  Every engine
+    name valid unsharded ("tri", "full", "mxu", "i32") is accepted and
+    runs the packed ring, as in the reference.  Pass ``uniform_base``
+    (the registry's host copy of the bases gives it): the default probes
+    every shard's bases, one host sync.
+    """
+    if engine not in (None, "full", "tri", "mxu", "i32"):
+        raise ValueError(f"unknown packed engine: {engine}")
+    # keep the caller's tensors where they are flat already: the
+    # replica's memo keys on their identity
+    base = tuple(b if b.dim() == 1 else b.reshape(-1) for b in base)
+    d, nd, m = _mesh_shards("matrix_sharded", cells, base, mesh)
+    N = nd * d
     dev0 = mesh.devices[0]
-    return _gathered_replica(cells, dev0), _gathered_replica(base, dev0)
+    backend = autotune.backend_of(dev0)
+    use_table = use_autotune and autotune.sharded_table_ok(mesh)
+    if uniform_base is None:
+        b = torch.cat([x.to(dev0) for x in base])
+        uniform_base = bool((b == b[:1]).all().item())
+    if strategy is None:
+        cfg = (autotune.lookup("matrix_sharded", N, N, m, backend, shards=d)
+               or {}) if use_table else {}
+        strategy = cfg.get("strategy", "ring")
+    if strategy == "replicated":
+        out = _compare_matrix_packed(
+            _gathered_replica(cells, dev0), _gathered_replica(base, dev0),
+            bi=bi, bj=bj, bm=bm, uniform_base=uniform_base,
+            use_autotune=use_autotune)
+        inner = dict(LAST_DISPATCH)
+        _note_dispatch("matrix", f"replicated_{inner.get('engine', 'tri')}",
+                       bi=inner.get("bi"), bj=inner.get("bj"),
+                       bm=inner.get("bm"), shards=d, strategy="replicated")
+        return out
+    if strategy != "ring":
+        raise ValueError(f"unknown sharded strategy: {strategy}")
+    bi, bj, bm = _matrix_blocks("full", N, N, m, bi, bj, bm, backend,
+                                use_table, shards=d)
+    _note_dispatch("matrix", "ring_full", bi=bi, bj=bj, bm=bm, shards=d,
+                   strategy="ring")
+    le, ge = _ring_flags(tuple(cells), base, mesh.devices, bi, bj,
+                         not uniform_base)
+    row_sums = torch.cat([_packed_row_sums(c, b, m).to(dev0)
+                          for c, b in zip(cells, base)])
+    return _matrix_dict(le, ge, row_sums, row_sums, m)
+
+
+def compare_matrix_packed_sharded(*args, **kwargs) -> dict:
+    """DEPRECATED, as in the reference: use ``repro_torch.causal
+    .CausalEngine.pairs`` on a sharded ``PackedSlab``.  Delegates to
+    ``_compare_matrix_packed_sharded``, so its results are the same."""
+    warnings.warn(
+        "repro_torch.kernels.ops.compare_matrix_packed_sharded is "
+        "deprecated; use the repro_torch.causal.CausalEngine front-door "
+        "(engine.pairs) instead", DeprecationWarning, stacklevel=2)
+    return _compare_matrix_packed_sharded(*args, **kwargs)
 
 
 def _shift_pack(x: torch.Tensor, lo: int) -> torch.Tensor:

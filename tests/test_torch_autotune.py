@@ -118,15 +118,23 @@ def test_corrupt_table_reads_as_empty(tmp_path, monkeypatch):
 
 def test_shipped_table_holds_only_cuda_keys():
     """The committed table is the card's: a CPU run resolves no entry,
-    so every CPU path keeps the built-in blocks."""
+    so every CPU path keeps the built-in blocks.  Its sharded entries
+    name a strategy, at more than one shard, with blocks the ring
+    takes."""
     import pathlib
     path = pathlib.Path(autotune.__file__).with_name("autotune_table.json")
     table = json.loads(path.read_text())
     assert table and all(k.split("|")[1] == "cuda" for k in table)
     for key, cfg in table.items():
         op = key.split("|")[0]
-        assert op in ("matrix", "one_vs_many", "hybrid") and cfg["us"] > 0
-        if op == "matrix":
+        assert op in ("matrix", "matrix_sharded", "one_vs_many", "hybrid")
+        assert cfg["us"] > 0
+        if op == "matrix_sharded":
+            assert cfg["strategy"] in ("ring", "replicated")
+            assert int(key.split("|s")[-1]) > 1
+            spec = autotune._matrix_spec("full", cfg["bi"], cfg["bj"],
+                                         cfg["bm"])
+        elif op == "matrix":
             spec = autotune._matrix_spec(cfg["engine"], cfg["bi"], cfg["bj"],
                                          cfg["bm"], 64)
         else:
@@ -636,3 +644,95 @@ def test_cli_sweeps_on_the_cpu(tmp_path, monkeypatch, capsys):
         autotune.parse_size("matrix:64x256h8")
     assert autotune.parse_size("hybrid:69628x1024h4089") == ("hybrid", 69628,
                                                              1024, 4089)
+
+
+# ---------------------------------------------------------------------------
+# the sharded half: ring against replicated
+# ---------------------------------------------------------------------------
+
+def test_predict_sharded_cost_ranks_ring_on_distinct_cards():
+    """The card's model ranks "replicated" first when the shards share
+    one card (the ring buys no parallelism and assembles its blocks) and
+    "ring" first over 4 distinct cards; the CPU model is the reference's
+    forced-host model, which always ranks "replicated" first."""
+    regs = {"tri": 80, "full": 80}
+    kw = dict(N=16384, m=1024, shards=4, backend="cuda", regs=regs)
+    shared = {st: autotune.predict_sharded_cost(st, parallel=1, **kw)
+              for st in ("ring", "replicated")}
+    apart = {st: autotune.predict_sharded_cost(st, parallel=4, **kw)
+             for st in ("ring", "replicated")}
+    assert shared["replicated"] < shared["ring"] < math.inf
+    assert apart["ring"] < apart["replicated"] < math.inf
+    assert apart["ring"] < shared["ring"]
+    assert autotune.predict_sharded_cost("ring", 16384, 1024, 1, "cuda",
+                                         regs=regs) == \
+        autotune.predict_sharded_cost("replicated", 16384, 1024, 1, "cuda",
+                                      regs=regs)
+    for d in (2, 4, 8):
+        got = [autotune.predict_sharded_cost(st, 1024, 1024, d, "cpu")
+               for st in ("ring", "replicated")]
+        want = [jtune.predict_sharded_cost(st, 1024, 1024, d, True, bi=64,
+                                           bj=64) for st in ("ring",
+                                                             "replicated")]
+        assert got[1] < got[0] and want[1] < want[0]
+    with pytest.raises(ValueError):
+        autotune.predict_sharded_cost("tree", 64, 64, 2, "cpu")
+
+
+def test_cpu_sharded_sweep_writes_a_key_the_lookup_reads(tmp_path,
+                                                         monkeypatch):
+    """A CPU sweep at 4 shards writes a ``matrix_sharded|cpu|...|s4`` entry
+    (through ``autotune_shapes`` and the CLI's ``--shards``), and the
+    sharded op then runs the entry's strategy when none is asked for."""
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.sharding import split_rows
+
+    plant(monkeypatch, tmp_path, {})
+    exp = {}
+    out = autotune.autotune_shapes([("matrix", 64, 256, None)],
+                                   shard_counts=(1, 3, 4), device="cpu",
+                                   explains=exp)
+    key = autotune.key_for("matrix_sharded", 64, 64, 256, "cpu", 4)
+    assert key == "matrix_sharded|cpu|N64|M64|m256|s4"
+    assert sorted(out) == sorted([key, autotune.key_for("matrix", 64, 64, 256,
+                                                        "cpu")])
+    best = out[key]
+    assert best["strategy"] in ("ring", "replicated") and best["us"] > 0
+    assert (best["bi"], best["bj"], best["bm"]) == ops.MATRIX_BLOCKS
+    assert {m["strategy"] for m in exp[key]["measured"]} == {"ring",
+                                                             "replicated"}
+    path = tmp_path / "swept.json"
+    autotune.save_table(out, path)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_TABLE", str(path))
+    assert autotune.lookup("matrix_sharded", 64, 64, 256, "cpu",
+                           shards=4) == best
+    mesh = make_fleet_mesh(4, device="cpu")
+    g = np.random.default_rng(4)
+    cells = torch.as_tensor(g.integers(0, 9, (64, 256)), dtype=torch.uint8)
+    base = torch.zeros(64, dtype=torch.int32)
+    ops._compare_matrix_packed_sharded(split_rows(cells, mesh.devices),
+                                       split_rows(base, mesh.devices),
+                                       mesh=mesh, uniform_base=True)
+    assert ops.LAST_DISPATCH["strategy"] == best["strategy"]
+    cli = tmp_path / "cli.json"
+    autotune.main(["--device", "cpu", "--sizes", "matrix:64x256", "--shards",
+                   "2", "--write", "--out", str(cli)])
+    assert autotune.key_for("matrix_sharded", 64, 64, 256, "cpu", 2) in \
+        json.loads(cli.read_text())
+
+
+def test_shared_cuda_mesh_neither_sweeps_nor_reads_the_table():
+    """A CUDA mesh whose shards share a card is refused by the sweep
+    before anything touches a card, and ``sharded_table_ok`` keeps the
+    lookup off the table for it; CPU meshes and distinct cards pass."""
+    from repro_torch.launch.mesh import FleetMesh
+
+    cuda0 = torch.device("cuda", 0)
+    shared = FleetMesh(devices=(cuda0,) * 4)
+    apart = FleetMesh(devices=tuple(torch.device("cuda", i) for i in range(4)))
+    assert not autotune.sharded_table_ok(shared)
+    assert autotune.sharded_table_ok(apart)
+    assert autotune.sharded_table_ok(FleetMesh(devices=(CPU,) * 4))
+    assert autotune.sharded_table_ok(FleetMesh(devices=(cuda0,)))
+    with pytest.raises(RuntimeError, match="share a card"):
+        autotune.autotune_matrix_sharded(64, 256, 4, mesh=shared)

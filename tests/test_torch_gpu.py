@@ -979,10 +979,27 @@ def test_cuda_tuned_blocks_match_plain(cuda, key, cfg):
     bucket (rows capped at 16,384; all-pairs at 1,024): flags identical
     to the plain version at the same blocks and to the default blocks,
     sums identical to the plain version (and, at equal bm, sums and fp
-    bit-identical to the default blocks), fp within tolerance."""
-    op, _, n_b, h_b, m_b, _ = key.split("|")
+    bit-identical to the default blocks), fp within tolerance.  A sharded
+    entry runs its strategy at its blocks over its shard count of the
+    one card: flags identical to the plain tri and to the ring at the
+    default blocks."""
+    op, _, n_b, h_b, m_b, s_b = key.split("|")
     m = int(m_b[1:])
     rng = np.random.default_rng(31)
+    if op == "matrix_sharded":
+        from repro_torch.launch.mesh import make_fleet_mesh
+
+        u8, base = packed_slab(1024, m, 31, _FAR)
+        want = ref.tri_flags_ref(u8, base)
+        mesh = make_fleet_mesh(int(s_b[1:]), device=cuda)
+        got = ring_on(mesh, u8.numpy(), base.numpy(),
+                      strategy=cfg["strategy"], bi=cfg["bi"], bj=cfg["bj"],
+                      bm=cfg["bm"])
+        dflt = ring_on(mesh, u8.numpy(), base.numpy(), strategy="ring")
+        for i, key_ in enumerate(("a_le_b", "b_le_a")):
+            assert torch.equal(got[key_].cpu(), want[i])
+            assert torch.equal(got[key_], dflt[key_])
+        return
     if op in ("one_vs_many", "hybrid"):
         n = min(int(n_b[1:]), 16384)
         bn, bm = cfg["bn"], cfg["bm"]
@@ -1104,12 +1121,100 @@ def test_cuda_sharded_classify_matches_unsharded(cuda, shards):
 @pytest.mark.parametrize("shards", [2, 4])
 @pytest.mark.parametrize("evict", [False, True])
 def test_cuda_sharded_all_pairs_matches_unsharded(cuda, shards, evict):
+    """all_pairs over s shards of the card (the ring, 4 promoted rows
+    patched in, dead slots masked on the card) bit-identical to the
+    unsharded card registry."""
     _, ref = sharded_fleet(cuda, None, evict=evict)
     _, reg = sharded_fleet(cuda, shards, evict=evict)
     want, got = ref.all_pairs().to_host(), reg.all_pairs().to_host()
-    assert got.engine == f"replicated_{want.engine}"
+    assert want.engine == "tri+wide_rim"
+    assert got.engine == "ring_full+wide_rim"
     for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def ring_slab(n: int, m: int, seed: int):
+    """u8 residuals and bases (0..7) of n rows around one template: many
+    ordered pairs, many concurrent."""
+    g = np.random.default_rng(seed)
+    t = g.integers(10, 60, m)
+    logical = (t + g.integers(0, 3, (n, 1))
+               + g.integers(0, 2, (n, m)) * (g.random((n, m)) < 0.01))
+    base = g.integers(0, 8, n)
+    return ((logical - base[:, None]).astype(np.uint8),
+            base.astype(np.int32))
+
+
+def ring_on(mesh, cells: np.ndarray, base: np.ndarray, **kw) -> dict:
+    from repro_torch.sharding import split_rows
+    return ops._compare_matrix_packed_sharded(
+        split_rows(torch.as_tensor(cells), mesh.devices),
+        split_rows(torch.as_tensor(base), mesh.devices), mesh=mesh,
+        uniform_base=False, **kw)
+
+
+RING_KEYS = ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])
+def test_cuda_ring_matches_cpu_ring_and_tri(cuda, shards):
+    """The all-pairs ring over s shards of the card: d tri and d(d - 1)/2
+    rect-u8 launches; every field bit-identical to the unsharded card
+    tri and to the "replicated" strategy; flags and sums identical to
+    the CPU ring, fp within tolerance."""
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    cells, base = ring_slab(1536, 1024, shards)
+    ops.reset_launches()
+    got = ring_on(make_fleet_mesh(shards, device=cuda), cells, base,
+                  strategy="ring")
+    assert ops.LAUNCHES["matrix_tri"] == shards
+    assert ops.LAUNCHES["matrix_rect_u8"] == shards * (shards - 1) // 2
+    assert ops.LAST_DISPATCH["engine"] == "ring_full"
+    on_cpu = ring_on(make_fleet_mesh(shards, device="cpu"), cells, base,
+                     strategy="ring")
+    one = ops._compare_matrix_packed(torch.as_tensor(cells, device=cuda),
+                                     torch.as_tensor(base, device=cuda),
+                                     engine="tri", uniform_base=False)
+    rep = ring_on(make_fleet_mesh(shards, device=cuda), cells, base,
+                  strategy="replicated")
+    assert got["a_le_b"].any() and got["concurrent"].any()
+    for key in RING_KEYS:
+        assert torch.equal(got[key], one[key]), key
+        assert torch.equal(got[key], rep[key]), key
+        if key != "fp":
+            assert torch.equal(got[key].cpu(), on_cpu[key]), key
+    assert_fp_close(got["fp"], on_cpu["fp"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_mesh_transport_matches_loopback(cuda, shards):
+    """A mesh-transport session over s shards of the card: masks, fp
+    bits, merged cells and push-back bytes equal the unsharded loopback
+    round's; the digests are the slab's sums."""
+    from repro_torch.fleet import GossipConfig, MeshCollectiveTransport
+    from repro_torch.fleet import anti_entropy_session, gossip_round
+
+    local, ref = sharded_fleet(cuda, None)
+    _, reg = sharded_fleet(cuda, shards)
+    _, wr = gossip_round(ref, local, GossipConfig())
+    tp = MeshCollectiveTransport(reg)
+    digests, nbytes = tp.digests()
+    assert nbytes == 9 * reg.capacity * (shards - 1) // shards
+    sums = reg.sums.cpu().numpy()
+    assert len(digests) == len(reg)
+    for pid, d in digests.items():
+        assert d.clock_sum == float(sums[reg.slot_of(pid)])
+    _, gr = anti_entropy_session(reg, local, tp, GossipConfig())
+    assert gr.transport == "mesh" and gr.digest_bytes == nbytes
+    for key in ("accepted", "quarantined", "stragglers", "unconfident"):
+        np.testing.assert_array_equal(getattr(gr, key), getattr(wr, key))
+    assert (gr.view.fp == wr.view.fp).all()
+    assert gr.pushback_bytes == wr.pushback_bytes
+    for name in ("cells_u8", "base", "sums", "alive"):
+        assert torch.equal(getattr(reg, name).cpu(), getattr(ref, name).cpu())
 
 
 @pytest.mark.gpu
@@ -1184,7 +1289,7 @@ def test_cuda_sharded_on_distinct_cards_matches_unsharded(cuda, shards):
     np.testing.assert_array_equal(got.status, want.status)
     assert (got.fp == want.fp).all() and (got.sums == want.sums).all()
     wp, gp = ref.all_pairs().to_host(), reg.all_pairs().to_host()
-    assert gp.engine == f"replicated_{wp.engine}"
+    assert gp.engine == "ring_full+wide_rim"
     for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
         np.testing.assert_array_equal(gp[key], wp[key], err_msg=key)
     _, wr = gossip_round(ref, local, GossipConfig())
@@ -1195,3 +1300,54 @@ def test_cuda_sharded_on_distinct_cards_matches_unsharded(cuda, shards):
     assert gr.pushback_bytes == wr.pushback_bytes
     for name in ("cells_u8", "base", "sums", "alive"):
         assert torch.equal(getattr(reg, name).cpu(), getattr(ref, name).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_ring_on_distinct_cards_matches_tri(cuda, shards):
+    """The all-pairs ring over distinct cards (the copies between cards
+    on side streams, the mirrors shipped, the block-rows gathered onto
+    the first card): bit-identical to the first card's unsharded tri
+    and to the "replicated" strategy, with the ring's launch counts."""
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    need_cards(shards)
+    mesh = make_fleet_mesh(shards)
+    cells, base = ring_slab(1536, 1024, 10 + shards)
+    ops.reset_launches()
+    got = ring_on(mesh, cells, base, strategy="ring")
+    assert ops.LAUNCHES["matrix_tri"] == shards
+    assert ops.LAUNCHES["matrix_rect_u8"] == shards * (shards - 1) // 2
+    one = ops._compare_matrix_packed(torch.as_tensor(cells, device=cuda),
+                                     torch.as_tensor(base, device=cuda),
+                                     engine="tri", uniform_base=False)
+    rep = ring_on(mesh, cells, base, strategy="replicated")
+    for key in RING_KEYS:
+        assert got[key].device == one[key].device
+        assert torch.equal(got[key], one[key]), key
+        assert torch.equal(got[key], rep[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_mesh_transport_on_distinct_cards(cuda, shards):
+    """The digest ring over distinct cards: digests equal the slab's,
+    and the mesh session equals the unsharded loopback round."""
+    from repro_torch.fleet import GossipConfig, MeshCollectiveTransport
+    from repro_torch.fleet import anti_entropy_session, gossip_round
+
+    need_cards(shards)
+    local, ref = sharded_fleet(cuda, None)
+    _, reg = sharded_fleet(cuda, shards, distinct=True)
+    _, wr = gossip_round(ref, local, GossipConfig())
+    tp = MeshCollectiveTransport(reg)
+    digests, nbytes = tp.digests()
+    sums, base = reg.sums.cpu().numpy(), reg.base.cpu().numpy()
+    for pid, d in digests.items():
+        slot = reg.slot_of(pid)
+        assert (d.clock_sum, d.base) == (float(sums[slot]), int(base[slot]))
+    _, gr = anti_entropy_session(reg, local, tp, GossipConfig())
+    for key in ("accepted", "quarantined", "stragglers", "unconfident"):
+        np.testing.assert_array_equal(getattr(gr, key), getattr(wr, key))
+    assert (gr.view.fp == wr.view.fp).all()
+    assert gr.pushback_bytes == wr.pushback_bytes and gr.digest_bytes == nbytes

@@ -7,6 +7,13 @@ m 192, k 3).  The port's mesh places every shard on the CPU
 plain versions; the JAX side runs its shard_map'ed kernels over the 8
 forced host devices ``tests/conftest.py`` sets up (``host_devices``).
 
+The all-pairs group holds the port's ring (the default strategy) at 1,
+2, 3, 4 and 8 shards against the JAX ring at the same count, through
+``ops._compare_matrix_packed_sharded`` and through registries with dead
+slots and promoted rows, beside the port's "replicated" strategy and
+its unsharded slab; a private autotune table names "replicated" where a
+test needs it.
+
 Tolerances: across the port's shard counts everything is exact
 (statuses, flags, sums, fp bits, cells, wire bytes).  Against the JAX
 package: statuses, flags, integers and float32 sums identical; the
@@ -21,6 +28,7 @@ with this slice (``CausalPolicy.merged``, ``FleetView.slots``,
 ``EvictedRow``), each against the reference.
 """
 import dataclasses
+import json
 import warnings
 
 import numpy as np
@@ -47,6 +55,7 @@ from repro_torch.fleet import ClockRegistry as TRegistry  # noqa: E402
 from repro_torch.fleet import GossipConfig as TGossipConfig  # noqa: E402
 from repro_torch.fleet import fleet_health as tfleet_health  # noqa: E402
 from repro_torch.fleet import gossip_round as tgossip_round  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh, mesh_axes  # noqa: E402
 from repro_torch.runtime import ClockConfig, ClockRuntime  # noqa: E402
@@ -108,27 +117,41 @@ def peers_of(rows: dict, make) -> dict:
     return {pid: make(r) for pid, r in rows.items()}
 
 
-def fleet(seed: int, wide: dict | None = None) -> dict:
-    rows = random_rows(seed)
-    out = {f"peer{i}": rows[i] for i in range(CAP)}
+def fleet(seed: int, wide: dict | None = None, cap: int = CAP) -> dict:
+    rows = random_rows(seed, cap)
+    out = {f"peer{i}": rows[i] for i in range(cap)}
     out.update(wide or {})
     return out
 
 
-def tfilled(rows: dict, shards: int | None = None, **kw) -> TRegistry:
+def tfilled(rows: dict, shards: int | None = None, cap: int = CAP,
+            **kw) -> TRegistry:
     if shards is None:
-        reg = TRegistry(CAP, M, K, policy=tpolicy(**kw), device=CPU)
+        reg = TRegistry(cap, M, K, policy=tpolicy(**kw), device=CPU)
     else:
-        reg = TRegistry(CAP, M, K, mesh=tmesh(shards), policy=tpolicy(**kw))
+        reg = TRegistry(cap, M, K, mesh=tmesh(shards), policy=tpolicy(**kw))
     reg.admit_many(peers_of(rows, tclock))
     return reg
 
 
-def jfilled(rows: dict, shards: int | None = None, **kw) -> JRegistry:
+def jfilled(rows: dict, shards: int | None = None, cap: int = CAP,
+            **kw) -> JRegistry:
     mesh = None if shards is None else jmake_fleet_mesh(shards)
-    reg = JRegistry(capacity=CAP, m=M, k=K, mesh=mesh, policy=jpolicy(**kw))
+    reg = JRegistry(capacity=cap, m=M, k=K, mesh=mesh, policy=jpolicy(**kw))
     reg.admit_many(peers_of(rows, jclock))
     return reg
+
+
+def plant_strategy(monkeypatch, tmp_path, strategy: str, shard_counts,
+                   cap: int = CAP) -> None:
+    """A private autotune table whose CPU ``matrix_sharded`` entries name
+    ``strategy`` at these shard counts (the registry's shape)."""
+    table = {autotune.key_for("matrix_sharded", cap, cap, M, "cpu", d):
+             {"strategy": strategy, "bi": 64, "bj": 64, "bm": 512}
+             for d in shard_counts}
+    path = tmp_path / f"{strategy}.json"
+    path.write_text(json.dumps(table))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_TABLE", str(path))
 
 
 def evict_some(reg, seed: int, n_evict: int = 5):
@@ -267,8 +290,9 @@ def test_all_pairs_shard_invariance(seed, alive):
             evict_some(reg, seed)
         got = reg.all_pairs()
         assert_pairs_identical(got, ref)
-        assert got.engine == f"replicated_{ref.engine}"
+        assert got.engine == "ring_full"
         assert dict(got.blocks)["shards"] == shards
+        assert dict(got.blocks)["strategy"] == "ring"
 
 
 @pytest.mark.parametrize("shards", (2, 8))
@@ -291,17 +315,23 @@ def test_sharded_promoted_rows_classify_and_pairs(shards):
     assert (host(got.fp) == np.asarray(jview.fp)).all()
 
 
-def test_replica_follows_every_mutation():
-    """The gathered replica is memoised on the shards' version counters:
-    an all_pairs after a write sees the new rows, and a repeat call
-    without one reuses the copy."""
+def test_replica_follows_every_mutation(tmp_path, monkeypatch):
+    """The gathered replica of the "replicated" strategy (named by the
+    table's entry) is memoised on the shards' version counters: an
+    all_pairs after a write sees the new rows, and a repeat call without
+    one reuses the copy."""
+    plant_strategy(monkeypatch, tmp_path, "replicated", (4,))
     rows = fleet(3)
     reg = tfilled(rows, 4)
     ref = tfilled(rows)
-    assert_pairs_identical(reg.all_pairs(), ref.all_pairs())
+    got = reg.all_pairs()
+    assert got.engine == "replicated_tri"
+    assert_pairs_identical(got, ref.all_pairs())
     n_cached = len(tops._REPLICA_CACHE)
+    hit = tops._gathered_replica(reg._slab().cells_u8, reg.device)
     reg.all_pairs()
     assert len(tops._REPLICA_CACHE) == n_cached
+    assert tops._gathered_replica(reg._slab().cells_u8, reg.device) is hit
     new = {"peer5": random_rows(77)[0], "peer30": random_rows(78)[1]}
     for r in (reg, ref):
         r.update_many(peers_of(new, tclock))
@@ -314,23 +344,36 @@ def test_replica_follows_every_mutation():
 
 
 def test_ring_strategy_raises():
+    """The ring is ported: "ring" and "replicated" give the unsharded
+    slab's matrices bit for bit, through the op and its deprecated public
+    name; only an unknown strategy or engine raises."""
     reg = tfilled(fleet(2), 4)
     slab = reg._slab()
-    with pytest.raises(NotImplementedError, match="3b"):
-        tops._replicate(slab.cells_u8, slab.base, mesh=reg.mesh,
-                        strategy="ring")
+    ref = tfilled(fleet(2)).all_pairs().to_host()
+    kw = dict(mesh=reg.mesh, uniform_base=False)
+    for strategy, label in (("ring", "ring_full"),
+                            ("replicated", "replicated_tri")):
+        out = tops._compare_matrix_packed_sharded(
+            slab.cells_u8, slab.base, strategy=strategy, **kw)
+        assert tops.LAST_DISPATCH["engine"] == label
+        assert tops.LAST_DISPATCH["strategy"] == strategy
+        assert tops.LAST_DISPATCH["shards"] == 4
+        for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+            assert torch.equal(out[key], torch.as_tensor(ref[key])), key
+    with pytest.warns(DeprecationWarning):
+        shim = tops.compare_matrix_packed_sharded(slab.cells_u8, slab.base,
+                                                  **kw)
+    assert torch.equal(shim["a_le_b"], out["a_le_b"])
+    assert "compare_matrix_packed_sharded" in tops.__all__
     with pytest.raises(ValueError, match="unknown sharded strategy"):
-        tops._replicate(slab.cells_u8, slab.base, mesh=reg.mesh,
-                        strategy="tree")
-    cells, base = tops._replicate(slab.cells_u8, slab.base, mesh=reg.mesh,
-                                  strategy="replicated")
-    ref = tfilled(fleet(2))
-    np.testing.assert_array_equal(host(cells), host(ref.cells_u8))
-    np.testing.assert_array_equal(host(base), host(ref.base))
-    got = reg.all_pairs()
-    assert got.engine == "replicated_tri"
-    assert ("strategy", "replicated") in got.blocks
-    np.testing.assert_array_equal(host(got.le), host(ref.all_pairs().le))
+        tops._compare_matrix_packed_sharded(slab.cells_u8, slab.base,
+                                            strategy="tree", **kw)
+    with pytest.raises(ValueError, match="unknown packed engine"):
+        tops._compare_matrix_packed_sharded(slab.cells_u8, slab.base,
+                                            engine="tree", **kw)
+    with pytest.raises(ValueError, match="row shards"):
+        tops._compare_matrix_packed_sharded(slab.cells_u8[:3], slab.base,
+                                            **kw)
 
 
 def test_mutations_write_each_row_to_its_owning_shard():
@@ -488,14 +531,24 @@ def test_engine_i32_hint_survives_every_path(promoted):
 
 
 @pytest.mark.parametrize("engine", ["full", "mxu"])
-def test_engine_hints_run_replicated(engine):
-    """The packed engines asked for by name run on the replica: flags
-    and sums identical to the unsharded engine's."""
+def test_engine_hints_run_replicated(engine, tmp_path, monkeypatch,
+                                     host_devices):
+    """The packed engines asked for by name, on a sharded slab, run the
+    packed ring, or under a "replicated" table entry the replica's
+    default engine, as the reference does (its labels: ``ring_full``,
+    ``replicated_tri``): flags and sums identical to the unsharded
+    engine's."""
     rng = np.random.default_rng(8)
     rows = {f"p{i}": 500 + rng.integers(0, 40, M) for i in range(CAP)}
     ref = tfilled(rows).all_pairs(engine=engine)
+    assert ref.engine == engine
     got = tfilled(rows, 4).all_pairs(engine=engine)
-    assert got.engine == f"replicated_{engine}" and ref.engine == engine
+    assert got.engine == jfilled(rows, 4).all_pairs(engine=engine).engine
+    assert got.engine == "ring_full"
+    assert_pairs_identical(got, ref)
+    plant_strategy(monkeypatch, tmp_path, "replicated", (4,))
+    got = tfilled(rows, 4).all_pairs(engine=engine)
+    assert got.engine == "replicated_tri"
     assert_pairs_identical(got, ref)
 
 
@@ -605,6 +658,180 @@ def test_registry_from_state_into_a_sharded_registry(host_devices, shards):
     ref = convert.registry_from_state(state, M, K, policy=tpolicy(),
                                       device=CPU)
     assert_views_identical(tview, ref.classify_all(tclock(local)))
+
+
+# ---------------------------------------------------------------------------
+# the all-pairs ring against the JAX ring at the same shard count
+# ---------------------------------------------------------------------------
+
+RING_COUNTS = (1, 2, 3, 4, 8)
+RING_N = 48                       # divisible by every count above
+
+
+def ring_slab(seed: int, uniform: bool, n: int = RING_N):
+    """u8 residuals and int32 bases of n rows around one template, so
+    that many pairs are ordered and many concurrent."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(10, 60, M)
+    logical = (t + rng.integers(0, 3, (n, 1))
+               + rng.integers(0, 2, (n, M)) * (rng.random((n, M)) < 0.03))
+    base = np.zeros(n, np.int64) if uniform else rng.integers(0, 8, n)
+    return (logical - base[:, None]).astype(np.uint8), base.astype(np.int32)
+
+
+def tsharded(cells: np.ndarray, base: np.ndarray, shards: int, **kw):
+    mesh = tmesh(shards)
+    out = tops._compare_matrix_packed_sharded(
+        sharding.split_rows(torch.as_tensor(cells), mesh.devices),
+        sharding.split_rows(torch.as_tensor(base), mesh.devices), mesh=mesh,
+        **kw)
+    return out, dict(tops.LAST_DISPATCH)
+
+
+def jring(cells: np.ndarray, base: np.ndarray, shards: int, uniform: bool):
+    from repro.kernels import ops as jops
+    out = jops._compare_matrix_packed_sharded(
+        jnp.asarray(cells), jnp.asarray(base), mesh=jmake_fleet_mesh(shards),
+        axis=sharding.FLEET_AXIS, strategy="ring", uniform_base=uniform,
+        use_autotune=False)
+    return {k: np.asarray(v) for k, v in out.items()}, dict(jops.LAST_DISPATCH)
+
+
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "based"])
+@pytest.mark.parametrize("shards", RING_COUNTS)
+def test_ring_matches_jax_ring(host_devices, shards, uniform):
+    """``_compare_matrix_packed_sharded(strategy="ring")`` against the JAX
+    ring at the same shard count: flags and row sums identical, fp
+    within 5e-2; bit-identical to the port's unsharded slab and to its
+    "replicated" strategy; the reference's dispatch label."""
+    cells, base = ring_slab(shards, uniform)
+    got, label = tsharded(cells, base, shards, strategy="ring",
+                          uniform_base=uniform)
+    want, jlabel = jring(cells, base, shards, uniform)
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums", "col_sums"):
+        np.testing.assert_array_equal(host(got[key]), want[key], err_msg=key)
+    assert_fp_close(got["fp"], want["fp"])
+    assert got["a_le_b"].any() and got["concurrent"].any()
+    for key in ("engine", "shards", "strategy"):
+        assert label[key] == jlabel[key], key
+    one = tops._compare_matrix_packed(torch.as_tensor(cells),
+                                      torch.as_tensor(base),
+                                      uniform_base=uniform)
+    rep, rlabel = tsharded(cells, base, shards, strategy="replicated",
+                           uniform_base=uniform)
+    assert rlabel["engine"] == "replicated_tri"
+    for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums"):
+        assert torch.equal(got[key], one[key]), key
+        assert torch.equal(rep[key], one[key]), key
+
+
+@pytest.mark.parametrize("shards", RING_COUNTS)
+def test_ring_launch_plan(shards, monkeypatch):
+    """d tri calls (the diagonal blocks) and d(d - 1)/2 rect-u8 calls (the
+    halved off-diagonal blocks, the even-d half-way offset once), as the
+    kernels' launches on the card; no pair is computed twice."""
+    calls = {"tri": [], "rect": []}
+    tri, rect = tops.tri_flags, tops.rect_u8_flags
+
+    def count_tri(cells, *a, **kw):
+        calls["tri"].append(cells.shape[0] ** 2)
+        return tri(cells, *a, **kw)
+
+    def count_rect(rows, cols, *a, **kw):
+        calls["rect"].append(rows.shape[0] * cols.shape[0])
+        return rect(rows, cols, *a, **kw)
+
+    monkeypatch.setattr(tops, "tri_flags", count_tri)
+    monkeypatch.setattr(tops, "rect_u8_flags", count_rect)
+    cells, base = ring_slab(7, False)
+    tsharded(cells, base, shards, strategy="ring", uniform_base=False)
+    assert len(calls["tri"]) == shards
+    assert len(calls["rect"]) == shards * (shards - 1) // 2
+    assert sum(calls["tri"]) + 2 * sum(calls["rect"]) == RING_N ** 2
+
+
+@pytest.mark.parametrize("shards", (2, 4))
+def test_ring_departs_from_jax_only_at_a_2_31_base_gap(host_devices, shards):
+    """The tri departure (``tests/test_torch_pairs.py``) on the ring: where
+    two bases are exactly 2^31 apart, a mirrored flag differs from a
+    computed one.  Both rings compute the off-diagonal block (i, i + s)
+    and mirror it, so they agree there; on a diagonal block the JAX ring
+    computes the shard's pairs whole and the port computes i <= j and
+    mirrors i > j.  The two agree on every other pair."""
+    cells, _ = ring_slab(11, True)
+    n = RING_N
+    base = np.where(np.arange(n) % 2, -2 ** 31, 0).astype(np.int32)
+    got, _ = tsharded(cells, base, shards, strategy="ring",
+                      uniform_base=False)
+    want, _ = jring(cells, base, shards, False)
+    le, ge = host(got["a_le_b"]), host(got["b_le_a"])
+    i, j = np.indices((n, n))
+    apart = (base[:, None].astype(np.int64) - base[None, :]) % 2 ** 32 \
+        == 2 ** 31
+    nd = n // shards
+    mirrored = apart & (i > j) & (i // nd == j // nd)
+    assert mirrored.any()
+    np.testing.assert_array_equal(le[~mirrored], want["a_le_b"][~mirrored])
+    np.testing.assert_array_equal(ge[~mirrored], want["b_le_a"][~mirrored])
+    np.testing.assert_array_equal(le[mirrored], want["b_le_a"].T[mirrored])
+    np.testing.assert_array_equal(ge[mirrored], want["a_le_b"].T[mirrored])
+    assert want["a_le_b"][mirrored].all() and not want["b_le_a"][mirrored].any()
+    assert not le[mirrored].any() and ge[mirrored].all()
+
+
+PAIR_CAP = 48                     # divisible by 2, 3, 4 and 8
+
+
+@pytest.mark.parametrize("case", ["full", "dead", "promoted"])
+@pytest.mark.parametrize("shards", (2, 3, 4, 8))
+def test_ring_pairs_match_jax_and_replicated(host_devices, tmp_path,
+                                             monkeypatch, shards, case):
+    """``ClockRegistry.all_pairs`` over a sharded registry with no table
+    entry runs the ring (dead slots masked on the device, promoted rows
+    patched in through the int32 rim): flags, concurrency and sums
+    identical to the JAX registry's ring and fp within 5e-2; every field
+    bit-identical to the port's unsharded registry and to the
+    "replicated" strategy (a table entry naming it); the reference's
+    labels."""
+    wide = {"peer7": wide_row(slice(None, None, 7), 1000),
+            "peer40": wide_row(3, 5000)} if case == "promoted" else None
+    rows = fleet(60 + shards, wide, cap=PAIR_CAP)
+    regs = {"t": tfilled(rows, shards, cap=PAIR_CAP),
+            "j": jfilled(rows, shards, cap=PAIR_CAP),
+            "one": tfilled(rows, cap=PAIR_CAP)}
+    if case != "full":
+        rng = np.random.default_rng(1000 + shards)
+        gone = rng.choice(sorted(set(rows) - set(wide or {})), size=6,
+                          replace=False)
+        for r in regs.values():
+            r.evict_many(list(gone))
+    assert regs["t"].packed == (case != "promoted")
+    got, jres = regs["t"].all_pairs(), regs["j"].all_pairs()
+    assert got.engine == jres.engine == (
+        "ring_full+wide_rim" if case == "promoted" else "ring_full")
+    assert dict(got.blocks)["strategy"] == "ring"
+    assert_pairs_match_jax(got, jres)
+    assert_pairs_identical(got, regs["one"].all_pairs())
+    plant_strategy(monkeypatch, tmp_path, "replicated", (shards,), PAIR_CAP)
+    rep = regs["t"].all_pairs()
+    assert rep.engine.startswith("replicated_tri")
+    assert dict(rep.blocks)["strategy"] == "replicated"
+    assert_pairs_identical(rep, got)
+
+
+def test_strategy_resolves_from_the_table_else_ring(tmp_path, monkeypatch):
+    """``strategy=None`` reads the table's ``matrix_sharded`` entry for the
+    backend, global shape and shard count, else runs "ring"; an explicit
+    strategy wins over the entry."""
+    cells, base = ring_slab(3, True, n=CAP)
+    plant_strategy(monkeypatch, tmp_path, "ring", ())
+    assert tsharded(cells, base, 4)[1]["strategy"] == "ring"
+    plant_strategy(monkeypatch, tmp_path, "replicated", (4,))
+    assert tsharded(cells, base, 4)[1]["strategy"] == "replicated"
+    assert tsharded(cells, base, 2)[1]["strategy"] == "ring"
+    assert tsharded(cells, base, 4, strategy="ring")[1]["strategy"] == "ring"
+    assert tsharded(cells, base, 4, use_autotune=False)[1]["strategy"] \
+        == "ring"
 
 
 # ---------------------------------------------------------------------------
