@@ -43,6 +43,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    on the CPU, which must agree; the gossip sim over 8 shards on the
    loopback and the mesh transport, fn == 0 with the unsharded run's
    counts;
+4c. multi-host gossip (``[socket]`` lines), the README's socket
+   deployment (m=1024, k=4): (a) 256 ``ClockPeerServer``s on 127.0.0.1
+   (prefixes, forks, stragglers, descendants, 4 rows past the int32
+   wrap) and a leader registry of capacity 256, three sessions over
+   ``SocketTransport`` (round 0 pulls every frame, round 1 none, round
+   2 the 64 peers that ticked, after 16 ticks of the leader's own) on
+   the card with the launch counts reset just before and read just
+   after (tick, packed one-vs-many and the i32 overlay must have run),
+   then on the CPU: masks, statuses, merged cells, registry rows, bytes
+   and ``have`` keys identical, fp within tolerance, each session's
+   host-clock ms split by its ``gossip.*`` spans; (b) ``python -m
+   repro_torch.launch.peers --smoke 8`` (the leader on the card, 7
+   child processes on the CPU) must exit 0; (c) ``python -m
+   repro_torch.fleet.chaos --smoke`` with the registry on the card must
+   exit 0, and the chaos sim over 64 nodes (the smoke's fault mix, a
+   corrupted row) on the card and the CPU must report fn == 0,
+   convergence and a repair, with the same fault schedule and results;
 5. the all-pairs path: ``fleet_health`` over a 16,384-slot registry
    (~1% evicted, 8 promoted rows) with the launch counts reset just
    before and read just after (tri and rect-i32 must have run), its
@@ -1536,6 +1553,342 @@ def shard_phase(sim: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: multi-host gossip (sockets, the peers launcher, chaos)
+# ---------------------------------------------------------------------------
+
+#: the README's socket deployment (README.md:229-246, ``ClockConfig``'s m
+#: and k): 256 peers served on 127.0.0.1, a leader registry of capacity
+#: 256; the leader has ticked 600 events, 64 peers tick before the third
+#: session, and the leader ticks 16 more of its own (B = 1 each)
+SOCK_PEERS, SOCK_EVENTS, SOCK_TICKED, SOCK_NEAR_WRAP = 256, 600, 64, 4
+SOCK_LEADER_TICKS = 16
+#: the hostile fleet: the chaos smoke's fault mix over 64 nodes, 8 event
+#: rounds (faults quiesced after round 6), a registry row corrupted
+CHAOS_NODES, CHAOS_ROUNDS, CHAOS_SEED = 64, 8, 7
+#: each child process (the peers launcher, the chaos smoke) is bounded
+CHILD_TIMEOUT = 300
+I32_MAX = 2 ** 31 - 1
+
+
+def probes(n_events: int, first: int = 0) -> np.ndarray:
+    """[n, K] bloom probes of event ids first .. first + n - 1, by the
+    runtime's hasher."""
+    from repro_torch.core.hashing import bloom_indices
+    ids = np.arange(first, first + n_events, dtype=np.int64)
+    return bloom_indices(ids >> 32, ids & 0xFFFFFFFF, K, M).numpy()
+
+
+def ticked(p: np.ndarray, cells=None) -> np.ndarray:
+    """int64 cells after the events of probe table ``p``."""
+    out = np.zeros(M, np.int64) if cells is None else cells.copy()
+    np.add.at(out, p.reshape(-1), 1)
+    return out
+
+
+def socket_fleet(seed: int) -> dict:
+    """The staged fleet's host clocks: strict prefixes of the leader's
+    600 events (ancestors), prefixes with private events (forks), short
+    prefixes (stragglers), the leader plus private events (descendants),
+    and 4 peers past the int32 wrap in some cells (forks on the exact
+    i32 rim); the new cells of the 64 peers that tick before the third
+    session; the kind of each peer."""
+    g = np.random.default_rng(seed)
+    lead = probes(SOCK_EVENTS)
+    rows, kinds = {}, {}
+    for i in range(SOCK_PEERS):
+        pid = f"peer{i:03d}"
+        own = probes(int(g.integers(1, 24)), first=(1 << 40) + 100 * i)
+        if i < SOCK_NEAR_WRAP:
+            rows[pid], kinds[pid] = I32_MAX - 50 + g.integers(0, 101, M), "wrap"
+        elif i % 4 == 0:
+            p = int(g.integers(50, SOCK_EVENTS))
+            rows[pid], kinds[pid] = ticked(np.concatenate([lead[:p], own])), "fork"
+        elif i % 4 == 1:
+            rows[pid], kinds[pid] = ticked(lead[:int(g.integers(0, 24))]), "straggler"
+        elif i % 4 == 2:
+            rows[pid], kinds[pid] = ticked(np.concatenate([lead, own])), "descendant"
+        else:
+            rows[pid], kinds[pid] = ticked(lead[:int(g.integers(100, SOCK_EVENTS + 1))]), "ancestor"
+    movers = sorted(g.choice([p for p in rows if kinds[p] != "wrap"],
+                             SOCK_TICKED, replace=False))
+    return {"rows": rows, "kinds": kinds, "lead": lead,
+            "movers": {pid: probes(3, first=(1 << 41) + 10 * j)
+                       for j, pid in enumerate(movers)}}
+
+
+def drive_socket(device: str, fleet: dict, nodes: dict, addresses: dict) -> dict:
+    """Three sessions of a leader on ``device`` over ``SocketTransport``
+    against the served fleet, each node reset to the staged clocks first:
+    round 0 pulls every frame, round 1 nothing, round 2 the 64 peers
+    that ticked (and the leader ticks 16 events of its own before it).
+    On the card the launch counts are reset just before the sessions and
+    read just after."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.core import clock as bc
+    from repro_torch.core import wire
+    from repro_torch.fleet import ClockRegistry, GossipConfig, SocketTransport
+    from repro_torch.fleet import anti_entropy_session
+    from repro_torch.kernels import ops
+    from repro_torch.launch.peers import _ticked_clock
+    from repro_torch.obs import Observer, Tracer
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    for pid, node in nodes.items():
+        node.set_cells(fleet["rows"][pid])
+    tracer = Tracer()
+    policy = CausalPolicy(observer=Observer(trace=tracer))
+    reg = ClockRegistry(SOCK_PEERS, M, K, device=device, policy=policy)
+    tp = SocketTransport(addresses, timeout=10.0)
+    cfg = GossipConfig(policy=policy)
+    local = _ticked_clock(M, K, SOCK_EVENTS, device)
+    check_equal(host(local.logical_cells()), ticked(fleet["lead"]),
+                f"the leader's ticked clock on {device}")
+    own = np.arange(1 << 42, (1 << 42) + SOCK_LEADER_TICKS, dtype=np.int64)
+    out = {"sessions": []}
+    sync()
+    ops.reset_launches()
+    for r in range(3):
+        if r == 2:
+            for pid, p in fleet["movers"].items():
+                nodes[pid].set_cells(ticked(p, nodes[pid].cells()))
+            for e in own:
+                local = bc.tick(local, int(e) >> 32, int(e) & 0xFFFFFFFF)
+        n_ev = len(tracer.events())
+        sync()
+        t0 = time.perf_counter()
+        local, rep = anti_entropy_session(reg, local, tp, cfg)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        spans, pull = {}, {}
+        for ev in tracer.events()[n_ev:]:
+            if ev["name"].startswith("gossip.") and ev["name"] != "gossip.session":
+                spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur_us"] / 1e3
+            if ev["name"] == "gossip.pull":
+                pull = ev["attrs"]
+        merged = host(local.logical_cells())
+        out["sessions"].append({
+            "masks": tuple(getattr(rep, k).copy() for k in (
+                "accepted", "quarantined", "stragglers", "unconfident")),
+            "status": rep.view.status.copy(), "fp": rep.view.fp.copy(),
+            "merged": merged, "rows": host(reg.cells), "wide": sorted(reg._wide),
+            "bytes": (rep.digest_bytes, rep.delta_bytes, rep.pushback_bytes),
+            "have": dict(tp.have), "slot": {p: reg.slot_of(p) for p in reg.peer_ids()},
+            "pulled": (pull.get("wanted"), pull.get("pulled", 0)),
+            "unreachable": rep.unreachable, "ms": ms, "spans": spans,
+            "union_crc": wire.cells_crc(merged),
+            "held": {pid: node.digest().crc for pid, node in nodes.items()},
+            "summary": rep.summary()})
+    sync()
+    out["launches"] = dict(ops.LAUNCHES)
+    # the sockets alone: one bare pull of every frame, no ingest
+    t0 = time.perf_counter()
+    frames, _ = tp.pull(list(addresses))
+    out["bare_pull_ms"] = (time.perf_counter() - t0) * 1e3
+    check(len(frames) == SOCK_PEERS, f"{device}: bare pull got {len(frames)}")
+    return out
+
+
+def check_socket_run(run: dict, fleet: dict, device: str) -> None:
+    """What the staged fleet must show on either device."""
+    from repro_torch.fleet import registry as fr
+    s0, s1, s2 = run["sessions"]
+    kinds = fleet["kinds"]
+    check(s0["pulled"] == (SOCK_PEERS, SOCK_PEERS) and s0["bytes"][1] > 0,
+          f"{device}: round 0 pulled {s0['pulled']}, not all {SOCK_PEERS}")
+    check(s1["pulled"] == (0, 0) and s1["bytes"][1] == 0,
+          f"{device}: round 1 pulled {s1['pulled']} ({s1['bytes'][1]} B)")
+    check(s2["pulled"] == (SOCK_TICKED, SOCK_TICKED),
+          f"{device}: round 2 pulled {s2['pulled']}, not the {SOCK_TICKED} "
+          "that ticked")
+    for r, s in enumerate(run["sessions"]):
+        check(not s["unreachable"], f"{device}: unreachable {s['unreachable']}")
+        for pid, slot in s["slot"].items():
+            # §3: a peer causally ordered with the leader is never called
+            # concurrent (a peer that ticked its own events may be)
+            if (kinds[pid] in ("ancestor", "straggler", "descendant")
+                    and not (r == 2 and pid in fleet["movers"])):
+                check(int(s["status"][slot]) != fr.FORKED,
+                      f"{device}: round {r}: {kinds[pid]} {pid} called FORKED")
+    wrap = {s0["slot"][p] for p in kinds if kinds[p] == "wrap"}
+    check(wrap <= set(s0["wide"]), f"{device}: near-wrap rows not promoted")
+    for s in (s0, s2):
+        for pid, slot in s["slot"].items():
+            if s["masks"][0][slot]:
+                check(s["held"][pid] == s["union_crc"],
+                      f"{device}: accepted {pid} does not hold the union")
+
+
+def compare_socket_runs(gpu: dict, cpu: dict) -> None:
+    for r, (g, c) in enumerate(zip(gpu["sessions"], cpu["sessions"])):
+        for j, what in enumerate(("accepted", "quarantined", "stragglers",
+                                  "unconfident")):
+            check_equal(g["masks"][j], c["masks"][j], f"socket round {r} {what}")
+        check_equal(g["status"], c["status"], f"socket round {r} statuses")
+        check_fp(g["fp"], c["fp"], f"socket round {r} fp")
+        check_equal(g["merged"], c["merged"], f"socket round {r} merged cells")
+        check_equal(g["rows"], c["rows"], f"socket round {r} registry rows")
+        for key in ("wide", "bytes", "have", "slot", "pulled", "held"):
+            check(g[key] == c[key], f"socket round {r}: {key} differs")
+
+
+def run_child(cmd: list, what: str) -> tuple[str, float]:
+    """Run one child process in a session of its own, bounded by
+    ``CHILD_TIMEOUT``; every process of its group is stopped before
+    returning.  Returns (stdout + stderr, wall seconds); fails on a
+    non-zero exit."""
+    import signal
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"{what} ran past {CHILD_TIMEOUT} s:\n{out[-4000:]}")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}:\n{out[-4000:]}")
+    return out, wall
+
+
+def chaos_fault_tuples(obs) -> list:
+    """``FaultEvent.as_tuple()`` of every injected fault, from the chaos
+    records the transport writes one a fault (``ChaosTransport._fault``),
+    with the ephemeral TCP ports a detail may quote masked."""
+    out = []
+    for r in obs.audit.chaos_events():
+        head, _, detail = r.detail.partition(": ")
+        rnd, phase = head[1:].split("/")
+        out.append((int(rnd), phase, r.peer_id, r.action,
+                    re.sub(r"127\.0\.0\.1:\d+", "127.0.0.1:*", detail)))
+    return out
+
+
+def chaos_sim(device: str) -> tuple:
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.core.sim import SimConfig, run_gossip_sim
+    from repro_torch.fleet import GossipConfig
+    from repro_torch.fleet.chaos import smoke_chaos
+    from repro_torch.obs import AuditTrail, Observer
+
+    obs = Observer(audit=AuditTrail())
+    t0 = time.perf_counter()
+    with on(device):
+        res = run_gossip_sim(
+            SimConfig(n_nodes=CHAOS_NODES, m=M, k=K, seed=CHAOS_SEED),
+            n_rounds=CHAOS_ROUNDS,
+            gossip_cfg=GossipConfig(policy=CausalPolicy(fp_threshold=1.0),
+                                    straggler_gap=np.inf, observer=obs,
+                                    merge_forked=True),
+            transport="socket",
+            chaos=smoke_chaos(CHAOS_SEED, CHAOS_NODES, CHAOS_ROUNDS - 1),
+            corrupt_at=(3, 1), device=device)
+    wall = time.perf_counter() - t0
+    check(res.false_negatives == 0, f"chaos sim on {device}: fn != 0")
+    check(res.converged, f"chaos sim on {device} did not converge")
+    check(res.repaired >= 1, f"chaos sim on {device} repaired nothing")
+    check(res.fault_events > 0, f"chaos sim on {device} injected nothing")
+    return res, chaos_fault_tuples(obs), wall
+
+
+def socket_phase() -> None:
+    import dataclasses
+    import resource
+
+    from repro_torch.fleet import ClockNode, ClockPeerServer
+    from repro_torch.fleet.transport.socket import stop_servers
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    print(f"[socket] file descriptors: soft limit {soft}, hard {hard}; "
+          f"{SOCK_PEERS} listening sockets and one connection at a time")
+    check(soft >= SOCK_PEERS + 256, f"soft RLIMIT_NOFILE {soft} too low")
+
+    # (a) the staged fleet in one process, on the card and on the CPU
+    fleet = socket_fleet(SEED + 7)
+    nodes, servers = {}, []
+    try:
+        for pid in fleet["rows"]:
+            nodes[pid] = ClockNode(pid, M, K)
+            servers.append(ClockPeerServer(nodes[pid]).start())
+        addresses = {pid: s.address for pid, s in zip(nodes, servers)}
+        gpu = drive_socket("cuda", fleet, nodes, addresses)
+        with card_blocks():
+            cpu = drive_socket("cpu", fleet, nodes, addresses)
+    finally:
+        stop_servers(servers)
+    for d, run in (("cuda", gpu), ("cpu", cpu)):
+        check_socket_run(run, fleet, d)
+        for r, s in enumerate(run["sessions"]):
+            print(f"[socket] (a) {d} session {r}: {s['ms']} ms host clock, "
+                  f"spans {json.dumps(s['spans'])}; pulled {s['pulled'][1]} "
+                  f"of {s['pulled'][0]} wanted; digest/delta/push bytes "
+                  f"{list(s['bytes'])}; {s['summary']}")
+    for d, run in (("cuda", gpu), ("cpu", cpu)):
+        pull = run["sessions"][0]["spans"]["gossip.pull"]
+        print(f"[socket] (a) {d}: a bare SocketTransport.pull of the "
+              f"{SOCK_PEERS} frames {run['bare_pull_ms']} ms, session 0's "
+              f"gossip.pull {pull} ms: decode and admit ~"
+              f"{(pull - run['bare_pull_ms']) / SOCK_PEERS} ms a frame")
+    compare_socket_runs(gpu, cpu)
+    launches = {k: gpu["launches"][k] for k in
+                ("bloom_tick", "one_vs_many_packed", "one_vs_many_i32")}
+    for kname, n in launches.items():
+        check(n > 0, f"kernel {kname} was not launched on the socket path")
+    print(f"[socket] (a) {SOCK_PEERS} peers, m={M}, k={K}: card and CPU agree "
+          f"(masks, statuses, merged cells, registry rows, promoted slots, "
+          f"digest/delta/push bytes, have keys; fp within tolerance); "
+          f"round 0 pulled all, round 1 none, round 2 the {SOCK_TICKED} that "
+          f"ticked; launches on the card's three sessions {json.dumps(launches)}")
+
+    # (b) real processes: a leader on the card, 7 children on the CPU
+    with tempfile.TemporaryDirectory() as d:
+        out, wall = run_child(
+            [sys.executable, "-m", "repro_torch.launch.peers", "--smoke", "8",
+             "--m", str(M), "--k", str(K), "--rounds", "3", "--trace-dir", d],
+            "the peers smoke")
+    check("[leader] OK: 8 processes converged" in out, "peers smoke: no OK")
+    for line in out.splitlines():
+        if line.startswith("[leader] round") or line.startswith("[leader] OK") \
+                or line.startswith("[leader] trace OK"):
+            print(f"[socket] (b) {line}")
+    print(f"[socket] (b) 8 processes (leader on the card, 7 children on the "
+          f"CPU): exit 0 in {wall:.2f} s wall")
+
+    # (c) the hostile fleet
+    out, wall = run_child([sys.executable, "-m", "repro_torch.fleet.chaos",
+                           "--smoke"], "the chaos smoke")
+    for line in out.splitlines():
+        if line.startswith("chaos-smoke"):
+            print(f"[socket] (c) {line}")
+    check("chaos-smoke: OK" in out, "chaos smoke: no OK")
+    print(f"[socket] (c) chaos smoke on the card: exit 0 in {wall:.2f} s wall")
+    res = {d: chaos_sim(d) for d in ("cuda", "cpu")}
+    (rg, sg, wg), (rc, sc, wc) = res["cuda"], res["cpu"]
+    check(sg == sc, "chaos schedule differs between the card and the CPU")
+    fg, fc = dataclasses.asdict(rg), dataclasses.asdict(rc)
+    check_fp([fg.pop("mean_predicted_fp")], [fc.pop("mean_predicted_fp")],
+             "chaos sim mean predicted fp")
+    check(fg == fc, f"chaos sim results differ: {fg} vs {fc}")
+    for d, (r, s, w) in res.items():
+        print(f"[socket] (c) chaos sim {CHAOS_NODES} nodes m={M} on {d}: "
+              f"{r.summary()} ({len(s)} faults, {w:.2f} s wall)")
+    print(f"[socket] (c) card and CPU: the same {len(sg)}-fault schedule and "
+          f"the same result fields (fp within tolerance)")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the all-pairs path
 # ---------------------------------------------------------------------------
 
@@ -2873,6 +3226,9 @@ def main() -> int:
     del gpu["rt"], gpu["reg"], cpu
 
     shard_phase(sim)
+    t_socket = time.perf_counter()
+    socket_phase()
+    print(f"[time] socket phase {time.perf_counter() - t_socket:.1f} s")
 
     health = drive_health(dev)
     print(f"[pairs] fleet_health at {N_SLOTS} slots on the card: "

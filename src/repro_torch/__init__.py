@@ -6,20 +6,21 @@ C++ kernel for ``sm_90a`` (``repro_torch.kernels.csrc``), built with
 ``nvcc`` at first use and bound with ``ctypes``.
 
 Ported so far (the main path, all-pairs, hybrid, serving, the sharded
-fleet registry):
+fleet registry, multi-host gossip):
 
 - ``core``     hashing, the clock, wire frames, history, vector clock,
-               the simulator (loopback gossip only)
+               the simulator (loopback, mesh, socket and chaos gossip)
 - ``kernels``  tick, fused merge+compare, one-vs-many (u8 and i32), the
                fused hybrid sweep, the all-pairs tri, rect-u8,
                rect-i32-stats and mxu kernels
 - ``causal``   policy, typed results, ``CausalEngine.classify``/``pairs``
 - ``obs``      trace spans, metrics, audit trail, trace export
 - ``fleet``    the registry slab (with its eviction hook; on one device
-               or row-sharded over a fleet mesh), gossip, the loopback
-               transport, the fleet monitor
+               or row-sharded over a fleet mesh), gossip, the loopback,
+               mesh-collective and socket transports, the chaos
+               harness, the fleet monitor
 - ``launch``   the fleet mesh (``make_fleet_mesh``), with ``sharding``'s
-               slot-to-shard helpers
+               slot-to-shard helpers, and the socket peers launcher
 - ``hybrid``   ``HybridEngine`` (exact hot set over the packed tail) and
                the fp-budget ``AdaptivePolicy``
 - ``serve``    the tiered registry (hot card slab, pinned warm tier, cold

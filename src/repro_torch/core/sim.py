@@ -8,9 +8,9 @@ before B" claims against Eq. 3, and wire bytes per message.
 
 The replay is sequential by nature and runs on host numpy.
 ``run_gossip_sim`` interleaves real fleet gossip rounds over the
-loopback transport; its registry lives on ``device`` (the card unless
-``device="cpu"``).  The socket, mesh and chaos fabrics of the reference
-are not ported yet.
+loopback, mesh-collective or socket transport, optionally under a
+``ChaosTransport``; its registry lives on ``device`` (the card unless
+``device="cpu"``), while socket peers serve host numpy clocks.
 """
 from __future__ import annotations
 
@@ -180,13 +180,18 @@ class GossipSimResult:
     digest_bytes: int = 0     # MEASURED inbound digest bytes across rounds
     delta_bytes: int = 0      # MEASURED inbound delta-frame bytes
     pushback_bytes: int = 0   # MEASURED outbound push-back frame bytes
+    converged: bool = True    # all nodes ended on identical rows (chaos)
+    fault_events: int = 0     # faults the ChaosTransport injected
+    rejected_frames: int = 0  # damaged frames the sessions rejected
+    corrupted: int = 0        # registry rows flagged by integrity checks
+    repaired: int = 0         # quarantined rows rewritten by gossip repair
 
     @property
     def wire_bytes(self) -> int:
         return self.digest_bytes + self.delta_bytes + self.pushback_bytes
 
     def summary(self) -> str:
-        return (
+        s = (
             f"rounds={self.rounds} fn={self.false_negatives} "
             f"claims={self.claims} fp={self.false_positives} "
             f"measured_fp={self.measured_fp_rate:.4f} "
@@ -195,12 +200,19 @@ class GossipSimResult:
             f"quarantines={self.quarantines} "
             f"wire={self.wire_bytes}B[{self.transport}]"
         )
+        if self.fault_events:
+            s += (f" faults={self.fault_events} "
+                  f"rejected={self.rejected_frames} "
+                  f"converged={self.converged}")
+        if self.corrupted:
+            s += f" corrupted={self.corrupted} repaired={self.repaired}"
+        return s
 
 
 def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
                    gossip_cfg=None, registry_factory=None,
-                   transport="loopback",
-                   device=None) -> GossipSimResult:
+                   transport="loopback", chaos=None, corrupt_at=None,
+                   settle_rounds: int = 3, device=None) -> GossipSimResult:
     """Replay a random execution and interleave real fleet gossip rounds
     at node ``observer``, scoring every verdict against the exact
     vector-clock truth: a FORKED verdict for a truth-ordered peer is a
@@ -215,25 +227,51 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
     sharded paths.  ``transport`` picks the fabric the audited sessions
     run over: ``"loopback"`` (peer rows admitted into the slab directly),
     ``"mesh"`` (``MeshCollectiveTransport`` over the factory's sharded
-    registry: the digest ring between its devices), or a callable
-    ``transport(registry) -> Transport``; the socket fabric is not
-    ported.  Reported wire bytes are measured frame lengths, summed over
-    the rounds' reports.  ``device`` places the replayed clocks.
+    registry: the digest ring between its devices), ``"socket"`` (every
+    peer's clock served from a threaded TCP ``ClockPeerServer`` of host
+    numpy cells; the observer's registry syncs purely through the
+    digest/delta/§4 wire-frame path) or a callable
+    ``transport(registry) -> Transport``.  Reported wire bytes are
+    measured frame lengths, summed over the rounds' reports.
+
+    ``chaos`` (a ``fleet.chaos.ChaosConfig``) wraps the fabric in a
+    ``ChaosTransport``; after the event rounds, ``settle_rounds`` more
+    event-free rounds run with faults quiesced, and the result reports
+    ``converged`` (every node on identical rows).  Under chaos a
+    registry row may be a stale snapshot of its peer, so verdicts are
+    scored against the vector-clock state each row actually carries,
+    tracked per published-snapshot CRC through the audit trail's
+    ``frame_ingest`` records.  ``corrupt_at=(round, peer)`` flips a bit
+    of that peer's registry row before the given round and turns on
+    ``GossipConfig.verify_rows``: the session must detect, quarantine
+    and repair it (``corrupted`` / ``repaired``).  ``device`` places the
+    replayed clocks.
     """
     from repro_torch.causal import CausalPolicy
+    from repro_torch.core import wire
     from repro_torch.device import resolve_device
     from repro_torch.fleet import gossip as fg
     from repro_torch.fleet import monitor as fm
     from repro_torch.fleet import registry as fr
     from repro_torch.fleet import transport as ft
+    from repro_torch.fleet.transport.socket import stop_servers
     from repro_torch.obs.observer import resolve
 
-    if not (callable(transport) or transport in ("loopback", "mesh")):
-        raise ValueError(f"unknown transport {transport!r} (the port has "
-                         "the loopback and mesh transports)")
+    if not (callable(transport)
+            or transport in ("loopback", "mesh", "socket")):
+        raise ValueError(f"unknown transport {transport!r}")
     device = resolve_device(device)
-    fg_cfg = gossip_cfg if gossip_cfg is not None else fg.GossipConfig(
-        policy=CausalPolicy(fp_threshold=1.0), straggler_gap=np.inf)
+    if gossip_cfg is None:
+        # accept-everything-comparable audit policy.  Under chaos, forks
+        # are legitimate concurrency (not replica divergence), so
+        # sessions merge them (§3 pure receive rule)
+        fg_cfg = fg.GossipConfig(policy=CausalPolicy(fp_threshold=1.0),
+                                 straggler_gap=np.inf,
+                                 merge_forked=chaos is not None)
+    else:
+        fg_cfg = gossip_cfg
+    if chaos is not None and corrupt_at is not None:
+        fg_cfg = dataclasses.replace(fg_cfg, verify_rows=True)
     rng = np.random.default_rng(cfg.seed)
     n, m, k = cfg.n_nodes, cfg.m, cfg.k
     idx = _event_probe_indices(cfg)
@@ -247,13 +285,43 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
     # present, every audited verdict gets its ground truth attached
     obs = resolve(fg_cfg.observer
                   or (fg_cfg.policy.observer if fg_cfg.policy is not None
-                      else None))
-    if callable(transport):
-        tp = transport(registry)
-    elif transport == "mesh":
-        tp = ft.MeshCollectiveTransport(registry)
-    else:
-        tp = ft.LoopbackTransport(registry)
+                      else None)
+                  or registry.policy.observer)
+    if chaos is not None and not obs.audit:
+        # chaos scoring reads realized ingest order + row CRCs from the
+        # trail, so an audit sink is mandatory under fault injection
+        from repro_torch.obs import AuditTrail, Observer
+        obs = Observer(trace=obs.trace, metrics=obs.metrics,
+                       audit=AuditTrail())
+        fg_cfg = dataclasses.replace(fg_cfg, observer=obs)
+
+    nodes: dict = {}
+    servers: list = []
+    try:
+        if callable(transport):
+            tp = transport(registry)
+        elif transport == "mesh":
+            tp = ft.MeshCollectiveTransport(registry)
+        elif transport == "socket":
+            for p in peers:
+                node = ft.ClockNode(f"n{p}", m, k)
+                servers.append(ft.ClockPeerServer(node).start())
+                nodes[p] = node
+            tp = ft.SocketTransport(
+                {f"n{p}": s.address for p, s in zip(peers, servers)})
+        else:
+            tp = ft.LoopbackTransport(registry)
+    except BaseException:
+        stop_servers(servers)
+        raise
+    chaos_tp = None
+    if chaos is not None:
+        from repro_torch.fleet import chaos as chaos_mod
+        chaos_tp = chaos_mod.ChaosTransport(tp, chaos, observer=obs)
+        tp = chaos_tp
+    # registry key each sim peer is tracked under (socket peers arrive
+    # from the wire under their node ids)
+    pid_of = {p: (f"n{p}" if p in nodes else p) for p in peers}
 
     def as_clock(cells_row: np.ndarray) -> bc.BloomClock:
         return bc.BloomClock(
@@ -262,17 +330,159 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
 
     fn = fp_count = claims = merges = quarantines = 0
     digest_bytes = delta_bytes = pushback_bytes = 0
+    rejected_frames = corrupted_rows = repaired_rows = 0
     predicted: list[float] = []
     round_marks = set(
         np.linspace(cfg.n_events // max(n_rounds, 1), cfg.n_events - 1,
                     n_rounds, dtype=int).tolist())
     rounds_done = 0
+    converged = True
+    corrupt_done = False
+    # chaos ground truth: a registry row may be a STALE snapshot of its
+    # peer, so each published bloom state's CRC maps to the vector-clock
+    # state it was taken with, and ``reg_truth`` shadows what each
+    # registry row causally contains (None = unknowable, never scored)
+    vec_by_crc: dict[int, np.ndarray] = {}
+    reg_truth: dict = {}
+    by_spid = {str(pid_of[p]): p for p in peers}
+
+    def chaos_round(bloom, vec):
+        """One gossip round under fault injection, scored against the
+        snapshot each registry row actually carries."""
+        nonlocal fn, fp_count, claims, merges, quarantines
+        nonlocal digest_bytes, delta_bytes, pushback_bytes
+        nonlocal rejected_frames, corrupted_rows, repaired_rows
+        nonlocal corrupt_done
+        if tp.authoritative:
+            registry.admit_many({p: as_clock(bloom[p]) for p in peers})
+        else:
+            for p in peers:
+                nodes[p].set_cells(bloom[p])
+                vec_by_crc[wire.cells_crc(bloom[p])] = vec[p].copy()
+        if (corrupt_at is not None and not corrupt_done
+                and rounds_done - 1 >= corrupt_at[0]):
+            pid_c = pid_of[corrupt_at[1]]
+            if pid_c in registry and registry.row_alive(pid_c):
+                chaos_mod.corrupt_registry_row(registry, pid_c,
+                                               seed=chaos.seed)
+                corrupt_done = True
+        local = as_clock(bloom[observer])
+        audit_mark = len(obs.audit.records)
+        merged, report = ft.anti_entropy_session(registry, local, tp, fg_cfg)
+        digest_bytes += report.digest_bytes
+        delta_bytes += report.delta_bytes
+        pushback_bytes += report.pushback_bytes
+        rejected_frames += len(report.rejected)
+        corrupted_rows += len(report.corrupted)
+        repaired_rows += len(report.repaired)
+
+        # what does each registry row causally contain now?  Fresh or
+        # repair pulls replace the row with the frame's snapshot; pulls
+        # into a live row merge with it (§3 receive rule)
+        if tp.authoritative:
+            for p in peers:
+                reg_truth[pid_of[p]] = vec[p].copy()
+        else:
+            for rec in obs.audit.records[audit_mark:]:
+                if rec.kind != "frame_ingest":
+                    continue
+                p = by_spid.get(rec.peer_id)
+                if p is None:
+                    continue
+                pid = pid_of[p]
+                frame_vec = vec_by_crc.get(int(rec.peer_crc))
+                if frame_vec is None:
+                    reg_truth[pid] = None
+                elif pid in report.repaired or pid not in reg_truth:
+                    reg_truth[pid] = frame_vec.copy()
+                elif reg_truth[pid] is not None:
+                    reg_truth[pid] = np.maximum(reg_truth[pid], frame_vec)
+
+        vo = vec[observer]
+        truth_of: dict[str, bool] = {}
+        for p in peers:
+            pid = pid_of[p]
+            if pid not in registry:
+                continue           # digest dropped before first ingest
+            s = registry.slot_of(pid)
+            if not bool(report.view.alive[s]):
+                continue           # quarantined this round: no verdict
+            vp = reg_truth.get(pid)
+            if vp is None:
+                continue           # row snapshot unknowable: not scored
+            code = int(report.view.status[s])
+            p_le_o = bool(np.all(vp <= vo))
+            o_le_p = bool(np.all(vo <= vp))
+            if code == fr.FORKED:
+                quarantines += 1
+                truth_of[str(pid)] = not (p_le_o or o_le_p)
+                if p_le_o or o_le_p:
+                    fn += 1        # §3 violation: can never happen
+                continue
+            claims += 1
+            predicted.append(float(report.view.fp[s]))
+            truth_ok = {
+                fr.ANCESTOR: p_le_o,
+                fr.SAME: p_le_o and o_le_p,
+                fr.DESCENDANT: o_le_p,
+            }[code]
+            truth_of[str(pid)] = truth_ok
+            if not truth_ok:
+                fp_count += 1
+
+        for rec in obs.audit.records[audit_mark:]:
+            if rec.kind == "verdict" and rec.peer_id in truth_of:
+                obs.audit.annotate_truth(rec, truth_of[rec.peer_id])
+
+        # commit: the union's causal content is the join of the
+        # SNAPSHOTS its rows carried, not the peers' current clocks
+        accept_ids = [p for p in peers if pid_of[p] in registry
+                      and report.accepted[registry.slot_of(pid_of[p])]]
+        merges += len(accept_ids)
+        if accept_ids:
+            merged_np = merged.logical_cells().cpu().numpy().astype(np.int64)
+            union_vec = vo.copy()
+            union_known = True
+            for p in accept_ids:
+                vp = reg_truth.get(pid_of[p])
+                if vp is None:
+                    union_known = False
+                else:
+                    np.maximum(union_vec, vp, out=union_vec)
+            np.maximum(bloom[observer], merged_np, out=bloom[observer])
+            if union_known:
+                np.maximum(vec[observer], union_vec, out=vec[observer])
+            if fg_cfg.push_back:
+                for p in accept_ids:
+                    if (not tp.authoritative
+                            and pid_of[p] in report.unreachable):
+                        continue   # chaos ate the push: peer never saw it
+                    np.maximum(bloom[p], merged_np, out=bloom[p])
+                    if union_known:
+                        np.maximum(vec[p], union_vec, out=vec[p])
+                    # the session broadcast the union into this row (on
+                    # non-authoritative fabrics: only because the push
+                    # was acknowledged)
+                    reg_truth[pid_of[p]] = (union_vec.copy()
+                                            if union_known else None)
+
+    last_state = None
     try:
         for t, _src, bloom, vec in _replay(cfg, rng, idx):
             if t not in round_marks:
                 continue
             rounds_done += 1
-            registry.admit_many({p: as_clock(bloom[p]) for p in peers})
+            last_state = (bloom, vec)
+            if chaos is not None:
+                chaos_round(bloom, vec)
+                continue
+            if tp.authoritative:
+                registry.admit_many({p: as_clock(bloom[p]) for p in peers})
+            else:
+                # peers publish their CURRENT clock on their own server;
+                # the observer's registry syncs via digest/delta frames
+                for p in peers:
+                    nodes[p].set_cells(bloom[p])
             local = as_clock(bloom[observer])
             audit_mark = len(obs.audit.records) if obs.audit else 0
             merged, report = ft.anti_entropy_session(registry, local, tp,
@@ -284,14 +494,14 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
             vo = vec[observer]
             truth_of: dict[str, bool] = {}
             for p in peers:
-                s = registry.slot_of(p)
+                s = registry.slot_of(pid_of[p])
                 code = int(report.view.status[s])
                 p_le_o = bool(np.all(vec[p] <= vo))
                 o_le_p = bool(np.all(vo <= vec[p]))
                 if code == fr.FORKED:
                     quarantines += 1
                     # a quarantine is "correct" iff truly concurrent
-                    truth_of[str(p)] = not (p_le_o or o_le_p)
+                    truth_of[str(pid_of[p])] = not (p_le_o or o_le_p)
                     if p_le_o or o_le_p:
                         fn += 1      # §3 violation: can never happen
                     continue
@@ -302,7 +512,7 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
                     fr.SAME: p_le_o and o_le_p,
                     fr.DESCENDANT: o_le_p,
                 }[code]
-                truth_of[str(p)] = truth_ok
+                truth_of[str(pid_of[p])] = truth_ok
                 if not truth_ok:
                     fp_count += 1
 
@@ -313,7 +523,7 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
 
             # commit the round to BOTH clock families (receive rule)
             accept_ids = [p for p in peers
-                          if report.accepted[registry.slot_of(p)]]
+                          if report.accepted[registry.slot_of(pid_of[p])]]
             merges += len(accept_ids)
             if accept_ids:
                 union_vec = vo.copy()
@@ -326,8 +536,19 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
                     for p in accept_ids:
                         bloom[p] = merged_np
                         vec[p] = union_vec.copy()
+
+        # ---- chaos settle: faults off, no new events, prove recovery ----
+        if chaos is not None and last_state is not None:
+            chaos_tp.quiesce()
+            bloom, vec = last_state
+            for _ in range(max(settle_rounds, 0)):
+                rounds_done += 1
+                chaos_round(bloom, vec)
+            converged = all(
+                np.array_equal(bloom[p], bloom[observer]) for p in peers)
     finally:
         tp.close()
+        stop_servers(servers)
 
     measured = fp_count / max(claims, 1)
     mean_pred = float(np.mean(predicted)) if predicted else 0.0
@@ -350,6 +571,11 @@ def run_gossip_sim(cfg: SimConfig, n_rounds: int = 6, observer: int = 0,
         digest_bytes=digest_bytes,
         delta_bytes=delta_bytes,
         pushback_bytes=pushback_bytes,
+        converged=converged,
+        fault_events=len(chaos_tp.schedule) if chaos_tp is not None else 0,
+        rejected_frames=rejected_frames,
+        corrupted=corrupted_rows,
+        repaired=repaired_rows,
     )
 
 

@@ -4,11 +4,16 @@
   admit/evict/update, a one-kernel-call ``classify_all`` and
   ``all_pairs``, on one device or row-sharded over a fleet mesh;
 - ``gossip``    — anti-entropy round config/report + the loopback round;
-- ``transport`` — the session protocol over the loopback and
-  mesh-collective transports;
+- ``transport`` — the session protocol (digest → delta → classify →
+  union → push-back) over the loopback, mesh-collective and TCP socket
+  transports;
+- ``chaos``     — seeded, replayable fault injection (``ChaosTransport``
+  wraps any fabric: drops, duplicates, reorders, damaged frames,
+  mid-session crashes, healing partitions);
 - ``monitor``   — fleet health (fork components, stragglers, the fp
   profile) from one all-pairs call, ``watch`` and the Eq. 3 band check.
 """
+from repro_torch.fleet.chaos import ChaosConfig, ChaosTransport, FaultEvent
 from repro_torch.fleet.registry import (
     ANCESTOR,
     DEAD,
@@ -30,9 +35,13 @@ from repro_torch.fleet.monitor import (
     watch,
 )
 from repro_torch.fleet.transport import (
+    ClockNode,
+    ClockPeerServer,
     LoopbackTransport,
     MeshCollectiveTransport,
+    SocketTransport,
     Transport,
+    TransportError,
     anti_entropy_session,
 )
 
@@ -48,6 +57,13 @@ __all__ = [
     "Transport",
     "LoopbackTransport",
     "MeshCollectiveTransport",
+    "SocketTransport",
+    "ClockNode",
+    "ClockPeerServer",
+    "TransportError",
+    "ChaosConfig",
+    "ChaosTransport",
+    "FaultEvent",
     "ANCESTOR",
     "SAME",
     "DESCENDANT",

@@ -2,10 +2,11 @@
 
 One round = what a node does when it wakes up and reconciles with its
 view of the fleet.  The protocol (digest exchange → classify via the
-``CausalEngine`` → union merge → push-back) lives in
-``fleet.transport.session`` and is parameterized by a ``Transport``;
-this module's ``gossip_round`` runs it over the loopback transport,
-where the local registry slab is the fleet.
+``CausalEngine`` → delta pull of §4 wire rows → union merge →
+push-back) lives in ``fleet.transport.session`` and is parameterized
+by a ``Transport`` (loopback, mesh-collective or socket); this module's
+``gossip_round`` runs it over the loopback transport, where the local
+registry slab is the fleet.
 
 The round's policy, on [N] host vectors: FORKED peers are quarantined;
 stragglers (clock-sum gap above ``straggler_gap`` below the alive
@@ -17,6 +18,7 @@ bytes.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional
 
 import numpy as np
@@ -32,6 +34,9 @@ _FP_DEFAULT = 1e-4
 
 @dataclasses.dataclass(frozen=True)
 class GossipConfig:
+    # DEPRECATED: pass ``policy=CausalPolicy(fp_threshold=...)`` instead;
+    # it still wins when no policy is set, and warns on explicit use
+    fp_threshold: Optional[float] = None
     straggler_gap: float = 64.0   # clock-sum ticks below alive median
     push_back: bool = True        # write the union into accepted rows
     # the one source of truth for the Eq. 3 gate when set
@@ -40,12 +45,27 @@ class GossipConfig:
     # and then the registry's policy when None
     observer: Any = None
     # verify every alive registry row against its recorded CRC at the
-    # top of each session and quarantine the corrupted ones
+    # top of each session and quarantine the corrupted ones; on a
+    # non-authoritative fabric the delta phase then re-pulls them
     verify_rows: bool = False
+    # paper §3 pure receive rule: merge FORKED (concurrent) peers too
+    # instead of quarantining them, so a fleet whose nodes legitimately
+    # tick concurrently can reconverge
+    merge_forked: bool = False
+
+    def __post_init__(self):
+        if self.fp_threshold is not None:
+            warnings.warn(
+                "GossipConfig.fp_threshold is deprecated; pass "
+                "policy=CausalPolicy(fp_threshold=...) — the policy is "
+                "the one source of truth for the Eq. 3 gate",
+                DeprecationWarning, stacklevel=3)
 
     @property
     def fp_gate(self) -> float:
-        return self.policy.fp_threshold if self.policy is not None else _FP_DEFAULT
+        if self.policy is not None:
+            return self.policy.fp_threshold
+        return _FP_DEFAULT if self.fp_threshold is None else self.fp_threshold
 
 
 @dataclasses.dataclass
@@ -63,7 +83,9 @@ class GossipReport:
     transport: str = "loopback"   # fabric the session ran over
     shards: int = 1               # row shards the registry slab spans
     unreachable: tuple = ()       # peers skipped mid-session
+    rejected: tuple = ()          # peers whose pulled frame failed decode
     corrupted: tuple = ()         # rows that failed the CRC integrity check
+    repaired: tuple = ()          # corrupted rows re-pulled this session
 
     @property
     def n_accepted(self) -> int:
@@ -84,7 +106,9 @@ class GossipReport:
             f"wire={self.wire_bytes}B[{self.transport}]"
             + (f" unreachable={len(self.unreachable)}"
                if self.unreachable else "")
-            + (f" corrupted={len(self.corrupted)}" if self.corrupted else "")
+            + (f" rejected={len(self.rejected)}" if self.rejected else "")
+            + (f" corrupted={len(self.corrupted)}"
+               f" repaired={len(self.repaired)}" if self.corrupted else "")
         )
 
 

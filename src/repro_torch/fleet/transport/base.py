@@ -8,9 +8,10 @@ A transport answers three questions for one node's gossip session:
 - ``push(ids, frame)`` — ship the merged union row to accepted peers.
 
 Every method returns MEASURED byte counts.  An ``authoritative``
-transport holds the peer rows in the session's own registry slab, so
-there is nothing to pull.  The port has the loopback and mesh
-transports; the socket and chaos fabrics are still to come.
+transport (loopback, mesh-collective) holds the peer rows in the
+session's own registry slab, so there is nothing to pull.  The socket
+transport is not: the session's registry is a staging replica of
+remote processes, kept in sync by digest and delta pull.
 """
 from __future__ import annotations
 
@@ -31,6 +32,10 @@ class Transport(abc.ABC):
     authoritative: bool = False
 
     def __init__(self) -> None:
+        # content keys (``ClockDigest.key``) of the rows this node holds
+        # per peer: the session pulls only peers whose advertised key
+        # differs, so an unchanged fleet costs digest bytes only
+        self.have: dict = {}
         # peer_id -> error string for peers this round could not reach;
         # the session audits them and reports them on the round
         self.unreachable: dict = {}

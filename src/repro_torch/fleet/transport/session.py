@@ -1,23 +1,37 @@
 """The transport-agnostic anti-entropy session protocol.
 
-One session is the full reconcile a node runs when it wakes up:
+One session is the full reconcile a node runs when it wakes up; WHERE
+the peer rows live is the transport's problem and WHAT the node decides
+is shared, bit for bit, across fabrics:
 
-1. **digest exchange** — ``transport.digests()``;
-2. **classify** — one ``registry.classify_all`` kernel call;
-3. **policy** — quarantine FORKED peers, skip stragglers, gate the
-   comparable rest on the Eq. 3 confidence threshold (numpy on [N]
-   host vectors);
-4. **union merge** — one batched max-reduce over the accepted rows
+1. **digest exchange** — ``transport.digests()`` advertises every
+   peer's content key.  Authoritative transports (loopback,
+   mesh-collective) skip ingest: the session registry IS the peer state.
+2. **delta pull** — only peers whose key differs from the row this node
+   holds (``transport.have``) are pulled, as ``core.wire`` clock frames.
+   A frame that fails decode is rejected for that peer only (a
+   ``frame_rejected`` audit record, ``GossipReport.rejected``); decoded
+   rows are merged into live rows (§3 receive rule, so duplicated and
+   reordered deliveries are idempotent), replace quarantined rows, or
+   are admitted.  The decoded clocks go straight to the registry's
+   device; each ingested frame leaves a ``frame_ingest`` record.
+3. **classify** — one ``registry.classify_all`` kernel call;
+4. **policy** — quarantine FORKED peers (unless ``merge_forked``), skip
+   stragglers, gate the comparable rest on the Eq. 3 confidence
+   threshold (numpy on [N] host vectors);
+5. **union merge** — one batched max-reduce over the accepted rows
    (paper §3 receive rule fleet-wide), then §4 re-compress;
-5. **push-back** — the union is written into the accepted registry rows
-   and shipped as ONE encoded §4 wire frame via ``transport.push``.
+6. **push-back** — the union is shipped as ONE encoded §4 wire frame via
+   ``transport.push`` and written into the accepted registry rows; on a
+   non-authoritative fabric only into the rows whose push was
+   acknowledged.
 
-Only authoritative transports (the registry IS the peer state) are
-ported so far, so there is no delta pull.  The session resolves its
-``Observer`` from ``cfg.observer`` → ``cfg.policy.observer`` → the
-registry's policy and instruments every phase: spans, byte and outcome
-counters, a log10 histogram of claimed fp, and an audit record per
-acted-on verdict, captured before push-back overwrites the rows.
+The session resolves its ``Observer`` from ``cfg.observer`` →
+``cfg.policy.observer`` → the registry's policy and instruments every
+phase: spans (``gossip.digest``, ``gossip.pull``, ``gossip.classify``,
+``gossip.union``, ``gossip.push`` under ``gossip.session``), byte and
+outcome counters, a log10 histogram of claimed fp, and an audit record
+per acted-on verdict, captured before push-back overwrites the rows.
 """
 from __future__ import annotations
 
@@ -45,6 +59,82 @@ def _session_observer(cfg: GossipConfig, registry: reg.ClockRegistry):
     if obs is None:
         obs = registry.policy.observer
     return resolve(obs)
+
+
+def _ingest_delta(registry: reg.ClockRegistry, transport: Transport,
+                  obs) -> tuple[int, int, dict, set]:
+    """Digest exchange + delta pull into the session registry.
+
+    Returns measured (digest_bytes, delta_bytes, rejected, revived):
+    ``revived`` holds the pids whose quarantined (corrupt) row this pull
+    rewrote.  Peers advertised with an unchanged content key are
+    skipped; vanished peers stay in the registry.  A frame that fails
+    decode is dropped for THIS peer only and its ``have`` key is not
+    advanced, so the next round re-pulls it.  A decoded row is merged
+    with the live row it updates; a quarantined row is replaced
+    outright (merging would launder the corruption).
+
+    Device traffic, per pulled frame on a card registry: two
+    host-to-device copies (the decoded cells and base) and two reads
+    back in the registry's write (one of them synchronising); a live
+    row adds its ``get`` and the merge, about 16 small device ops.  The
+    ``have`` keys come from the CRCs the registry records at the write
+    and the audit CRCs from the decoded host frames, so neither costs a
+    transfer.
+    """
+    with obs.trace.span("gossip.digest") as sp:
+        digests, digest_bytes = transport.digests()
+        sp.set(peers=len(digests), bytes=digest_bytes)
+    if transport.authoritative:
+        return digest_bytes, 0, {}, set()
+    wanted = [pid for pid, d in digests.items()
+              if transport.have.get(pid) != d.key]
+    with obs.trace.span("gossip.pull", wanted=len(wanted)) as sp:
+        if not wanted:
+            sp.set(bytes=0)
+            return digest_bytes, 0, {}, set()
+        frames, delta_bytes = transport.pull(wanted)
+        sp.set(pulled=len(frames), bytes=delta_bytes)
+        clocks, frame_crc, rejected = {}, {}, {}
+        for pid, frame in frames.items():
+            try:
+                snap = wire.decode_clock(frame)
+            except wire.WireFormatError as e:
+                rejected[pid] = str(e)
+                obs.audit.record("frame_rejected", pid,
+                                 transport=transport.name, detail=str(e))
+                obs.metrics.counter("frames_rejected",
+                                    transport=transport.name).inc()
+                continue
+            clocks[pid] = bc.from_wire(snap, device=registry.device)
+            frame_crc[pid] = wire.cells_crc(snap["cells"], snap["base"])
+        known, fresh, revived = {}, {}, set()
+        for pid, c in clocks.items():
+            if pid not in registry:
+                fresh[pid] = c
+            elif registry.row_alive(pid):
+                known[pid] = bc.merge(registry.get(pid), c)
+            else:
+                known[pid] = c       # quarantined row: replace, don't merge
+                revived.add(pid)
+        if known:
+            registry.update_many(known)
+        if fresh:
+            registry.admit_many(fresh)
+        if obs.audit:
+            for pid in clocks:
+                obs.audit.record("frame_ingest", pid,
+                                 transport=transport.name,
+                                 peer_crc=frame_crc[pid])
+        for pid in clocks:
+            # the key of the row we now HOLD (not the advertised key):
+            # if a delayed or duplicated frame left the row stale, the
+            # keys differ and the next digest exchange re-pulls the peer
+            transport.have[pid] = (
+                int(registry._crc_host[registry.slot_of(pid)]), registry.m)
+        if rejected:
+            sp.set(rejected=len(rejected))
+    return digest_bytes, delta_bytes, rejected, revived
 
 
 def _audit_verdicts(obs, registry: reg.ClockRegistry,
@@ -93,10 +183,6 @@ def anti_entropy_session(
     cfg: GossipConfig = GossipConfig(),
 ) -> tuple[bc.BloomClock, GossipReport]:
     """Run one anti-entropy session; returns (merged local clock, report)."""
-    if not transport.authoritative:
-        raise ValueError(
-            f"transport {transport.name!r} is not authoritative: delta "
-            "pulls from remote peers are not ported yet")
     obs = _session_observer(cfg, registry)
     t0 = time.perf_counter_ns()
     with obs.trace.span("gossip.session", transport=transport.name,
@@ -111,22 +197,40 @@ def anti_entropy_session(
                 for pid in bad:
                     obs.audit.record(
                         "row_corrupt", pid, transport=transport.name,
-                        detail="registry row CRC mismatch; quarantined")
+                        detail="registry row CRC mismatch; quarantined "
+                               "pending gossip repair")
                     obs.metrics.counter("rows_corrupt",
                                         transport=transport.name).inc()
+                    if not transport.authoritative:
+                        # force the delta phase to re-pull the row from
+                        # any peer whose digest covers it
+                        transport.have.pop(pid, None)
                 corrupted = tuple(sorted(bad, key=str))
 
-        with obs.trace.span("gossip.digest") as sp:
-            digests, digest_bytes = transport.digests()
-            sp.set(peers=len(digests), bytes=digest_bytes)
+        digest_bytes, delta_bytes, rejected, revived = _ingest_delta(
+            registry, transport, obs)
+
+        # repairs are pulls that rewrote a quarantined row, including
+        # rows quarantined in an earlier session whose re-pull the
+        # fabric kept dropping until now
+        repaired = tuple(sorted(revived, key=str))
+        for pid in repaired:
+            obs.audit.record("row_repaired", pid, transport=transport.name,
+                             detail="corrupt row replaced by re-pulled "
+                                    "peer frame")
+            obs.metrics.counter("rows_repaired",
+                                transport=transport.name).inc()
 
         with obs.trace.span("gossip.classify") as sp:
             view = registry.classify_all(local)
             sp.set(engine=view.engine, alive=int(view.alive.sum()))
         alive = view.alive
 
-        # concurrent histories are quarantined as suspected divergence
-        quarantined = alive & (view.status == reg.FORKED)
+        forked = alive & (view.status == reg.FORKED)
+        # the §3 pure receive rule merges concurrent histories; the
+        # default policy quarantines them as suspected replica divergence
+        quarantined = (np.zeros_like(forked) if cfg.merge_forked
+                       else forked)
 
         stragglers = np.zeros_like(alive)
         if alive.any():
@@ -151,13 +255,35 @@ def anti_entropy_session(
                 merged = bc.compress(registry.union(accepted, local))
             if cfg.push_back:
                 with obs.trace.span("gossip.push") as sp:
-                    frame = wire.encode_clock(bc.to_wire(merged))
+                    snap = bc.to_wire(merged)
+                    frame = wire.encode_clock(snap)
                     accepted_ids = [pid for pid in registry.peer_ids()
                                     if accepted[registry.slot_of(pid)]]
                     pushback_bytes = transport.push(accepted_ids, frame)
                     sp.set(peers=len(accepted_ids), bytes=pushback_bytes)
-                    registry.broadcast(accepted, merged)
+                    if transport.authoritative:
+                        registry.broadcast(accepted, merged)
+                    else:
+                        # a staging row mirrors its PEER: only rows whose
+                        # push was acknowledged may claim the union, or
+                        # the row would fork from the peer it stands for
+                        delivered = [pid for pid in accepted_ids
+                                     if pid not in transport.unreachable]
+                        dmask = np.zeros_like(accepted)
+                        for pid in delivered:
+                            dmask[registry.slot_of(pid)] = True
+                        if dmask.any():
+                            registry.broadcast(dmask, merged)
+                        # the union row is now what those peers hold
+                        # (unless they tick first, which the next digest
+                        # exchange sees)
+                        key = wire.digest_of("", snap["cells"],
+                                             snap["base"], snap["k"]).key
+                        for pid in delivered:
+                            transport.have[pid] = key
 
+        # peers the transport skipped and reported in any phase of this
+        # round: audit + metric per peer, session completed without them
         unreachable = dict(transport.unreachable)
         for pid, err in unreachable.items():
             obs.metrics.counter("peer_unreachable",
@@ -168,6 +294,7 @@ def anti_entropy_session(
         sess_sp.set(accepted=int(accepted.sum()),
                     quarantined=int(quarantined.sum()),
                     unreachable=len(unreachable),
+                    rejected=len(rejected),
                     corrupted=len(corrupted))
 
     if obs.metrics:
@@ -177,7 +304,7 @@ def anti_entropy_session(
         obs.metrics.histogram("gossip_session_ms", edges=_LATENCY_EDGES,
                               transport=transport.name).observe(ms)
         for phase, nbytes in (("digest", digest_bytes),
-                              ("delta", 0),
+                              ("delta", delta_bytes),
                               ("push", pushback_bytes)):
             obs.metrics.counter("gossip_bytes", phase=phase).inc(nbytes)
         for outcome, mask in (("accepted", accepted),
@@ -201,8 +328,11 @@ def anti_entropy_session(
         view=view,
         pushback_bytes=pushback_bytes,
         digest_bytes=digest_bytes,
+        delta_bytes=delta_bytes,
         transport=transport.name,
         shards=registry.n_shards,
         unreachable=tuple(sorted(unreachable)),
+        rejected=tuple(sorted(rejected, key=str)),
         corrupted=corrupted,
+        repaired=repaired,
     )

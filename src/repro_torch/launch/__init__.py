@@ -1,1 +1,3 @@
-"""Launch helpers: the fleet mesh (``launch.mesh``)."""
+"""Launch helpers: the fleet mesh (``launch.mesh``) and the socket
+gossip peers (``launch.peers``: peer specs and the multi-process
+smoke driver)."""

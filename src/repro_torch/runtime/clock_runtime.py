@@ -148,7 +148,8 @@ class ClockRuntime:
 
     def gossip(self, registry, cfg=None, transport=None):
         """One anti-entropy session (loopback over ``registry`` unless a
-        transport is given); the merged union becomes the runtime clock.
+        transport is given, e.g. a ``SocketTransport`` whose delta pull
+        fills ``registry``); the merged union becomes the runtime clock.
         The session gates on this runtime's policy unless ``cfg`` is
         given."""
         from repro_torch.fleet.gossip import GossipConfig

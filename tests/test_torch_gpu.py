@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
 all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
-sides of its dispatch point ``ops.MXU_T_MAX``).  Every test
+sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
+(sharded registries, the mesh transport, socket sessions and the chaos
+sim) on the card against the CPU.  Every test
 here carries the ``gpu`` marker and skips without a CUDA device
 (decided in a fixture, never at import time).
 
@@ -1351,3 +1353,138 @@ def test_cuda_mesh_transport_on_distinct_cards(cuda, shards):
         np.testing.assert_array_equal(getattr(gr, key), getattr(wr, key))
     assert (gr.view.fp == wr.view.fp).all()
     assert gr.pushback_bytes == wr.pushback_bytes and gr.digest_bytes == nbytes
+
+
+def socket_rows(n: int, m: int, seed: int) -> dict:
+    """n host clocks around a local row ``base``: ancestors, forks,
+    descendants, and two rows past the int32 wrap in some cells."""
+    g = np.random.default_rng(seed)
+    local = g.integers(0, 6, m)
+    rows = {}
+    for i in range(n):
+        if i < 2:
+            rows[f"w{i}"] = I32_MAX - 50 + g.integers(0, 101, m)
+        elif i % 3 == 0:
+            rows[f"a{i}"] = local - (g.random(m) < 0.3) * (local > 0)
+        elif i % 3 == 1:
+            rows[f"d{i}"] = local + (g.random(m) < 0.05)
+        else:
+            rows[f"f{i}"] = local + (g.random(m) < 0.05) - (g.random(m) < 0.3) * (local > 0)
+    return {"local": local, "rows": rows}
+
+
+def socket_sessions(device, fleet: dict, rounds: int = 2) -> list:
+    """``rounds`` sessions of a registry on ``device`` over
+    ``SocketTransport`` against servers of the fleet's rows."""
+    from repro_torch.core import clock as bc
+    from repro_torch.fleet import ClockNode, ClockPeerServer, ClockRegistry
+    from repro_torch.fleet import GossipConfig, SocketTransport
+    from repro_torch.fleet import anti_entropy_session
+    from repro_torch.fleet.transport.socket import stop_servers
+
+    m = len(fleet["local"])
+    nodes, servers = {}, []
+    try:
+        for pid, row in fleet["rows"].items():
+            nodes[pid] = ClockNode(pid, m, 4)
+            nodes[pid].set_cells(row)
+            servers.append(ClockPeerServer(nodes[pid]).start())
+        tp = SocketTransport({p: s.address for p, s in zip(nodes, servers)},
+                             timeout=5.0)
+        reg = ClockRegistry(len(nodes), m, 4, device=device)
+        local = bc.BloomClock(
+            cells=torch.as_tensor(fleet["local"].astype(np.int32),
+                                  device=device),
+            base=torch.zeros((), dtype=torch.int32, device=device), k=4)
+        out = []
+        for _ in range(rounds):
+            local, rep = anti_entropy_session(reg, local, tp, GossipConfig())
+            out.append({"masks": [getattr(rep, k) for k in (
+                            "accepted", "quarantined", "stragglers",
+                            "unconfident")],
+                        "status": rep.view.status, "fp": rep.view.fp,
+                        "merged": local.logical_cells().cpu().numpy(),
+                        "rows": reg.cells.cpu().numpy(),
+                        "bytes": (rep.digest_bytes, rep.delta_bytes,
+                                  rep.pushback_bytes),
+                        "have": dict(tp.have), "wide": sorted(reg._wide),
+                        "held": {p: n.digest().crc for p, n in nodes.items()}})
+        return out
+    finally:
+        stop_servers(servers)
+
+
+@pytest.mark.gpu
+def test_cuda_socket_session_matches_cpu(cuda):
+    """Two delta-pull sessions over ``SocketTransport`` with the staging
+    registry on the card and on the CPU: masks, statuses, merged cells,
+    registry rows, promoted slots, wire bytes, ``have`` keys and what
+    the servers hold identical, fp within tolerance; the card's runs
+    the packed kernel and the i32 overlay of the near-wrap rows, and the
+    second session pulls nothing."""
+    fleet = socket_rows(48, 1024, 23)
+    ops.reset_launches()
+    got = socket_sessions(cuda, fleet)
+    assert ops.LAUNCHES["one_vs_many_packed"] == 2
+    assert ops.LAUNCHES["one_vs_many_i32"] == 2
+    want = socket_sessions("cpu", fleet)
+    assert got[0]["bytes"][1] > 0 and got[1]["bytes"][1] == 0
+    assert len(got[0]["wide"]) >= 2
+    for g, w in zip(got, want):
+        for a, b in zip(g["masks"], w["masks"]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(g["status"], w["status"])
+        assert_fp_close(torch.as_tensor(g["fp"]), torch.as_tensor(w["fp"]))
+        for key in ("merged", "rows"):
+            np.testing.assert_array_equal(g[key], w[key])
+        for key in ("bytes", "have", "wide", "held"):
+            assert g[key] == w[key], key
+
+
+@pytest.mark.gpu
+def test_cuda_chaos_sim_matches_cpu(cuda):
+    """The hostile socket fleet (the chaos smoke's mix, a corrupted row)
+    with the observer's registry on the card and on the CPU: fn == 0,
+    converged, repaired, and the same result fields and audited fault
+    schedule."""
+    import dataclasses
+
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.core.sim import SimConfig, run_gossip_sim
+    from repro_torch.fleet import GossipConfig
+    from repro_torch.fleet.chaos import smoke_chaos
+    from repro_torch.obs import AuditTrail, Observer
+
+    res, trails = {}, {}
+    for dev in (cuda, "cpu"):
+        obs = Observer(audit=AuditTrail())
+        res[str(dev)] = run_gossip_sim(
+            SimConfig(n_nodes=5, n_events=150, m=64, k=3, seed=7),
+            n_rounds=6,
+            gossip_cfg=GossipConfig(policy=CausalPolicy(fp_threshold=1.0),
+                                    straggler_gap=np.inf, observer=obs,
+                                    merge_forked=True),
+            transport="socket", chaos=smoke_chaos(), corrupt_at=(3, 1),
+            device=dev)
+        trails[str(dev)] = [(r.peer_id, r.action, r.detail)
+                            for r in obs.audit.chaos_events()]
+    g, c = res[str(cuda)], res["cpu"]
+    assert g.false_negatives == 0 and g.converged and g.repaired >= 1
+    assert trails[str(cuda)] == trails["cpu"] and trails["cpu"]
+    dg, dc = dataclasses.asdict(g), dataclasses.asdict(c)
+    fp_g, fp_c = dg.pop("mean_predicted_fp"), dc.pop("mean_predicted_fp")
+    assert dg == dc
+    assert abs(fp_g - fp_c) <= FP_RTOL * max(abs(fp_c), FP_FLOOR)
+
+
+@pytest.mark.gpu
+def test_cuda_ticked_prefix_matches_cpu(cuda):
+    """The launcher's leader ticks on the card and its children on the
+    CPU: the same event prefix gives identical integer cells, which the
+    children's prefix property rests on."""
+    from repro_torch.launch.peers import _ticked_clock
+
+    got = _ticked_clock(1024, 4, 300, cuda)
+    want = _ticked_clock(1024, 4, 300, "cpu")
+    assert got.cells.device.type == "cuda"
+    assert torch.equal(got.logical_cells().cpu(), want.logical_cells())

@@ -195,4 +195,4 @@ def test_gossip_sim_mesh_transport_no_false_negatives(host_devices):
                            transport=MeshCollectiveTransport, device=CPU)
     assert dataclasses.asdict(again) == dataclasses.asdict(r)
     with pytest.raises(ValueError, match="unknown transport"):
-        run_gossip_sim(SimConfig(**cfg), transport="socket", device=CPU)
+        run_gossip_sim(SimConfig(**cfg), transport="carrier", device=CPU)
