@@ -1685,10 +1685,53 @@ def drive_socket(device: str, fleet: dict, nodes: dict, addresses: dict) -> dict
     sync()
     out["launches"] = dict(ops.LAUNCHES)
     # the sockets alone: one bare pull of every frame, no ingest
+    digests, _ = tp.digests()
     t0 = time.perf_counter()
     frames, _ = tp.pull(list(addresses))
     out["bare_pull_ms"] = (time.perf_counter() - t0) * 1e3
     check(len(frames) == SOCK_PEERS, f"{device}: bare pull got {len(frames)}")
+    out["ingest_ms"] = ingest_ms(device, digests, frames)
+    return out
+
+
+def ingest_ms(device: str, digests: dict, frames: dict) -> dict:
+    """The session's delta ingest alone, on frames served from memory
+    into a fresh registry on ``device``: every frame admitted, then the
+    same frames merged into the live rows (``have`` cleared), each timed
+    on the host clock to a synchronise."""
+    import torch
+    from repro_torch.fleet import ClockRegistry
+    from repro_torch.fleet.transport.base import Transport
+    from repro_torch.fleet.transport.session import _ingest_delta
+    from repro_torch.obs.observer import resolve
+
+    class Feed(Transport):
+        name, authoritative = "feed", False
+
+        def digests(self):
+            self._begin_round()
+            return dict(digests), 0
+
+        def pull(self, peer_ids):
+            return {p: frames[p] for p in peer_ids}, 0
+
+        def push(self, peer_ids, frame):
+            return 0
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    reg = ClockRegistry(SOCK_PEERS, M, K, device=device)
+    feed, out = Feed(), {}
+    for what in ("admit", "merge"):
+        feed.have.clear()
+        sync()
+        t0 = time.perf_counter()
+        _ingest_delta(reg, feed, resolve(None))
+        sync()
+        out[what] = (time.perf_counter() - t0) * 1e3
+    check(len(reg) == SOCK_PEERS, f"{device}: the ingest admitted {len(reg)}")
     return out
 
 
@@ -1836,11 +1879,13 @@ def socket_phase() -> None:
                   f"of {s['pulled'][0]} wanted; digest/delta/push bytes "
                   f"{list(s['bytes'])}; {s['summary']}")
     for d, run in (("cuda", gpu), ("cpu", cpu)):
-        pull = run["sessions"][0]["spans"]["gossip.pull"]
+        ing = run["ingest_ms"]
         print(f"[socket] (a) {d}: a bare SocketTransport.pull of the "
-              f"{SOCK_PEERS} frames {run['bare_pull_ms']} ms, session 0's "
-              f"gossip.pull {pull} ms: decode and admit ~"
-              f"{(pull - run['bare_pull_ms']) / SOCK_PEERS} ms a frame")
+              f"{SOCK_PEERS} frames {run['bare_pull_ms']} ms; the ingest "
+              f"alone (decode, place on {d}, write, keys) from memory: admit "
+              f"{ing['admit']} ms ({ing['admit'] / SOCK_PEERS} a frame), merge "
+              f"into the live rows {ing['merge']} ms ({ing['merge'] / SOCK_PEERS}"
+              f" a frame)")
     compare_socket_runs(gpu, cpu)
     launches = {k: gpu["launches"][k] for k in
                 ("bloom_tick", "one_vs_many_packed", "one_vs_many_i32")}
