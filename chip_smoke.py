@@ -8,6 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 On a host with several cards, ``python3 chip_smoke.py --shard-only``
 builds the kernels and runs phase 4b alone (with the unsharded gossip
 sim it is held to), its shards of s <= the card count on distinct cards.
+``python3 chip_smoke.py --model-only`` builds them and runs phase 10
+alone.
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -125,7 +127,27 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    32-bit-lane kernel at N = M = 4096, T = 8192); a record's library
    time is the faster call; rect-i32 once more on slabs that fit in L2
    (time per pair and lane);
-10. one JSON line of kernel records, the card line, then the verdict line.
+10. model serving (``[model]`` lines): (a) ``launch.serve``'s defaults
+    (batch 4, prompt 32, 16 generated tokens, fp gate 1e-4) at
+    Qwen1.5-0.5B's full config (24 layers, d 1,024, V 151,936, tied;
+    463,987,712 float32 masters, bfloat16 compute), weights random from
+    the seed: a ``ServingEngine`` admits the prompts and generates, and
+    (c) a second engine that merged its clock adopts the session while a
+    third with its own history refuses it, with the launch counts reset
+    just before and read just after (tick, merge_compare and i32
+    one-vs-many must have run); prefill ms, generate ms, tok/s, the bare
+    model's decode step (host clock to a synchronise, median over steps
+    2-16) beside its bound (the compute-dtype weights' bytes over the
+    memory rate), one decode step under the profiler (idle share, device
+    events), peak memory; ``python -m repro_torch.launch.serve`` in a
+    child process must exit 0; (b) the full widths at 2 layers on the
+    card and the CPU from the same weights and prompts: clocks,
+    registry rows and ``adopt_many`` masks identical, logits within
+    ``LOGIT_ATOL + LOGIT_RTOL |x|``, greedy tokens identical outside
+    near ties, fp within 5e-2;
+11. one JSON line of kernel records (the three serving kernels also
+    carry their launches on the serving path), the card line, then the
+    verdict line.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
 resolves (``card_blocks``): the committed table's ``cuda`` entries under
@@ -1023,8 +1045,8 @@ def profile_round(rt, reg) -> dict:
 def profiled(fn) -> dict:
     """``fn()`` once on the card under ``torch.profiler``: wall ms (host
     clock, synchronised), kernel and copy ms summed over the device
-    events, the card's idle share without and with the copies, and the
-    device events that took the most time."""
+    events and their count, the card's idle share without and with the
+    copies, and the device events that took the most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1034,13 +1056,15 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+    events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
+    device = [(e.key, e.self_device_time_total / 1e3) for e in events]
     copy_ms = sum(ms for k, ms in device if k.startswith(("Memcpy", "Memset")))
     kernel_ms = sum(ms for _, ms in device) - copy_ms
     top = sorted(device, key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+            "device_events": sum(e.count for e in events),
             "idle_share": 1.0 - kernel_ms / wall_ms,
             "idle_share_with_copies": 1.0 - (kernel_ms + copy_ms) / wall_ms,
             "top_device_ms": [[k[:60], ms] for k, ms in top]}
@@ -3179,6 +3203,330 @@ def time_serve(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: model serving
+# ---------------------------------------------------------------------------
+
+#: launch/serve.py's defaults (src/repro/launch/serve.py:30-34, 74): the
+#: architecture, batch, prompt and generated tokens, the policy's gate
+MODEL_ARCH, MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = "qwen1_5_0_5b", 4, 32, 16
+MODEL_FP_THRESHOLD = 1e-4
+#: Qwen1.5-0.5B's full config: 24 layers, d 1,024, 16 heads, d_ff 2,816,
+#: V 151,936, tied embeddings
+MODEL_PARAMS = 463_987_712
+MODEL_KERNELS = ("bloom_tick", "bloom_merge_compare", "one_vs_many_i32")
+#: the card-vs-CPU run: the full widths, depth cut to 2 layers
+MODEL_CMP_LAYERS = 2
+#: bfloat16 logits across devices: each side rounds every product's
+#: output to 8 bits of mantissa after summing in its own order; 0.0625
+#: is four bfloat16 ulps at magnitude 2-4 (the largest gap between two
+#: frameworks on the CPU at these widths was 0.031), plus 2% of the value
+LOGIT_ATOL, LOGIT_RTOL = 0.0625, 0.02
+
+
+def model_engine(params, cfg, device, replica_id: str):
+    """A ``ServingEngine`` as ``launch.serve`` builds it (``params`` a
+    flat dict or an already built ``Transformer``, shared)."""
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    return ServingEngine(
+        params, cfg,
+        ServeConfig(max_batch=MODEL_BATCH,
+                    max_seq=MODEL_PROMPT + MODEL_GEN + 8, seed=SEED),
+        ClockConfig(policy=CausalPolicy(fp_threshold=MODEL_FP_THRESHOLD)),
+        replica_id=replica_id, device=device)
+
+
+def model_prompts(vocab: int):
+    """``launch.serve``'s prompts: a CPU generator seeded ``seed + 1``."""
+    import torch
+    return torch.randint(0, vocab, (MODEL_BATCH, MODEL_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def decode_steps(model, cfg, prompts, feed=None, timed: bool = False):
+    """Prefill, then ``MODEL_GEN`` greedy decode steps on the bare model
+    (no clocks): each step's logits as float32 on the host, the tokens
+    fed (``feed``'s where given, else the argmax), the prefill's and,
+    with ``timed``, each step's host-clock ms to a synchronise."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    dev = model.device
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = T.prefill(model, cfg, prompts,
+                               buf_len=MODEL_PROMPT + MODEL_GEN + 8)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, fed, ms = [logits.float().cpu()], [], []
+    for i in range(MODEL_GEN):
+        tok = (feed[i].to(dev) if feed is not None
+               else logits.argmax(-1).to(torch.int32))
+        fed.append(tok.cpu())
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = T.decode_step(model, cfg, caches, tok,
+                                       MODEL_PROMPT + i)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    return {"logits": out, "fed": fed, "ms": ms if timed else None,
+            "prefill_ms": prefill_ms,
+            "caches": caches, "next": logits.argmax(-1).to(torch.int32)}
+
+
+def drive_model(dev) -> dict:
+    """Phase 10 (a) and (c) at Qwen1.5-0.5B's full config on the card:
+    engine A serves ``launch.serve``'s defaults (admit, then ``generate``)
+    and engines B and C guard a migration (B merged A's clock and adopts
+    the session, C ticked its own history and refuses it), with the
+    launch counts reset just before and read just after; then the bare
+    model's prefill and decode steps timed, one decode step profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import clock as bc
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.clock_runtime import LineageStatus
+
+    cfg = get_config(MODEL_ARCH)
+    check(cfg.n_params() == MODEL_PARAMS,
+          f"{MODEL_ARCH}: {cfg.n_params()} params, not {MODEL_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    a = model_engine(params, cfg, dev, "A")
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    prompts = model_prompts(cfg.vocab)
+    warm = decode_steps(a.model, cfg, prompts.to(dev))   # cuBLAS set-up
+    del warm
+
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    sess = a.admit(prompts)
+    sync(dev)
+    t1 = time.perf_counter()
+    out = a.generate(sess, MODEL_GEN)
+    sync(dev)
+    t2 = time.perf_counter()
+    b = model_engine(a.model, cfg, dev, "B")
+    b.clock.clock = bc.merge(b.clock.clock, a.clock.clock)
+    b_ok, b_status, b_fp = b.can_adopt(sess)
+    c = model_engine(a.model, cfg, dev, "C")
+    c.clock.tick("own-history")
+    c_ok, c_status, _ = c.can_adopt(sess)
+    mask = b.adopt_many([sess])
+    sync(dev)
+    launches = {k: ops.LAUNCHES[k] for k in MODEL_KERNELS}
+    check(b_ok and b_status in (LineageStatus.SAME, LineageStatus.ANCESTOR),
+          f"replica B refused A's session ({b_status}, fp {b_fp})")
+    check(not c_ok and c_status == LineageStatus.FORKED,
+          f"replica C did not refuse A's session ({c_status})")
+    check(list(mask) == [True] and sess["sid"] in b.sessions,
+          f"replica B's adopt_many gave {list(mask)}")
+    toks = out.cpu()
+    check(tuple(toks.shape) == (MODEL_BATCH, MODEL_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"generated tokens {tuple(toks.shape)} out of range")
+    check(bool(torch.isfinite(sess["last_logits"].float()).all()),
+          "non-finite logits")
+
+    timed = decode_steps(a.model, cfg, prompts.to(dev), timed=True)
+    # the engine step's clock work alone: one tick and one session merge
+    clock_ms = []
+    for i in range(MODEL_GEN):
+        sync(dev)
+        t3 = time.perf_counter()
+        a.clock.tick("tokens", a.replica_id, 10_000 + i)
+        sess["clock"].clock = bc.merge(sess["clock"].clock, a.clock.clock)
+        sync(dev)
+        clock_ms.append((time.perf_counter() - t3) * 1e3)
+    nxt = timed["next"]
+    caches = timed["caches"]
+    prof = profiled(lambda: T.decode_step(a.model, cfg, caches, nxt,
+                                          MODEL_PROMPT + MODEL_GEN))
+    gen_s = t2 - t1
+    return {
+        "setup_s": setup_s, "prefill_ms": (t1 - t0) * 1e3,
+        "generate_ms": gen_s * 1e3, "tok_s": MODEL_BATCH * MODEL_GEN / gen_s,
+        "engine_step_ms": gen_s * 1e3 / MODEL_GEN,
+        "decode_ms": float(np.median(timed["ms"][1:])),
+        "decode_ms_all": timed["ms"], "profile": prof,
+        "prefill_bare_ms": timed["prefill_ms"],
+        "clock_ms": float(np.median(clock_ms[1:])),
+        # every weight a step reads once, in the compute dtype (the
+        # norms' float32 scales too)
+        "weight_bytes": sum(b.numel() * b.element_size()
+                            for b in a.model.buffers()),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "sample": toks[:, :8].tolist(),
+        "migration": {"B": [b_status, b_fp], "C": c_status},
+        "clock_sum": float(a.clock.clock.sum()),
+    }
+
+
+def model_run(device, params, cfg, feed=None) -> dict:
+    """Phase 10 (b) on one device: the bare model's prefill and decode
+    steps (fed ``feed``'s tokens where given), then engine A serves the
+    same prompts and engine B, which ticked once and merged A's clock,
+    classifies A's first session and a second one admitted after the
+    merge."""
+    from repro_torch.core import clock as bc
+
+    a = model_engine(params, cfg, device, "A")
+    prompts = model_prompts(cfg.vocab)
+    steps = decode_steps(a.model, cfg, prompts.to(device), feed=feed)
+    s1 = a.admit(prompts)
+    out = a.generate(s1, MODEL_GEN)
+    b = model_engine(a.model, cfg, device, "B")
+    b.clock.tick("own", 1)
+    b.clock.clock = bc.merge(b.clock.clock, a.clock.clock)
+    s2 = a.admit(prompts[:2])
+    a.generate(s2, 3)
+    lineage = b.can_adopt(s1)
+    mask = b.adopt_many([s1, s2])
+    cells = {name: host(c.logical_cells()) for name, c in (
+        ("A", a.clock.clock), ("B", b.clock.clock),
+        ("s1", s1["clock"].clock), ("s2", s2["clock"].clock))}
+    rows = {f"{eng}.{name}": host(getattr(e.sessions, name))
+            for eng, e in (("A", a), ("B", b))
+            for name in ("cells_u8", "base", "sums", "alive")}
+    return {"steps": steps, "tokens": out.cpu().numpy(), "mask": mask,
+            "lineage": lineage, "cells": cells, "rows": rows,
+            "slots": {"A": dict(a.sessions._slot_of),
+                      "B": dict(b.sessions._slot_of)}}
+
+
+def model_cpu_check(dev) -> dict:
+    """Phase 10 (b): the full widths at ``MODEL_CMP_LAYERS`` layers, the
+    weights drawn once on the card and copied to the CPU, the same
+    prompts on both; the CPU's bare decode is fed the card's tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=MODEL_CMP_LAYERS)
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    t0 = time.perf_counter()
+    g = model_run(dev, params, cfg)
+    t_card = time.perf_counter() - t0
+    params = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    with card_blocks():
+        c = model_run("cpu", params, cfg, feed=g["steps"]["fed"])
+    t_cpu = time.perf_counter() - t0
+
+    max_gap, excused = 0.0, np.zeros((MODEL_BATCH, MODEL_GEN + 1), bool)
+    for i, (lg, lc) in enumerate(zip(g["steps"]["logits"],
+                                     c["steps"]["logits"])):
+        lg, lc = lg.numpy(), lc.numpy()
+        gap = np.abs(lg - lc)
+        check(bool((gap <= LOGIT_ATOL + LOGIT_RTOL * np.abs(lc)).all()),
+              f"[model] logits of step {i} differ by {gap.max()} across devices")
+        max_gap = max(max_gap, float(gap.max()))
+        top2 = np.sort(lc, -1)[:, -2:]
+        # the argmax may differ only where the CPU's top two logits lie
+        # within the tolerance of each other (a near tie)
+        near = (top2[:, 1] - top2[:, 0]
+                <= LOGIT_ATOL + LOGIT_RTOL * np.abs(top2[:, 1]))
+        excused[:, i] = near
+        same = lg.argmax(-1) == lc.argmax(-1)
+        check(bool((same | near).all()),
+              f"[model] greedy tokens of step {i} differ past the tolerance")
+    # the engines' tokens: identical up to a row's first difference,
+    # which must fall on a step whose top two logits are within tolerance
+    diverged = 0
+    for r in range(MODEL_BATCH):
+        diff = np.flatnonzero(g["tokens"][r] != c["tokens"][r])
+        if diff.size:
+            check(bool(excused[r, diff[0]]),
+                  f"[model] engine tokens of row {r} differ at step {diff[0]}")
+            diverged += 1
+    for name, cells in g["cells"].items():
+        check_equal(cells, c["cells"][name], f"[model] {name} clock cells")
+    for name, rows in g["rows"].items():
+        check_equal(rows, c["rows"][name], f"[model] registry {name}")
+    check(g["slots"] == c["slots"], "[model] registry slots differ")
+    check_equal(g["mask"], c["mask"], "[model] adopt_many mask")
+    check(list(g["mask"]) == [True, False], f"[model] mask {list(g['mask'])}")
+    check(g["lineage"][:2] == c["lineage"][:2],
+          f"[model] can_adopt {g['lineage']} vs {c['lineage']}")
+    fp_gap = check_fp([g["lineage"][2]], [c["lineage"][2]], "[model] can_adopt")
+    return {"layers": MODEL_CMP_LAYERS, "max_logit_gap": max_gap,
+            "near_tie_steps": int(excused.sum()),
+            "rows_diverged_at_near_ties": diverged,
+            "tokens_identical": bool((g["tokens"] == c["tokens"]).all()),
+            "fp": [g["lineage"][2], c["lineage"][2]], "fp_abs_gap": fp_gap,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def model_phase(dev, rate: float) -> dict:
+    """Phase 10: (a) and (c) in-process, (a) once more through the
+    launcher in a child process, (b) card against CPU.  Returns the
+    serving path's launches."""
+    run = drive_model(dev)
+    bound_ms = run["weight_bytes"] / rate * 1e3
+    prof = run["profile"]
+    print(f"[model] {MODEL_ARCH} full config ({MODEL_PARAMS} params, "
+          f"bfloat16 compute, float32 masters) on the card: weights and "
+          f"engine set up in {run['setup_s']:.2f} s; admit (prefill "
+          f"{MODEL_BATCH}x{MODEL_PROMPT}, its ticks, the session clock and "
+          f"registry row) {run['prefill_ms']} ms, the bare prefill "
+          f"{run['prefill_bare_ms']} ms; generate "
+          f"{MODEL_GEN} tokens {run['generate_ms']} ms "
+          f"({run['engine_step_ms']} ms an engine step with its clock "
+          f"ticks, {run['tok_s']} tok/s); an engine step's clock work "
+          f"(one tick, one session merge) {run['clock_ms']} ms (median)")
+    print(f"[model] decode step (bare model, host clock to a synchronise): "
+          f"median over steps 2-{MODEL_GEN} {run['decode_ms']} ms, all "
+          f"{json.dumps(run['decode_ms_all'])}; bound {bound_ms} ms "
+          f"({run['weight_bytes']} bytes of compute-dtype weights at "
+          f"{rate / 1e12} TB/s): the step at {run['decode_ms'] / bound_ms:.2f}x it")
+    print(f"[model] one decode step under the profiler: wall "
+          f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+          f"({prof['device_events']} device events), copies "
+          f"{prof['copy_ms']} ms, idle share {prof['idle_share']} "
+          f"({prof['idle_share_with_copies']} with copies), top "
+          f"{json.dumps(prof['top_device_ms'])}")
+    print(f"[model] peak memory {run['peak_gb']} GB; launches on the serving "
+          f"path {json.dumps(run['launches'])}; sample outputs "
+          f"{run['sample']}; engine clock sum {run['clock_sum']}")
+    for kname, n in run["launches"].items():
+        check(n > 0, f"kernel {kname} was not launched on the serving path")
+    print(f"[model] migration guard on the card: B (merged A's clock) "
+          f"{run['migration']['B'][0]} fp {run['migration']['B'][1]}, "
+          f"adopted; C (own history) {run['migration']['C']}, refused")
+    del run["profile"]
+    out, wall = run_child([sys.executable, "-m", "repro_torch.launch.serve"],
+                          "python -m repro_torch.launch.serve")
+    lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+    check(any("on cuda: prefill" in ln for ln in lines),
+          f"launch.serve printed no serving line:\n{out[-2000:]}")
+    print(f"[model] python -m repro_torch.launch.serve (defaults: the full "
+          f"config on the card) exited 0 in {wall:.1f} s: {json.dumps(lines)}")
+    small = model_cpu_check(dev)
+    print(f"[model] card and CPU agree at the full widths, depth cut to "
+          f"{MODEL_CMP_LAYERS} layers: engine and session clocks, registry "
+          f"rows and adopt_many masks identical; logits within "
+          f"{LOGIT_ATOL} + {LOGIT_RTOL}|x|; greedy tokens identical outside "
+          f"near ties: {json.dumps(small)}")
+    return run["launches"]
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -3203,10 +3551,11 @@ _SOURCES = {
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--shard-only"]):
-        print("usage: chip_smoke.py [--shard-only]", file=sys.stderr)
+    if args not in ([], ["--shard-only"], ["--model-only"]):
+        print("usage: chip_smoke.py [--shard-only | --model-only]",
+              file=sys.stderr)
         return 2
-    shard_only = bool(args)
+    shard_only = args == ["--shard-only"]
     try:
         import torch
     except ImportError:
@@ -3236,6 +3585,13 @@ def main() -> int:
         shard_phase(sim_check())
         print(card)
         print(json.dumps({"ok": True, "phase": "shard",
+                          "device": {"platform": "gpu", "kind": name,
+                                     "count": count}}))
+        return 0
+    if args == ["--model-only"]:
+        model_phase(dev, hbm_rate(name))
+        print(card)
+        print(json.dumps({"ok": True, "phase": "model",
                           "device": {"platform": "gpu", "kind": name,
                                      "count": count}}))
         return 0
@@ -3373,6 +3729,11 @@ def main() -> int:
     del srv
 
     rate = hbm_rate(name)
+    t_model = time.perf_counter()
+    model_launches = model_phase(dev, rate)
+    torch.cuda.empty_cache()
+    print(f"[time] model phase {time.perf_counter() - t_model:.1f} s")
+
     timed = time_kernels(dev, gpu["n_wide"])
     timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
     timed.update(time_pair_kernels(dev, sass))
@@ -3391,6 +3752,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"]})
+        if kname in model_launches:
+            records[-1]["model_serving_launches"] = model_launches[kname]
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
               f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"

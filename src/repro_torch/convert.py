@@ -2,10 +2,10 @@
 
 Builds the port's objects from the JAX package's state, given as numpy
 arrays (``np.asarray`` of its device arrays) and plain values, so the
-same clock, history, registry, hybrid engine or tiered registry runs in
-both.  The bits
-are copied as they are: int32 wrap-around, u8 residuals, bases, cached
-float32 sums and CRCs.
+same clock, history, registry, hybrid engine, tiered registry or model
+weights run in both.  The bits are copied as they are: int32
+wrap-around, u8 residuals, bases, cached float32 sums and CRCs,
+bfloat16 weights.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.core import clock as bc
 from repro_torch.core import history as hist
 
 __all__ = ["clock_from_state", "history_from_state", "hybrid_from_state",
-           "registry_from_state", "tiered_from_state"]
+           "params_from_jax", "registry_from_state", "tiered_from_state"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -38,6 +38,36 @@ def history_from_state(cells, sums, count, k: int,
     return hist.History(cells=_t(cells, np.int32, device),
                         sums=_t(sums, np.float32, device),
                         count=_t(count, np.int32, device), k=int(k))
+
+
+def params_from_jax(params: dict, cfg, device=None) -> dict:
+    """The JAX package's model weights (path -> numpy array, e.g.
+    ``{k: np.asarray(v) for k, v in init_params(key, cfg).items()}``)
+    as the port's flat dict on ``device`` (None = the card), checked
+    against ``models.params.param_table(cfg)``: the same paths, shapes
+    and dtypes.  bfloat16 leaves (``ml_dtypes`` arrays, which
+    ``torch.from_numpy`` refuses) cross as their uint16 bits."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models.params import param_table
+
+    dev = resolve_device(device)
+    table = param_table(cfg)
+    if set(params) != set(table):
+        raise ValueError(f"param paths differ from the table: missing "
+                         f"{sorted(set(table) - set(params))}, extra "
+                         f"{sorted(set(params) - set(table))}")
+    out = {}
+    for path, info in table.items():
+        a = np.asarray(params[path])
+        if a.shape != tuple(info.shape) or a.dtype.name != info.dtype:
+            raise ValueError(f"{path}: {a.dtype.name}{list(a.shape)} != "
+                             f"{info.dtype}{list(info.shape)}")
+        if info.dtype == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        out[path] = t.to(dev)
+    return out
 
 
 def registry_from_state(state: dict, m: int, k: int = 4, *, mesh=None,

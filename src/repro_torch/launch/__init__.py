@@ -1,3 +1,3 @@
-"""Launch helpers: the fleet mesh (``launch.mesh``) and the socket
-gossip peers (``launch.peers``: peer specs and the multi-process
-smoke driver)."""
+"""Launch helpers: the fleet mesh (``launch.mesh``), the socket gossip
+peers (``launch.peers``: peer specs and the multi-process smoke run)
+and the serving launcher (``launch.serve``)."""

@@ -1,0 +1,198 @@
+"""Attention: GQA with chunked online softmax.
+
+Train and prefill attention stream the KV sequence in chunks with the
+online-softmax recurrence (running max and normalizer), the
+flash-attention decomposition written as tensor code, exactly as the
+JAX package writes it at the XLA level: the same chunk boundaries, the
+same ``NEG_INF`` fill and ``1e-30`` floor, scores and the accumulator
+in float32 (``acc_dtype`` bfloat16 when ``cfg.attn_acc == "bf16"``).
+The model code has no Pallas kernel, so none is ported here.
+
+Masks: causal, sliding window (0 = off), non-causal.  Decode (Sq == 1)
+runs the same path single-shot against a cache; sliding-window decode
+keeps a ring buffer (softmax is permutation-invariant over KV, and RoPE
+is applied before keys are cached, so ring order needs no rotation).
+
+The cache is written in place: ``cache_update`` stores the new token's
+K/V into the cache's buffers and returns a ``KVCache`` over the same
+buffers with ``length`` and ``pos`` advanced (the JAX package returns
+new arrays).  ``length`` and ``pos`` are host integers, so a decode step
+reads nothing back from the card.  Split-KV decode
+(``decode_attention_split_kv``) and the owner-writes slot update need
+the model mesh and wait for the model half of ``sharding.py``; with
+``decode_attn="split_kv"`` and no mesh, decode takes the reference's
+single-device path.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rope
+
+__all__ = ["attention_core", "attn_block", "KVCache", "init_cache",
+           "cache_update"]
+
+NEG_INF = -1e30
+
+
+def attention_core(
+    q: torch.Tensor,          # [B, Sq, H, Dh]
+    k: torch.Tensor,          # [B, Skv, KV, Dh]
+    v: torch.Tensor,          # [B, Skv, KV, Dv]
+    *,
+    causal: bool,
+    window: int,              # 0 = full
+    q_offset,                 # absolute position of q[0] (int or 0-d)
+    kv_valid: int,            # number of valid kv positions
+    chunk: int,
+    acc_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    B, Sq, H, Dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    dev = q.device
+    qg = q.reshape(B, Sq, KV, G, Dh).to(acc_dtype).float()
+    # 1/sqrt(Dh) rounded to acc_dtype, as the reference rounds it
+    scale = float(torch.tensor(1.0 / (Dh ** 0.5), dtype=acc_dtype))
+
+    if Sq == 1:
+        chunk = Skv           # decode: one shot over the whole buffer
+    chunk = min(chunk, Skv)
+    pad = (-Skv) % chunk
+    if pad:                   # the padded tail is masked off by kv_valid
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_valid = min(kv_valid, Skv)
+    n_chunks = (Skv + pad) // chunk
+
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    acc = torch.zeros((B, Sq, KV, G, Dv), dtype=acc_dtype, device=dev)
+    m_run = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        start = c * chunk
+        kc = k[:, start:start + chunk].to(acc_dtype)
+        vc = v[:, start:start + chunk].to(acc_dtype)
+        kv_pos = start + torch.arange(chunk, device=dev)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kc.float()) * scale
+        mask = (kv_pos < kv_valid)[None, :]
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr.to(acc_dtype)[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(acc_dtype), vc)
+        m_run = m_new
+    out = acc.float() / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode cache. k/v: [..., B, S_buf, KV, Dh] (ring buffer when
+    windowed); a stacked cache has a leading layer axis.
+
+    length: valid entries; pos: absolute position of the next token
+    (host integers, the same for every layer of a stack).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+    pos: int
+    ring: bool = False
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i`` of a stacked cache: views of its buffers."""
+        return KVCache(self.k[i], self.v[i], self.length, self.pos,
+                       self.ring)
+
+
+def init_cache(cfg: ModelConfig, batch: int, buf_len: int, kv_heads: int,
+               d_head: int, ring: bool = False, *, layers: int | None = None,
+               device=None) -> KVCache:
+    lead = () if layers is None else (layers,)
+    shape = lead + (batch, buf_len, kv_heads, d_head)
+    dt = cfg.compute_dtype
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device),
+                   length=0, pos=0, ring=ring)
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> KVCache:
+    """Append one step (Sq=1) at the ring/linear write position, in
+    place (see the module docstring)."""
+    buf = cache.k.shape[-3]
+    slot = cache.pos % buf if cache.ring else min(cache.pos, buf - 1)
+    cache.k[..., slot:slot + 1, :, :] = k_new
+    cache.v[..., slot:slot + 1, :, :] = v_new
+    return KVCache(k=cache.k, v=cache.v, length=min(cache.length + 1, buf),
+                   pos=cache.pos + 1, ring=cache.ring)
+
+
+def attn_block(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,              # [B, Sq, D]
+    *,
+    positions: torch.Tensor,      # [Sq] absolute
+    causal: bool = True,
+    window: int = 0,
+    cache: KVCache | None = None,
+    angles=None,                  # layers.rope_angles of ``positions``
+):
+    """Full GQA block: qkv proj, rope, core, out proj.
+
+    Returns (out [B,Sq,D], new_cache): in prefill the new (k, v), in
+    decode the updated cache.
+    """
+    dt = cfg.compute_dtype
+    B, Sq, _ = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    q = x @ params["wq"].to(dt)
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+    q = q.reshape(B, Sq, H, Dh)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if "bk" in params:
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    k = k.reshape(B, Sq, KV, Dh)
+    v = v.reshape(B, Sq, KV, Dh)
+
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg, angles=angles)
+        k = rope(k, positions, cfg, angles=angles)
+
+    acc = torch.bfloat16 if cfg.attn_acc == "bf16" else torch.float32
+    if cache is not None:
+        new_cache = cache_update(cache, k, v)
+        # linear cache: slot == absolute position, so the window mask
+        # applies; ring cache: the buffer is the window, and positions
+        # in it are not absolute, so the mask stays off
+        out = attention_core(
+            q, new_cache.k, new_cache.v, causal=False,
+            window=0 if cache.ring else window, q_offset=new_cache.pos - 1,
+            kv_valid=new_cache.length, chunk=cfg.attn_chunk, acc_dtype=acc)
+    else:
+        new_cache = (k, v)   # prefill: the stack builds the cache from it
+        out = attention_core(
+            q, k, v, causal=causal, window=window,
+            q_offset=positions[0] if causal else 0, kv_valid=Sq,
+            chunk=cfg.attn_chunk, acc_dtype=acc)
+    out = out.reshape(B, Sq, H * Dh) @ params["wo"].to(dt)
+    return out, new_cache

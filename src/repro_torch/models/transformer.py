@@ -1,0 +1,316 @@
+"""The decoder stack: train (forward only), prefill and decode.
+
+The JAX package's functional entry points stay the entry points
+(``forward_train(params, cfg, tokens)``, ``prefill``, ``decode_step``,
+...).  ``params`` is the flat path -> tensor dict of
+``models.params.param_table`` in either layout (stacked ``layers/...``
+with a leading L axis when ``cfg.scan_layers``, else ``layers_{i}/...``)
+or a ``Transformer`` built from one.  Inside, ``nn.Module``s (norm,
+attention, MLP, decoder layer, the model) hold the weights cast to the
+compute dtype once, when they are built: the reference casts under
+``jit``, and eagerly that would cast every float32 master on every
+decode step.  Callers that run many steps build once (``build``) and
+pass the model; the values are the same either way.  The layer loop
+is a Python loop over the layers (the reference's ``lax.scan``), and
+the reference's ``shard`` constraints are no-ops on one device and are
+left out.
+
+Ported: the dense-layer families, ``dense`` and ``vlm`` (qwen, stablelm,
+granite, pixtral's prefix embeddings).  The ``moe``, ``ssm``,
+``hybrid`` and ``encdec`` families and MLA raise
+``NotImplementedError``: they wait for ROADMAP.md queue 1, item 5.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+__all__ = [
+    "Transformer",
+    "build",
+    "layer_windows",
+    "layer_fn",
+    "run_stack",
+    "forward_hidden",
+    "forward_train",
+    "prefill",
+    "decode_step",
+    "init_decode_caches",
+]
+
+PORTED_FAMILIES = ("dense", "vlm")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port lacks."""
+    if cfg.family in PORTED_FAMILIES and not cfg.use_mla and not cfg.is_encdec:
+        return
+    what = "MLA attention" if cfg.use_mla else f"the {cfg.family!r} family"
+    raise NotImplementedError(
+        f"{cfg.name}: {what} is not ported to repro_torch yet (ROADMAP.md "
+        f"queue 1, item 5); the port runs the families "
+        f"{', '.join(PORTED_FAMILIES)}")
+
+
+def layer_windows(cfg: ModelConfig, force_window: bool = False) -> list[int]:
+    """Attention window per layer (0 = global)."""
+    return [cfg.window if cfg.window and (i not in cfg.global_layers
+                                          or force_window) else 0
+            for i in range(cfg.n_layers)]
+
+
+def layer_params(params: dict, cfg: ModelConfig, i: int,
+                 prefix: str = "layers") -> dict:
+    """Layer ``i``'s flat dict, from either layout."""
+    if cfg.scan_layers:
+        return {k: v[i] for k, v in L.sub(params, prefix).items()}
+    return L.sub(params, f"{prefix}_{i}")
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class Weights(nn.Module):
+    """One block's weights as buffers under the reference's names, cast
+    once; ``weights`` is the flat dict the ``layers`` functions read."""
+
+    def __init__(self, params: dict, dtype: torch.dtype, device=None):
+        super().__init__()
+        for name, t in params.items():
+            self.register_buffer(name, t.to(device=device, dtype=dtype))
+
+    @property
+    def weights(self) -> dict:
+        return self._buffers
+
+
+class Norm(Weights):
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__(params, torch.float32, device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return L.norm(self.weights, self.cfg, x)
+
+
+class MLP(Weights):
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__(params, cfg.compute_dtype, device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return L.mlp(self.weights, self.cfg, x)
+
+
+class Attention(Weights):
+    def __init__(self, params: dict, cfg: ModelConfig, window: int,
+                 device=None):
+        super().__init__(params, cfg.compute_dtype, device)
+        self.cfg = cfg
+        self.window = window
+
+    def forward(self, x, *, positions, cache=None, angles=None):
+        return attn_mod.attn_block(
+            self.weights, self.cfg, x, positions=positions, causal=True,
+            window=self.window, cache=cache, angles=angles)
+
+
+class DecoderLayer(nn.Module):
+    """norm -> attention -> residual -> norm -> MLP -> residual."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, window: int,
+                 device=None):
+        super().__init__()
+        check_ported(cfg)
+        self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
+        self.attn = Attention(L.sub(params, "attn"), cfg, window, device)
+        self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
+        self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
+
+    def forward(self, x, *, positions, cache=None, angles=None):
+        """Returns (x', new kv): (k, v) without a cache, else the
+        updated cache."""
+        a, kv = self.attn(self.norm1(x), positions=positions, cache=cache,
+                          angles=angles)
+        x = x + a
+        return x + self.mlp(self.norm2(x)), kv
+
+
+class Transformer(nn.Module):
+    """The whole decoder, built once from a flat param dict on
+    ``device`` (None = the params' own device)."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        dt = cfg.compute_dtype
+        device = params["embed/tokens"].device if device is None else device
+        self.embed = Weights({"tokens": params["embed/tokens"]}, dt, device)
+        if cfg.pos == "learned":
+            self.embed.register_buffer(
+                "pos", params["embed/pos"].to(device=device, dtype=dt))
+        windows = layer_windows(cfg)
+        self.layers = nn.ModuleList(
+            DecoderLayer(layer_params(params, cfg, i), cfg, windows[i], device)
+            for i in range(cfg.n_layers))
+        self.norm_f = Norm(L.sub(params, "norm_f"), cfg, device)
+        head = {} if cfg.tie_embeddings else {"lm_head": params["lm_head"]}
+        self.head = Weights(head, dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tokens.device
+
+    def embed_input(self, tokens, prefix_embeds=None) -> torch.Tensor:
+        """tokens [B, St] (+ prefix embeds [B, Pfx, D]) -> [B, S, D]."""
+        x = self.embed.tokens[tokens.to(self.device)]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype),
+                           x], dim=1)
+        if self.cfg.pos == "learned":
+            x = x + self.embed.pos[: x.shape[1]]
+        return x
+
+    def run_stack(self, x, *, positions, caches=None):
+        """Every layer in turn.  Returns (x, kv): without caches the
+        per-layer (k, v) list; with them the advanced caches dict."""
+        angles = (L.rope_angles(positions, self.cfg, self.cfg.d_head)
+                  if self.cfg.pos == "rope" else None)
+        kvs = []
+        for i, layer in enumerate(self.layers):
+            cache = caches["attn"].layer(i) if caches is not None else None
+            x, kv = layer(x, positions=positions, cache=cache, angles=angles)
+            kvs.append(kv)
+        if caches is None:
+            return x, kvs
+        c = caches["attn"]
+        return x, {"attn": attn_mod.KVCache(
+            k=c.k, v=c.v, length=min(c.length + 1, c.k.shape[-3]),
+            pos=c.pos + 1, ring=c.ring)}
+
+    def unembed(self, h) -> torch.Tensor:
+        """Logits of final-normed hidden states ``h``."""
+        return L.unembed({"embed/tokens": self.embed.tokens,
+                          **self.head.weights}, self.cfg, h)
+
+
+def build(params, cfg: ModelConfig, device=None) -> Transformer:
+    """``params`` as a ``Transformer`` (built from a flat dict, or as
+    given when it already is one)."""
+    if isinstance(params, Transformer):
+        return params
+    return Transformer(params, cfg, device)
+
+
+def _zero_aux(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def layer_fn(params: dict, cfg: ModelConfig, x, *, positions, window: int,
+             mode: str, cache=None):
+    """One decoder layer from its flat dict. mode: train | prefill |
+    decode; ``cache``: {"attn": KVCache} or None.  Returns (x',
+    new_cache, aux)."""
+    layer = DecoderLayer(params, cfg, window, x.device)
+    x, kv = layer(x, positions=positions,
+                  cache=cache.get("attn") if cache else None)
+    return x, {"attn": kv if mode != "train" else None}, _zero_aux(x.device)
+
+
+def run_stack(params, cfg: ModelConfig, x, *, positions, mode: str,
+              caches=None):
+    """The layer stack.  Returns (x, stacked caches, aux): prefill's
+    {"attn": (k, v)} stacked on a leading L axis, decode's advanced
+    {"attn": KVCache}, None in train."""
+    model = build(params, cfg, x.device)
+    x, kv = model.run_stack(x, positions=positions, caches=caches)
+    aux = _zero_aux(x.device)
+    if mode == "train":
+        return x, None, aux
+    if caches is not None:
+        return x, kv, aux
+    return x, {"attn": (torch.stack([k for k, _ in kv]),
+                        torch.stack([v for _, v in kv]))}, aux
+
+
+def _positions(start: int, S: int, device) -> torch.Tensor:
+    return torch.arange(start, start + S, device=device)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Teacher-forced final hidden states [B, S, D] (pre-unembed) + aux."""
+    model = build(params, cfg)
+    x = model.embed_input(tokens, prefix_embeds)
+    x, _ = model.run_stack(x, positions=_positions(0, x.shape[1], x.device))
+    return model.norm_f(x), _zero_aux(x.device)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Teacher-forced logits (forward only). Returns (logits, aux_loss)."""
+    model = build(params, cfg)
+    h, aux = forward_hidden(model, cfg, tokens, prefix_embeds)
+    return model.unembed(h), aux
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, buf_len: int,
+                       long_context: bool = False, device=None) -> dict:
+    """Stacked (L-leading) caches for decode; a ring buffer of the
+    window's size when ``long_context`` and the config has a window."""
+    check_ported(cfg)
+    ring = long_context and cfg.window > 0
+    buf = min(buf_len, cfg.window) if ring else buf_len
+    return {"attn": attn_mod.init_cache(
+        cfg, batch, buf, cfg.n_kv_heads, cfg.d_head, ring=ring,
+        layers=cfg.n_layers, device=device)}
+
+
+def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+            buf_len: int | None = None):
+    """Process a prompt, return (last-position logits [B, V], caches).
+
+    buf_len: KV-buffer capacity for subsequent decode (>= prompt
+    length); defaults to prompt length + 64.
+    """
+    model = build(params, cfg)
+    x = model.embed_input(tokens, prefix_embeds)
+    S = x.shape[1]
+    x, kvs = model.run_stack(x, positions=_positions(0, S, x.device))
+    logits = model.unembed(model.norm_f(x[:, -1:]))
+    caches = _assemble_prefill_caches(cfg, kvs, S,
+                                      buf_len if buf_len else S + 64)
+    return logits[:, 0], caches
+
+
+def _assemble_prefill_caches(cfg: ModelConfig, kv_per_layer, S: int,
+                             buf_len: int) -> dict:
+    """Per-layer prefill (k, v) [B, S, KV, Dh] into one stacked linear
+    cache of ``max(buf_len, S)`` slots, zero past the prompt."""
+    k0 = kv_per_layer[0][0]
+    B, _, KV, Dh = k0.shape
+    shape = (cfg.n_layers, B, max(buf_len, S), KV, Dh)
+    k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
+    v = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
+    for i, (ki, vi) in enumerate(kv_per_layer):
+        k[i, :, :S] = ki
+        v[i, :, :S] = vi
+    return {"attn": attn_mod.KVCache(k=k, v=v, length=S, pos=S, ring=False)}
+
+
+def decode_step(params, cfg: ModelConfig, caches: dict, token, pos):
+    """One decode step: token [B] int, pos (int or 0-d) the token's
+    absolute position.  -> (logits [B, V], caches), the caches updated
+    in place (``models.attention``)."""
+    model = build(params, cfg)
+    pos = int(pos)
+    x = model.embed.tokens[token.to(model.device)[:, None]]
+    if cfg.pos == "learned":
+        x = x + model.embed.pos[min(max(pos, 0), cfg.max_seq - 1)]
+    x, caches = model.run_stack(x, positions=_positions(pos, 1, x.device),
+                                caches=caches)
+    return model.unembed(model.norm_f(x))[:, 0], caches

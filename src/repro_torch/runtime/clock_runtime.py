@@ -4,7 +4,10 @@ Events tick the clock (``tick*``); the pairwise receive path (``lineage``
 / ``admit_merge``) runs through the fused merge+compare kernel, one
 kernel call and one wait for the card per message; fleet paths go
 through a ``fleet.ClockRegistry`` (``classify_fleet``, ``gossip``).
-All decisions are O(m), independent of fleet size.
+All decisions are O(m), independent of fleet size.  ``causal`` is a
+``CausalEngine`` over the runtime's policy, for batched callers
+(``ServingEngine.adopt_many`` classifies a batch of session clocks
+through it), and ``obs`` its observer.
 
 The runtime lives on one device: the card unless ``device="cpu"`` is
 given.  The checkpoint-directory methods of the reference wait for the
@@ -18,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.causal import CausalPolicy
+from repro_torch.causal import CausalEngine, CausalPolicy
 from repro_torch.core import clock as bc
 from repro_torch.core import history as hist
 from repro_torch.core.hashing import stable_event_id
@@ -74,9 +77,11 @@ class ClockRuntime:
         self.device = resolve_device(device)
         self.policy = cfg.causal_policy()
         if observer is not None:
-            # the engine, every make_registry() slab and every gossip()
-            # session inherit the observer through the policy
+            # the engine below, every make_registry() slab and every
+            # gossip() session inherit the observer through the policy
             self.policy = dataclasses.replace(self.policy, observer=observer)
+        self.causal = CausalEngine(self.policy)
+        self.obs = self.causal.obs
         self.clock = bc.zeros(cfg.m, cfg.k, device=self.device)
         self.history = hist.init(cfg.history_window, cfg.m, cfg.k,
                                  device=self.device)

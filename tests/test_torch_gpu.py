@@ -2,8 +2,8 @@
 card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
 all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
 sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
-(sharded registries, the mesh transport, socket sessions and the chaos
-sim) on the card against the CPU.  Every test
+(sharded registries, the mesh transport, socket sessions, the chaos
+sim and model serving) on the card against the CPU.  Every test
 here carries the ``gpu`` marker and skips without a CUDA device
 (decided in a fixture, never at import time).
 
@@ -1488,3 +1488,88 @@ def test_cuda_ticked_prefix_matches_cpu(cuda):
     want = _ticked_clock(1024, 4, 300, "cpu")
     assert got.cells.device.type == "cuda"
     assert torch.equal(got.logical_cells().cpu(), want.logical_cells())
+
+
+# ---------------------------------------------------------------------------
+# model serving (repro_torch.serving, repro_torch.launch.serve)
+# ---------------------------------------------------------------------------
+
+def serving_run(device, params, cfg):
+    """A smoke-config engine on ``device``: admit, decode, and migrate
+    two sessions to a second replica (one adoptable, one from after
+    its merge)."""
+    from repro_torch.core import clock as bc
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    c_cfg = ClockConfig(m=256, fp_threshold=1.0 - 1e-6)
+    a = ServingEngine(params, cfg, ServeConfig(max_seq=48), c_cfg,
+                      replica_id="A", device=device)
+    b = ServingEngine(params, cfg, ServeConfig(max_seq=48), c_cfg,
+                      replica_id="B", device=device)
+    rng = np.random.default_rng(31)
+    s1 = a.admit(torch.as_tensor(rng.integers(0, cfg.vocab, (3, 9))))
+    toks = [a.generate(s1, 6).cpu()]
+    b.clock.tick("own", 1)
+    b.clock.clock = bc.merge(b.clock.clock, a.clock.clock)
+    s2 = a.admit(torch.as_tensor(rng.integers(0, cfg.vocab, (3, 5))))
+    toks.append(a.generate(s2, 4).cpu())
+    lineage = b.can_adopt(s1)
+    mask = b.adopt_many([s1, s2])
+    return {"tokens": toks, "mask": mask, "lineage": lineage,
+            "logits": s2["last_logits"].float().cpu(),
+            "clocks": [c.logical_cells().cpu().numpy() for c in (
+                a.clock.clock, b.clock.clock, s1["clock"].clock,
+                s2["clock"].clock)],
+            "rows": {name: getattr(a.sessions, name).cpu().numpy()
+                     for name in ("cells_u8", "base", "sums", "alive")}}
+
+
+@pytest.mark.gpu
+def test_cuda_serving_engine_matches_cpu(cuda):
+    """The qwen smoke config in float32 on the card and on the CPU, on
+    the same weights: greedy tokens, engine and session clocks, registry
+    rows and the adoption mask identical, logits within 1e-4; the tick,
+    merge-compare and i32 one-vs-many kernels launched on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1_5_0_5b"), dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ops.reset_launches()
+    got = serving_run(cuda, params, cfg)
+    launched = {k: ops.LAUNCHES[k] for k in ("bloom_tick", "bloom_merge_compare",
+                                             "one_vs_many_i32")}
+    assert launched == {"bloom_tick": 17, "bloom_merge_compare": 1,
+                        "one_vs_many_i32": 1}, launched
+    want = serving_run("cpu", params, cfg)
+    for g, w in zip(got["tokens"], want["tokens"]):
+        assert torch.equal(g, w)
+    assert list(got["mask"]) == list(want["mask"]) == [True, False]
+    assert got["lineage"][:2] == want["lineage"][:2] == (True, "ancestor")
+    for g, w in zip(got["clocks"], want["clocks"]):
+        np.testing.assert_array_equal(g, w)
+    for name, g in got["rows"].items():
+        np.testing.assert_array_equal(g, want["rows"][name], err_msg=name)
+    torch.testing.assert_close(got["logits"], want["logits"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_serve_launcher_smoke_exits_zero(cuda):
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--tiered", "--hybrid"],
+        env={**os.environ, "PYTHONPATH": src}, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "on cuda: prefill 4x32" in proc.stdout
+    assert "[serve] tiered admission: same" in proc.stdout
