@@ -9,7 +9,7 @@ On a host with several cards, ``python3 chip_smoke.py --shard-only``
 builds the kernels and runs phase 4b alone (with the unsharded gossip
 sim it is held to), its shards of s <= the card count on distinct cards.
 ``python3 chip_smoke.py --model-only`` builds them and runs phase 10
-alone.
+alone, ``--train-only`` phase 11 alone.
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -145,8 +145,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     registry rows and ``adopt_many`` masks identical, logits within
     ``LOGIT_ATOL + LOGIT_RTOL |x|``, greedy tokens identical outside
     near ties, fp within 5e-2;
-11. one JSON line of kernel records (the three serving kernels also
-    carry their launches on the serving path), the card line, then the
+11. training (``[train]`` lines): (a) ``launch.train.train_loop`` at
+    the launcher's defaults (batch 8, seq 128, lr 3e-3, float32 AdamW
+    moments) at Qwen1.5-0.5B's full config, weights random from the
+    seed: 12 steps, an asynchronous checkpoint every 4 into a temporary
+    directory, a failure injected at step 8 and the restart (step 8
+    restored as a descendant, admitted), then ``admit_restore_latest``
+    over the directory (it must name step 12), with the launch counts
+    reset just before and read just after (tick, merge_compare and i32
+    one-vs-many must have run); losses finite and falling, ``clock_sum``
+    k x the steps taken; the step (host clock to a synchronise, median
+    of the timed steps after the first) beside its least times (6 N D
+    FLOPs at the bfloat16 rate, AdamW's bytes at the memory rate),
+    tokens/s, one step under the profiler, peak memory, one
+    checkpoint's host snapshot and write; ``python -m
+    repro_torch.launch.train`` with the same flags in a child process
+    must exit 0 with an admitted restore; (b) the full widths at 2
+    layers, batch 2, seq 32, 2 steps on the card and the CPU from one
+    state: clock cells identical, losses and grad norms within 2e-2,
+    params within the most two AdamW runs can part, checkpoint keys,
+    shapes and dtypes identical, the card's checkpoint restored into
+    the CPU's state; (c) the async coordinator (4 pods, 2 local SGD
+    steps, 2 rounds, pod 2 restored from its pre-commit clock) at the
+    full config on the card (pods 0, 1, 3 merged, pod 2 forked; tick
+    and packed one-vs-many launched; ``outer_step`` ms), then at 2
+    layers on the card and the CPU: decisions, statuses, registry rows
+    and the coordinator clock identical, fp within 5e-2;
+12. one JSON line of kernel records (the three serving kernels also
+    carry their launches on the serving path, the four training
+    kernels theirs on the training path), the card line, then the
     verdict line.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
@@ -3527,6 +3554,453 @@ def model_phase(dev, rate: float) -> dict:
     return run["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+#: the training run: ``launch/train.py``'s defaults (batch 8, seq 128, lr
+#: 3e-3, float32 AdamW moments; src/repro/launch/train.py:110-116) for 12
+#: steps, a checkpoint every 4 and a failure injected at step 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 8
+TRAIN_ARGS = ("--steps", str(TRAIN_STEPS), "--ckpt-every",
+              str(TRAIN_CKPT_EVERY), "--inject-failure", str(TRAIN_FAIL_AT))
+TRAIN_KERNELS = ("bloom_tick", "bloom_merge_compare", "one_vs_many_i32")
+ASYNC_KERNELS = ("bloom_tick", "one_vs_many_packed")
+#: steps timed after the run (the median leaves out the first)
+TRAIN_TIMED_STEPS = 6
+#: card against CPU: the full widths, depth, batch and sequence cut
+TRAIN_CMP_LAYERS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ, TRAIN_CMP_STEPS = 2, 2, 32, 2
+#: bfloat16 compute across devices: losses and grad norms within 2e-2
+#: relative (each side rounds every product's output to 8 bits of
+#: mantissa after summing in its own order)
+TRAIN_LOSS_RTOL = 2e-2
+#: dense bfloat16 tensor-core peak of an H100 SXM (data sheet)
+BF16_FLOPS = 989e12
+#: AdamW's float32 bytes a parameter: the param, its gradient and both
+#: moments read once, the param and both moments written once
+ADAMW_BYTES = 7 * 4
+#: the async cases' clock config (tests/test_integration.py:135): every
+#: comparable pod is confident, no straggler gap
+ASYNC_CLOCK = dict(m=256, fp_threshold=1.0 - 1e-6, straggler_gap=1e9)
+#: the async data stream and SGD step (tests/test_integration.py:136-151)
+ASYNC_BATCH, ASYNC_SEQ, ASYNC_LR = 4, 32, 2e-3
+_TRAIN_LINE = re.compile(
+    r"\[train\] step=(\d+) loss=(\S+) gnorm=(\S+) clock_sum=(\d+)")
+
+
+def train_args(ckpt_dir: str):
+    """``launch.train``'s arguments for this phase's run."""
+    from repro_torch.launch import train as launch
+    return launch.parse_args([*TRAIN_ARGS, "--ckpt-dir", ckpt_dir,
+                              "--log-every", "1"])
+
+
+def train_steps_of(log: str) -> dict:
+    """{step: (loss, gnorm, clock_sum)} of the ``[train]`` step lines."""
+    return {int(m[1]): (float(m[2]), float(m[3]), int(m[4]))
+            for m in _TRAIN_LINE.finditer(log)}
+
+
+def drive_train(dev) -> dict:
+    """Phase 11 (a): ``launch.train.train_loop`` at the launcher's
+    defaults with checkpoints and an injected restart, then
+    ``admit_restore_latest`` over the directory, with the launch counts
+    reset just before and read just after; then the step timed, one step
+    profiled, one checkpoint's snapshot and write timed."""
+    import io
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.runtime.training import make_train_step
+
+    with tempfile.TemporaryDirectory() as d:
+        args = train_args(os.path.join(d, "ckpt"))
+        cfg, opt_cfg, clock_cfg, data = launch.build(args)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        ops.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = launch.train_loop(args)
+            latest, lineage = out["runtime"].admit_restore_latest(
+                CheckpointManager(args.ckpt_dir))
+        sync(dev)
+        wall_s = time.perf_counter() - t0
+        launches = {k: ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+        log = buf.getvalue()
+        state, runtime = out["final_state"], out["runtime"]
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+                   if torch.device(dev).type == "cuda" else None)
+        steps = train_steps_of(log)
+        check(sorted(steps) == list(range(TRAIN_STEPS)),
+              f"[train] step lines {sorted(steps)}:\n{log[-3000:]}")
+        losses = [steps[s][0] for s in range(TRAIN_STEPS)]
+        check(all(np.isfinite(losses)), f"[train] non-finite losses {losses}")
+        check(losses[-1] < losses[0],
+              f"[train] loss did not fall: {losses[0]} -> {losses[-1]}")
+        for s, (_, _, csum) in steps.items():
+            check(csum == clock_cfg.k * (s + 1),
+                  f"[train] step {s}: clock_sum {csum} != k x {s + 1}")
+        check(int(state.step) == TRAIN_STEPS
+              and int(state.clock_cells.sum()) == clock_cfg.k * TRAIN_STEPS,
+              f"[train] state step {int(state.step)}, clock sum "
+              f"{int(state.clock_cells.sum())} != k x {TRAIN_STEPS}")
+        restore = [ln for ln in log.splitlines() if "[train] restore" in ln]
+        check(len(restore) == 1 and f"step={TRAIN_FAIL_AT} lineage=descendant"
+              in restore[0] and "admitted=True" in restore[0],
+              f"[train] restart: {restore}")
+        check(latest == TRAIN_STEPS, f"[train] admit_restore_latest named "
+              f"{latest}, not {TRAIN_STEPS}: {lineage.summary()}")
+        clock_sum = int(state.clock_cells.sum())
+
+        step_fn = make_train_step(cfg, opt_cfg, clock_cfg)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for s in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_TIMED_STEPS):
+            batch = data.batch(s, device=dev)
+            batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+            sync(dev)
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            sync(dev)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        check(bool(np.isfinite(float(metrics["loss"]))),
+              "[train] a timed step's loss is not finite")
+        step_peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+                        if torch.device(dev).type == "cuda" else None)
+        prof = (profiled(lambda: step_fn(state, batch))
+                if torch.device(dev).type == "cuda" else None)
+        mgr = CheckpointManager(os.path.join(d, "timed"), keep=1)
+        mgr.save(TRAIN_STEPS + TRAIN_TIMED_STEPS, state, runtime.snapshot())
+        mgr.wait()
+        ckpt_bytes = os.path.getsize(os.path.join(
+            d, "timed", f"step_{TRAIN_STEPS + TRAIN_TIMED_STEPS}", "state.npz"))
+    return {"wall_s": wall_s, "launches": launches, "batch": args.batch,
+            "seq": args.seq,
+            "lines": [ln for ln in log.splitlines() if ln.startswith("[train]")],
+            "losses": losses, "latest": latest, "lineage": lineage.summary(),
+            "step_ms": float(np.median(ms[1:])), "step_ms_all": ms,
+            "profile": prof,
+            "peak_gb": peak_gb, "step_peak_gb": step_peak_gb, "snapshot_ms": mgr.last_save["snapshot_s"] * 1e3,
+            "write_ms": mgr.last_save["write_s"] * 1e3,
+            "ckpt_bytes": ckpt_bytes, "clock_sum": clock_sum}
+
+
+def move_state(state, device):
+    """A ``TrainState`` (or any checkpoint tree) copied to ``device``."""
+    from repro_torch.checkpoint.manager import _rebuild
+    return _rebuild(state, lambda key, t: t.to(device))
+
+
+def train_run(device, state, cfg, opt_cfg, clock_cfg, n_steps: int) -> dict:
+    """``n_steps`` of the launcher's train step from ``state`` (copied to
+    ``device``) on the launcher's data stream at the cut batch and
+    sequence."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.runtime.training import make_train_step
+
+    state = move_state(state, device)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CMP_SEQ,
+                                  global_batch=TRAIN_CMP_BATCH))
+    step = make_train_step(cfg, opt_cfg, clock_cfg)
+    metrics = []
+    for s in range(n_steps):
+        batch = data.batch(s, device=device)
+        batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"state": state, "metrics": metrics}
+
+
+def train_cpu_check(dev, cfg) -> dict:
+    """Phase 11 (b): ``TRAIN_CMP_STEPS`` steps at ``cfg``'s widths on the
+    card and the CPU from one state drawn on the card: clock cells
+    identical, losses and grad norms within ``TRAIN_LOSS_RTOL``, every
+    param within the most two AdamW trajectories can part (each step
+    moves an element by at most lr x (|m^/sqrt(v^)| <= 1.0003 + wd
+    |p|), so 2 x 1.0003 x the steps' lr plus the weight decay's share);
+    both checkpoints' npz keys, shapes and dtypes identical, and the
+    card's checkpoint restored into the CPU run's state identical."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _leaves
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.clock_runtime import ClockConfig, ClockRuntime
+    from repro_torch.runtime.training import init_train_state
+
+    # the launcher's optimizer and clock for a run of TRAIN_CMP_STEPS
+    opt_cfg = OptConfig(lr=3e-3, total_steps=TRAIN_CMP_STEPS,
+                        warmup_steps=max(TRAIN_CMP_STEPS // 20, 5))
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    t0 = time.perf_counter()
+    g = train_run(dev, state, cfg, opt_cfg, clock_cfg, TRAIN_CMP_STEPS)
+    t_card = time.perf_counter() - t0
+    start = move_state(state, "cpu")
+    del state
+    t0 = time.perf_counter()
+    c = train_run("cpu", start, cfg, opt_cfg, clock_cfg, TRAIN_CMP_STEPS)
+    t_cpu = time.perf_counter() - t0
+    gs, cs = g["state"], c["state"]
+    check_equal(host(gs.clock_cells), host(cs.clock_cells),
+                "[train] card vs CPU clock cells")
+    check(int(gs.step) == int(cs.step) == TRAIN_CMP_STEPS, "[train] steps")
+    loss_gap = 0.0
+    for i, (mg, mc) in enumerate(zip(g["metrics"], c["metrics"])):
+        check(mg["lr"] == mc["lr"] and mg["clock_sum"] == mc["clock_sum"],
+              f"[train] step {i}: lr or clock_sum differ")
+        for key in ("loss", "grad_norm"):
+            gap = abs(mg[key] - mc[key]) / abs(mc[key])
+            check(gap <= TRAIN_LOSS_RTOL,
+                  f"[train] step {i} {key}: card {mg[key]} CPU {mc[key]}")
+            loss_gap = max(loss_gap, gap)
+    lrs = [m["lr"] for m in c["metrics"]]
+    p_max = max(float(p.abs().max()) for p in cs.params.values())
+    bound = sum(2 * 1.0003 * lr + 2 * lr * opt_cfg.weight_decay * p_max
+                for lr in lrs) + 1e-6
+    worst, parted, n = 0.0, 0, 0
+    for k, p in cs.params.items():
+        d = (gs.params[k].cpu() - p).abs()
+        worst = max(worst, float(d.max()))
+        # apart by more than the first step's lr: an update of opposite
+        # sign in some step (a gradient near zero rounded either way)
+        parted += int((d > lrs[0]).sum())
+        n += d.numel()
+        check(float(d.max()) <= bound,
+              f"[train] param {k}: card and CPU {float(d.max())} apart, "
+              f"past the AdamW bound {bound}")
+    with tempfile.TemporaryDirectory() as d:
+        snap = ClockRuntime(clock_cfg, device="cpu").snapshot()
+        CheckpointManager(os.path.join(d, "card")).save(
+            TRAIN_CMP_STEPS, gs, snap, block=True)
+        CheckpointManager(os.path.join(d, "cpu")).save(
+            TRAIN_CMP_STEPS, cs, snap, block=True)
+        shapes = []
+        for side in ("card", "cpu"):
+            with np.load(os.path.join(d, side, f"step_{TRAIN_CMP_STEPS}",
+                                      "state.npz")) as z:
+                shapes.append([(k, z[k].shape, z[k].dtype.str) for k in z])
+        check(shapes[0] == shapes[1], "[train] checkpoint keys, shapes or "
+              "dtypes differ between the card's and the CPU's")
+        back, _ = CheckpointManager(os.path.join(d, "card")).restore(
+            target_structure=cs, device="cpu")
+    for (key, a), (_, b) in zip(_leaves(gs), _leaves(back)):
+        check(b.device.type == "cpu" and torch.equal(a.cpu(), b),
+              f"[train] the card's checkpoint restored {key} differently")
+    return {"layers": cfg.n_layers, "batch": TRAIN_CMP_BATCH,
+            "seq": TRAIN_CMP_SEQ, "steps": TRAIN_CMP_STEPS,
+            "losses": [[m["loss"] for m in g["metrics"]],
+                       [m["loss"] for m in c["metrics"]]],
+            "max_loss_or_gnorm_rel_gap": loss_gap, "max_param_gap": worst,
+            "param_bound": bound, "share_apart_past_lr1": parted / n,
+            "npz_leaves": len(shapes[0]), "card_s": t_card, "cpu_s": t_cpu}
+
+
+def async_run(device, params, cfg) -> dict:
+    """Phase 11 (c) on one device: the reference's forked-pod sequence
+    with ``AsyncConfig``'s 4 pods and 2 local SGD steps, two rounds, pod
+    2 restored from its pre-commit clock before round 2."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.async_trainer import (AsyncConfig,
+                                                   AsyncCoordinator,
+                                                   run_pod_round)
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import cross_entropy
+
+    def sgd_step(p, batch):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        logits, _ = T.forward_train(leaves, cfg, batch["tokens"])
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return ({k: w.detach() - ASYNC_LR * gr
+                 for (k, w), gr in zip(leaves.items(), grads)}, loss.detach())
+
+    a_cfg = AsyncConfig(local_steps=2)
+    c_cfg = ClockConfig(**ASYNC_CLOCK)
+    coord = AsyncCoordinator(params, a_cfg, c_cfg, device=device)
+    pods = coord.add_pods(list(range(a_cfg.n_pods)), c_cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=ASYNC_SEQ,
+                                  global_batch=ASYNC_BATCH))
+
+    def data_fn(pod_id, step):
+        return data.batch(step * 10 + pod_id, device=device)
+
+    decisions, outer_ms, stale = [], [], None
+    for rnd, base in enumerate((0, 50)):
+        deltas = {}
+        for pod in pods:
+            deltas[pod.pod_id], _ = run_pod_round(pod, sgd_step, data_fn,
+                                                  a_cfg, base)
+            if pod.pod_id == 2 and rnd == 0:
+                stale = pod.clock.clock   # pod 2's pre-commit clock
+        sync(device)
+        t0 = time.perf_counter()
+        decisions.append(coord.outer_step(pods, deltas))
+        sync(device)
+        outer_ms.append((time.perf_counter() - t0) * 1e3)
+        if rnd == 0:
+            pods[2].clock.clock = stale
+        del deltas
+    out = {"decisions": decisions, "outer_ms": outer_ms,
+           "rows": {name: host(getattr(coord.registry, name))
+                    for name in ("cells_u8", "base", "sums", "alive")},
+           "slots": dict(coord.registry._slot_of),
+           "clock": host(coord.clock.clock.logical_cells())}
+    for key, p in coord.params.items():
+        check(bool(torch.isfinite(p).all()), f"[train] async param {key}")
+    r1, r2 = decisions
+    check(all(d[0] for d in r1.values()), f"[train] async round 1: {r1}")
+    check(r2[2][:2] == (False, "forked")
+          and all(r2[p][0] for p in (0, 1, 3)), f"[train] async round 2: {r2}")
+    return out
+
+
+def compare_async(g: dict, c: dict) -> float:
+    gap = 0.0
+    for r, (dg, dc) in enumerate(zip(g["decisions"], c["decisions"])):
+        check({p: d[:2] for p, d in dg.items()} == {p: d[:2] for p, d in dc.items()},
+              f"[train] async round {r}: decisions differ: {dg} vs {dc}")
+        gap = max(gap, check_fp([d[2] for d in dg.values()],
+                                [d[2] for d in dc.values()],
+                                f"[train] async round {r} fp"))
+    for name, rows in g["rows"].items():
+        check_equal(rows, c["rows"][name], f"[train] async registry {name}")
+    check(g["slots"] == c["slots"], "[train] async registry slots differ")
+    check_equal(g["clock"], c["clock"], "[train] async coordinator clock")
+    return gap
+
+
+def drive_async(dev, cfg) -> dict:
+    """Phase 11 (c): the sequence at ``cfg`` on the card with the launch
+    counts reset just before and read just after, then at
+    ``TRAIN_CMP_LAYERS`` layers on the card and the CPU from one set of
+    weights."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    ops.reset_launches()
+    full = async_run(dev, params, cfg)
+    launches = {k: ops.LAUNCHES[k] for k in ASYNC_KERNELS}
+    for kname, n in launches.items():
+        check(n > 0, f"kernel {kname} was not launched on the async path")
+    del params
+    small_cfg = dataclasses.replace(cfg, n_layers=TRAIN_CMP_LAYERS)
+    params = init_params(torch.Generator(dev).manual_seed(SEED), small_cfg, dev)
+    t0 = time.perf_counter()
+    g = async_run(dev, params, small_cfg)
+    t_card = time.perf_counter() - t0
+    params = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    with card_blocks():
+        c = async_run("cpu", params, small_cfg)
+    t_cpu = time.perf_counter() - t0
+    fp_gap = compare_async(g, c)
+    return {"launches": launches, "outer_ms": full["outer_ms"],
+            "decisions": [{p: [d[0], d[1], d[2]] for p, d in r.items()}
+                          for r in full["decisions"]],
+            "small": {"layers": TRAIN_CMP_LAYERS, "fp_abs_gap": fp_gap,
+                      "card_s": t_card, "cpu_s": t_cpu}}
+
+
+def train_phase(dev, rate: float) -> dict:
+    """Phase 11: (a) in-process and through the launcher in a child
+    process, (b) card against CPU, (c) the async coordinator.  Returns
+    the training path's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MODEL_ARCH)
+    check(cfg.n_params() == MODEL_PARAMS,
+          f"{MODEL_ARCH}: {cfg.n_params()} params, not {MODEL_PARAMS}")
+    run = drive_train(dev)
+    tokens = run["batch"] * run["seq"]
+    flop_ms = 6 * MODEL_PARAMS * tokens / BF16_FLOPS * 1e3
+    adamw_ms = ADAMW_BYTES * MODEL_PARAMS / rate * 1e3
+    for ln in run["lines"]:
+        print(ln)
+    print(f"[train] {MODEL_ARCH} full config ({MODEL_PARAMS} params, "
+          f"bfloat16 compute, float32 masters and AdamW moments), batch "
+          f"{run['batch']}, seq {run['seq']}: the launcher's loop of {TRAIN_STEPS} "
+          f"steps (checkpoints every {TRAIN_CKPT_EVERY}, failure at "
+          f"{TRAIN_FAIL_AT}, restart) and admit_restore_latest in "
+          f"{run['wall_s']:.2f} s; latest safe step {run['latest']} "
+          f"({run['lineage']}); loss {run['losses'][0]} -> "
+          f"{run['losses'][-1]}; state clock sum {run['clock_sum']}")
+    print(f"[train] launches on the training path: {json.dumps(run['launches'])}")
+    for kname, n in run["launches"].items():
+        check(n > 0, f"kernel {kname} was not launched on the training path")
+    print(f"[train] step (host clock to a synchronise): median of steps "
+          f"2-{TRAIN_TIMED_STEPS} {run['step_ms']} ms, all "
+          f"{json.dumps(run['step_ms_all'])}; {tokens / run['step_ms'] * 1e3} "
+          f"tokens/s; least times: {flop_ms} ms of bfloat16 FLOPs (6 x "
+          f"{MODEL_PARAMS} x {tokens} at {BF16_FLOPS / 1e12} TFLOP/s), "
+          f"{adamw_ms} ms of AdamW bytes ({ADAMW_BYTES} a param at "
+          f"{rate / 1e12} TB/s): the step at "
+          f"{run['step_ms'] / max(flop_ms, adamw_ms):.1f}x the larger")
+    prof = run["profile"]
+    print(f"[train] one step under the profiler: wall {prof['wall_ms']} ms, "
+          f"kernels {prof['kernel_ms']} ms ({prof['device_events']} device "
+          f"events), copies {prof['copy_ms']} ms, idle share "
+          f"{prof['idle_share']} ({prof['idle_share_with_copies']} with "
+          f"copies), top {json.dumps(prof['top_device_ms'])}")
+    print(f"[train] peak memory {run['peak_gb']} GB over the run (the "
+          f"restart holds the failed run's state, a fresh one and the "
+          f"restored one), {run['step_peak_gb']} GB over the timed steps; "
+          f"checkpoint "
+          f"({run['ckpt_bytes']} bytes): host snapshot {run['snapshot_ms']} "
+          f"ms, write {run['write_ms']} ms")
+    with tempfile.TemporaryDirectory() as d:
+        out, wall = run_child([sys.executable, "-m", "repro_torch.launch.train",
+                               *TRAIN_ARGS, "--ckpt-dir", d, "--log-every", "4"],
+                              "python -m repro_torch.launch.train")
+    lines = [ln for ln in out.splitlines() if ln.startswith("[train]")]
+    check(any(f"restore step={TRAIN_FAIL_AT} lineage=descendant" in ln
+              and "admitted=True" in ln for ln in lines),
+          f"launch.train printed no admitted restore:\n{out[-2000:]}")
+    print(f"[train] python -m repro_torch.launch.train {' '.join(TRAIN_ARGS)} "
+          f"(the launcher's defaults otherwise: the full config on the card) "
+          f"exited 0 in {wall:.1f} s: {json.dumps(lines)}")
+    del run["profile"]
+    torch.cuda.empty_cache()
+    small = train_cpu_check(dev, dataclasses.replace(
+        cfg, n_layers=TRAIN_CMP_LAYERS))
+    print(f"[train] card and CPU agree at the full widths, {TRAIN_CMP_LAYERS} "
+          f"layers, batch {TRAIN_CMP_BATCH}, seq {TRAIN_CMP_SEQ}, "
+          f"{TRAIN_CMP_STEPS} steps from one state: clock cells identical, "
+          f"losses and grad norms within {TRAIN_LOSS_RTOL}, params within "
+          f"the AdamW bound, checkpoint keys/shapes/dtypes identical, the "
+          f"card's checkpoint restored on the CPU: {json.dumps(small)}")
+    torch.cuda.empty_cache()
+    asy = drive_async(dev, cfg)
+    print(f"[train] async coordinator at the full config (4 pods, 2 local "
+          f"SGD steps, 2 rounds, pod 2 restored from its pre-commit clock): "
+          f"decisions {json.dumps(asy['decisions'])}; outer_step ms "
+          f"{json.dumps(asy['outer_ms'])}; launches {json.dumps(asy['launches'])}")
+    print(f"[train] async at {TRAIN_CMP_LAYERS} layers, card and CPU: "
+          f"decisions, statuses, registry rows, slots and the coordinator "
+          f"clock identical, fp within {FP_RTOL}: {json.dumps(asy['small'])}")
+    torch.cuda.empty_cache()
+    launches = dict(run["launches"])
+    launches["one_vs_many_packed"] = asy["launches"]["one_vs_many_packed"]
+    launches["bloom_tick"] += asy["launches"]["bloom_tick"]
+    return launches
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -3551,9 +4025,9 @@ _SOURCES = {
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--shard-only"], ["--model-only"]):
-        print("usage: chip_smoke.py [--shard-only | --model-only]",
-              file=sys.stderr)
+    if args not in ([], ["--shard-only"], ["--model-only"], ["--train-only"]):
+        print("usage: chip_smoke.py [--shard-only | --model-only | "
+              "--train-only]", file=sys.stderr)
         return 2
     shard_only = args == ["--shard-only"]
     try:
@@ -3588,10 +4062,11 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": name,
                                      "count": count}}))
         return 0
-    if args == ["--model-only"]:
-        model_phase(dev, hbm_rate(name))
+    if args in (["--model-only"], ["--train-only"]):
+        phase = args[0][2:-5]
+        (model_phase if phase == "model" else train_phase)(dev, hbm_rate(name))
         print(card)
-        print(json.dumps({"ok": True, "phase": "model",
+        print(json.dumps({"ok": True, "phase": phase,
                           "device": {"platform": "gpu", "kind": name,
                                      "count": count}}))
         return 0
@@ -3733,6 +4208,9 @@ def main() -> int:
     model_launches = model_phase(dev, rate)
     torch.cuda.empty_cache()
     print(f"[time] model phase {time.perf_counter() - t_model:.1f} s")
+    t_train = time.perf_counter()
+    train_launches = train_phase(dev, rate)
+    print(f"[time] train phase {time.perf_counter() - t_train:.1f} s")
 
     timed = time_kernels(dev, gpu["n_wide"])
     timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
@@ -3754,6 +4232,8 @@ def main() -> int:
             "library_ms": t["library_ms"]})
         if kname in model_launches:
             records[-1]["model_serving_launches"] = model_launches[kname]
+        if kname in train_launches:
+            records[-1]["training_launches"] = train_launches[kname]
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
               f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"

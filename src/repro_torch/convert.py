@@ -2,8 +2,8 @@
 
 Builds the port's objects from the JAX package's state, given as numpy
 arrays (``np.asarray`` of its device arrays) and plain values, so the
-same clock, history, registry, hybrid engine, tiered registry or model
-weights run in both.  The bits are copied as they are: int32
+same clock, history, registry, hybrid engine, tiered registry, model
+weights or training state run in both.  The bits are copied as they are: int32
 wrap-around, u8 residuals, bases, cached float32 sums and CRCs,
 bfloat16 weights.
 """
@@ -18,7 +18,8 @@ from repro_torch.core import clock as bc
 from repro_torch.core import history as hist
 
 __all__ = ["clock_from_state", "history_from_state", "hybrid_from_state",
-           "params_from_jax", "registry_from_state", "tiered_from_state"]
+           "params_from_jax", "registry_from_state", "tiered_from_state",
+           "train_state_from_jax"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -68,6 +69,66 @@ def params_from_jax(params: dict, cfg, device=None) -> dict:
             t = torch.from_numpy(a.copy())
         out[path] = t.to(dev)
     return out
+
+
+def train_state_from_jax(state, cfg, device=None):
+    """The JAX package's ``TrainState`` with numpy leaves (e.g.
+    ``jax.tree.map(np.asarray, state)``; a dict with the same four keys
+    also serves) as the port's ``runtime.training.TrainState`` on
+    ``device`` (None = the card).  The params go through
+    ``params_from_jax``; each moment is checked against its param: a
+    float32 array of the param's shape, or an int8 ``Moment`` (codes
+    [..., d padded to 128], float32 scales [..., d padded / 128], ``d``
+    the param's last dim); the clock cells must be int32 [m]."""
+    from repro_torch.device import resolve_device
+    from repro_torch.optim.adamw import Moment, _BLOCK
+    from repro_torch.runtime.training import TrainState
+
+    dev = resolve_device(device)
+
+    def get(key):
+        return state[key] if isinstance(state, dict) else getattr(state, key)
+
+    params = params_from_jax(get("params"), cfg, device=dev)
+    opt = get("opt")
+
+    def moment(x, p: torch.Tensor, path: str):
+        shape = tuple(p.shape)
+        if hasattr(x, "codes"):
+            codes, scale = np.asarray(x.codes), np.asarray(x.scale)
+            padded = shape[:-1] + (shape[-1] + (-shape[-1]) % _BLOCK,)
+            want = [("int8", padded), ("float32",
+                                       padded[:-1] + (padded[-1] // _BLOCK,))]
+            for a, (dt, shp), what in zip((codes, scale), want,
+                                          ("codes", "scales")):
+                if a.dtype.name != dt or a.shape != shp:
+                    raise ValueError(f"{path} moment {what}: {a.dtype.name}"
+                                     f"{list(a.shape)} != {dt}{list(shp)}")
+            if int(x.d) != shape[-1]:
+                raise ValueError(f"{path} moment d {x.d} != {shape[-1]}")
+            return Moment(_t(codes, np.int8, dev), _t(scale, np.float32, dev),
+                          d=int(x.d))
+        a = np.asarray(x)
+        if a.dtype.name != "float32" or a.shape != shape:
+            raise ValueError(f"{path} moment: {a.dtype.name}{list(a.shape)} "
+                             f"!= float32{list(shape)}")
+        return _t(a, np.float32, dev)
+
+    moments = {}
+    for name in ("m", "v"):
+        if set(opt[name]) != set(params):
+            raise ValueError(f"opt[{name!r}] paths differ from the params")
+        moments[name] = {k: moment(opt[name][k], p, f"{name}/{k}")
+                         for k, p in params.items()}
+    cells = np.asarray(get("clock_cells"))
+    if cells.dtype.name != "int32" or cells.ndim != 1:
+        raise ValueError(f"clock cells: {cells.dtype.name}{list(cells.shape)}"
+                         f" != int32[m]")
+    return TrainState(
+        params=params,
+        opt={**moments, "step": _t(opt["step"], np.int32, dev)},
+        clock_cells=_t(cells, np.int32, dev),
+        step=_t(get("step"), np.int32, dev))
 
 
 def registry_from_state(state: dict, m: int, k: int = 4, *, mesh=None,

@@ -1,4 +1,4 @@
-"""The decoder stack: train (forward only), prefill and decode.
+"""The decoder stack: train (differentiable), prefill and decode.
 
 The JAX package's functional entry points stay the entry points
 (``forward_train(params, cfg, tokens)``, ``prefill``, ``decode_step``,
@@ -15,6 +15,22 @@ is a Python loop over the layers (the reference's ``lax.scan``), and
 the reference's ``shard`` constraints are no-ops on one device and are
 left out.
 
+Training differentiates through the build: given the float32 masters
+as a dict (tensors that require grad), ``forward_hidden`` and
+``forward_train`` build the modules inside the call, so the casts to
+the compute dtype are in the autograd graph, as the reference's are
+under ``jit``, and the gradients land in float32 on the masters
+themselves.  A stacked leaf is cast once and split with one ``unbind``
+(one cast and one stack in the backward a leaf, not one a layer).  A
+``Transformer`` built earlier holds copies: it serves, it does not
+train.  With grad enabled the stack runs each layer under
+``cfg.remat_policy`` (the reference's ``_remat``): ``"nothing"``
+recomputes the whole layer in the backward
+(``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
+matrix products without batch dims (the projections; attention's
+batched products are recomputed) and ``"full"`` keeps everything.  The
+three give the same gradients.
+
 Ported: the dense-layer families, ``dense`` and ``vlm`` (qwen, stablelm,
 granite, pixtral's prefix embeddings).  The ``moe``, ``ssm``,
 ``hybrid`` and ``encdec`` families and MLA raise
@@ -22,8 +38,11 @@ granite, pixtral's prefix embeddings).  The ``moe``, ``ssm``,
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
@@ -69,6 +88,39 @@ def layer_params(params: dict, cfg: ModelConfig, i: int,
     if cfg.scan_layers:
         return {k: v[i] for k, v in L.sub(params, prefix).items()}
     return L.sub(params, f"{prefix}_{i}")
+
+
+def _layer_dicts(params: dict, cfg: ModelConfig,
+                 prefix: str = "layers") -> list[dict]:
+    """Every layer's flat dict.  A stacked leaf is cast once to the
+    dtype its block holds (norm scales float32, as ``Norm``; the rest
+    the compute dtype) and split by one ``unbind``."""
+    if not cfg.scan_layers:
+        return [L.sub(params, f"{prefix}_{i}") for i in range(cfg.n_layers)]
+    split = {k: v.to(torch.float32 if k.startswith("norm")
+                     else cfg.compute_dtype).unbind(0)
+             for k, v in L.sub(params, prefix).items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(cfg.n_layers)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of matrix products
+    without batch dims (the reference's
+    ``checkpoint_dots_with_no_batch_dims``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat_policy`` (see the module docstring)."""
+    if cfg.remat_policy == "full":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +209,8 @@ class Transformer(nn.Module):
                 "pos", params["embed/pos"].to(device=device, dtype=dt))
         windows = layer_windows(cfg)
         self.layers = nn.ModuleList(
-            DecoderLayer(layer_params(params, cfg, i), cfg, windows[i], device)
-            for i in range(cfg.n_layers))
+            DecoderLayer(lp, cfg, windows[i], device)
+            for i, lp in enumerate(_layer_dicts(params, cfg)))
         self.norm_f = Norm(L.sub(params, "norm_f"), cfg, device)
         head = {} if cfg.tie_embeddings else {"lm_head": params["lm_head"]}
         self.head = Weights(head, dt, device)
@@ -177,15 +229,19 @@ class Transformer(nn.Module):
             x = x + self.embed.pos[: x.shape[1]]
         return x
 
-    def run_stack(self, x, *, positions, caches=None):
+    def run_stack(self, x, *, positions, caches=None, remat: bool = False):
         """Every layer in turn.  Returns (x, kv): without caches the
-        per-layer (k, v) list; with them the advanced caches dict."""
+        per-layer (k, v) list; with them the advanced caches dict.
+        ``remat``: run each layer under ``cfg.remat_policy`` when grad
+        is enabled (the train mode)."""
         angles = (L.rope_angles(positions, self.cfg, self.cfg.d_head)
                   if self.cfg.pos == "rope" else None)
+        remat = remat and caches is None and torch.is_grad_enabled()
         kvs = []
         for i, layer in enumerate(self.layers):
             cache = caches["attn"].layer(i) if caches is not None else None
-            x, kv = layer(x, positions=positions, cache=cache, angles=angles)
+            call = _remat(layer, self.cfg) if remat else layer
+            x, kv = call(x, positions=positions, cache=cache, angles=angles)
             kvs.append(kv)
         if caches is None:
             return x, kvs
@@ -229,7 +285,8 @@ def run_stack(params, cfg: ModelConfig, x, *, positions, mode: str,
     {"attn": (k, v)} stacked on a leading L axis, decode's advanced
     {"attn": KVCache}, None in train."""
     model = build(params, cfg, x.device)
-    x, kv = model.run_stack(x, positions=positions, caches=caches)
+    x, kv = model.run_stack(x, positions=positions, caches=caches,
+                            remat=mode == "train")
     aux = _zero_aux(x.device)
     if mode == "train":
         return x, None, aux
@@ -244,15 +301,17 @@ def _positions(start: int, S: int, device) -> torch.Tensor:
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None):
-    """Teacher-forced final hidden states [B, S, D] (pre-unembed) + aux."""
+    """Teacher-forced final hidden states [B, S, D] (pre-unembed) + aux;
+    differentiable with respect to a master dict ``params``."""
     model = build(params, cfg)
     x = model.embed_input(tokens, prefix_embeds)
-    x, _ = model.run_stack(x, positions=_positions(0, x.shape[1], x.device))
+    x, _ = model.run_stack(x, positions=_positions(0, x.shape[1], x.device),
+                           remat=True)
     return model.norm_f(x), _zero_aux(x.device)
 
 
 def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None):
-    """Teacher-forced logits (forward only). Returns (logits, aux_loss)."""
+    """Teacher-forced logits for training. Returns (logits, aux_loss)."""
     model = build(params, cfg)
     h, aux = forward_hidden(model, cfg, tokens, prefix_embeds)
     return model.unembed(h), aux

@@ -1,0 +1,151 @@
+"""AdamW with cosine schedule, global-norm clipping, and optional int8
+block-quantized moments.
+
+The JAX package's optimizer on torch tensors: the state is a dict with
+its keys (``m``, ``v``, ``step``) mirroring the params, updates are
+functional (new tensors; the inputs are not written), and every float32
+operation is the reference's, in its order.  A quantized moment is a
+``Moment`` of int8 codes plus a float32 absmax scale a block of 128 of
+the last dim, dequantized inside the update.  ``torch.round`` and
+``jnp.round`` both round half to even, so codes and scales of the same
+values are identical in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["OptConfig", "Moment", "init_opt_state", "adamw_update",
+           "cosine_lr", "global_norm"]
+
+_BLOCK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: str = "float32"   # "float32" | "int8"
+
+
+def cosine_lr(cfg: OptConfig, step) -> torch.Tensor:
+    """Warmup then cosine decay to 10% of ``cfg.lr``, in float32, on
+    ``step``'s device (the CPU for a host integer)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(cfg.warmup_steps, 1)
+    prog = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * torch.clamp(prog, 0.0, 1.0)))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, 0.1 + 0.9 * cos)
+
+
+# --- int8 blockwise quantization ------------------------------------------
+
+def _pad_len(n: int) -> int:
+    return (-n) % _BLOCK
+
+
+def _quantize(x: torch.Tensor):
+    """fp32 [..., d] -> (int8 codes [..., d_pad], fp32 scales [..., d_pad/B])."""
+    pad = _pad_len(x.shape[-1])
+    xp = F.pad(x, (0, pad)) if pad else x
+    blocks = xp.reshape(xp.shape[:-1] + (-1, _BLOCK))
+    scale = blocks.abs().amax(-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    codes = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return codes.reshape(xp.shape), scale[..., 0]
+
+
+def _dequantize(codes: torch.Tensor, scale: torch.Tensor, d: int):
+    blocks = codes.reshape(codes.shape[:-1] + (-1, _BLOCK)).to(torch.float32)
+    x = blocks * scale[..., None]
+    return x.reshape(codes.shape)[..., :d]
+
+
+@dataclasses.dataclass
+class Moment:
+    """One quantized moment tensor."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    d: int
+
+    def value(self) -> torch.Tensor:
+        return _dequantize(self.codes, self.scale, self.d)
+
+    @classmethod
+    def of(cls, x: torch.Tensor) -> "Moment":
+        codes, scale = _quantize(x)
+        return cls(codes, scale, x.shape[-1])
+
+
+def _zeros_like_moment(p: torch.Tensor, quantize: bool):
+    zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    if quantize and p.ndim >= 1 and p.shape[-1] >= _BLOCK:
+        return Moment.of(zeros)
+    return zeros
+
+
+def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+    q = cfg.state_dtype == "int8"
+    device = next(iter(params.values())).device
+    return {
+        "m": {k: _zeros_like_moment(v, q) for k, v in params.items()},
+        "v": {k: _zeros_like_moment(v, q) for k, v in params.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _as_value(x):
+    return x.value() if isinstance(x, Moment) else x
+
+
+def _like(old, new_val: torch.Tensor):
+    return Moment.of(new_val) if isinstance(old, Moment) else new_val
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, in float32;
+    ``tree`` is a dict of tensors or a list of them."""
+    leaves = tree.values() if isinstance(tree, dict) else tree
+    sums = [x.to(torch.float32).square().sum() for x in leaves]
+    return torch.stack(sums).sum().sqrt()
+
+
+def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
+    """One AdamW step. Returns (new_params, new_state, metrics)."""
+    step = state["step"] + 1
+    lr = cosine_lr(cfg, step)
+
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+
+    new_params, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k].to(torch.float32) * scale
+        m = _as_value(state["m"][k])
+        v = _as_value(state["v"][k])
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g.square()
+        upd = (m / bc1) / ((v / bc2).sqrt() + cfg.eps)
+        if p.ndim >= 2:  # decay matrices only (norms/biases exempt)
+            upd = upd + cfg.weight_decay * p.to(torch.float32)
+        new_params[k] = (p.to(torch.float32) - lr * upd).to(p.dtype)
+        new_m[k] = _like(state["m"][k], m)
+        new_v[k] = _like(state["v"][k], v)
+
+    new_state = {"m": new_m, "v": new_v, "step": step}
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,4 +1,5 @@
 """The bloom clock wired into a process: ``ClockRuntime``."""
-from repro_torch.runtime.clock_runtime import ClockConfig, ClockRuntime, LineageStatus
+from repro_torch.runtime.clock_runtime import (CheckpointLineage, ClockConfig,
+                                             ClockRuntime, LineageStatus)
 
-__all__ = ["ClockConfig", "ClockRuntime", "LineageStatus"]
+__all__ = ["CheckpointLineage", "ClockConfig", "ClockRuntime", "LineageStatus"]

@@ -10,8 +10,11 @@ All decisions are O(m), independent of fleet size.  ``causal`` is a
 through it), and ``obs`` its observer.
 
 The runtime lives on one device: the card unless ``device="cpu"`` is
-given.  The checkpoint-directory methods of the reference wait for the
-checkpoint manager's port.
+given.  Every method that takes a foreign clock (one decoded from a
+manifest or a wire frame, another runtime's) moves it onto that device
+once, first (``_local``).  ``classify_checkpoints`` lineage-checks a
+whole ``checkpoint.CheckpointManager`` directory in one one-vs-many
+call over its manifests' clocks.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from repro_torch.core.hashing import stable_event_id
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-__all__ = ["ClockConfig", "ClockRuntime", "LineageStatus"]
+__all__ = ["ClockConfig", "ClockRuntime", "LineageStatus", "CheckpointLineage"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +72,29 @@ class LineageStatus:
     FORKED = "forked"            # concurrent: split brain / missed sync
 
 
+@dataclasses.dataclass
+class CheckpointLineage:
+    """One ``CausalEngine.classify`` call over a checkpoint directory.
+
+    Entries are sorted by step; ``safe`` mirrors ``admit_restore``'s
+    decision rule per checkpoint.
+    """
+
+    steps: np.ndarray            # int64 [S]
+    status: list                 # LineageStatus string per step
+    fp: np.ndarray               # float32 [S] Eq. 3 fp of the claim
+    safe: np.ndarray             # bool [S] restorable without forking
+
+    def latest_safe(self) -> Optional[int]:
+        idx = np.flatnonzero(self.safe)
+        return int(self.steps[idx[-1]]) if idx.size else None
+
+    def summary(self) -> str:
+        return " ".join(
+            f"step_{s}:{st}{'' if ok else '(unsafe)'}"
+            for s, st, ok in zip(self.steps, self.status, self.safe))
+
+
 class ClockRuntime:
     def __init__(self, cfg: ClockConfig, run_id: str = "run0",
                  observer=None, device=None):
@@ -105,13 +131,20 @@ class ClockRuntime:
         self.tick("scale", epoch, n_members)
 
     # ---- comparisons ----
+    def _local(self, other: bc.BloomClock) -> bc.BloomClock:
+        """``other`` on this runtime's device (itself when it is there)."""
+        if other.cells.device == self.clock.cells.device:
+            return other
+        return bc.BloomClock(cells=other.cells.to(self.device),
+                             base=other.base.to(self.device), k=other.k)
+
     def _classify(self, other: bc.BloomClock):
         """Fused receive-path compare: ONE kernel call (merged cells,
         dominance flags, sums, Eq. 3 fp) and ONE wait for the card.
 
         Returns (status, fp, merged_cells [m] int32 numpy array).
         """
-        a = other.logical_cells().to(torch.int32).to(self.device)
+        a = self._local(other).logical_cells().to(torch.int32)
         r = ops.merge_compare(a.reshape(1, -1).contiguous(),
                               self.clock.logical_cells().reshape(1, -1)
                               .to(torch.int32).contiguous())
@@ -173,13 +206,12 @@ class ClockRuntime:
     def refined_fp(self, other: bc.BloomClock) -> float:
         """§3 history refinement: fp against the closest dominating stored
         timestamp instead of the newest."""
-        other = bc.BloomClock(cells=other.cells.to(self.device),
-                              base=other.base.to(self.device), k=other.k)
-        fp, _ = hist.best_predecessor_fp(self.history, other)
+        fp, _ = hist.best_predecessor_fp(self.history, self._local(other))
         return float(fp)
 
     def admit_restore(self, ckpt_clock: bc.BloomClock) -> tuple[bool, str, float]:
         """Is restoring from this checkpoint causally safe?"""
+        ckpt_clock = self._local(ckpt_clock)   # once, for both reads
         status, fp = self.lineage(ckpt_clock)
         if status == LineageStatus.FORKED:
             return False, status, fp
@@ -188,6 +220,54 @@ class ClockRuntime:
             return (fp <= self.policy.fp_threshold
                     or float(bc.clock_sum(self.clock)) == 0.0), status, fp
         return True, status, fp
+
+    def classify_checkpoints(self, manager) -> CheckpointLineage:
+        """Classify a WHOLE checkpoint directory against the live clock
+        in one ``causal.classify`` call (manifests only — no state
+        tensors are read): the stacked int32 rows go through the i32
+        one-vs-many kernel, then ``admit_restore``'s decision rule.
+        ANCESTOR candidates that miss the fp gate get the §3 history
+        refinement (there are usually zero or one)."""
+        entries = manager.clock_manifests()
+        steps = np.asarray([s for s, _ in entries], np.int64)
+        if not entries:
+            return CheckpointLineage(
+                steps=steps, status=[],
+                fp=np.zeros(0, np.float32), safe=np.zeros(0, bool))
+        clocks = [self.clock_from_snapshot(man["clock"], device=self.device)
+                  for _, man in entries]
+        stacked = torch.stack(
+            [c.logical_cells().to(torch.int32) for c in clocks])
+        res = self.causal.classify(self.clock, stacked).to_host()
+        p_le_q, q_le_p = res.after(), res.before()
+        thr = self.policy.fp_threshold
+        live_empty = float(bc.clock_sum(self.clock)) == 0.0
+        status, fp, safe = [], [], []
+        for i in range(len(entries)):
+            if p_le_q[i] and q_le_p[i]:
+                st, f, ok = LineageStatus.SAME, 0.0, True
+            elif p_le_q[i]:
+                st, f = LineageStatus.ANCESTOR, float(res.fp_p_before_q[i])
+                if f > thr and not live_empty:
+                    f = min(f, self.refined_fp(clocks[i]))
+                ok = f <= thr or live_empty
+            elif q_le_p[i]:
+                st, f, ok = (LineageStatus.DESCENDANT,
+                             float(res.fp_q_before_p[i]), True)
+            else:
+                st, f, ok = LineageStatus.FORKED, 0.0, False
+            status.append(st)
+            fp.append(f)
+            safe.append(ok)
+        return CheckpointLineage(
+            steps=steps, status=status,
+            fp=np.asarray(fp, np.float32), safe=np.asarray(safe, bool))
+
+    def admit_restore_latest(self, manager) -> tuple[Optional[int], CheckpointLineage]:
+        """Newest causally-safe checkpoint step in the directory (or
+        None), plus the full per-checkpoint lineage."""
+        lineage = self.classify_checkpoints(manager)
+        return lineage.latest_safe(), lineage
 
     def admit_merge(self, peer_clock: bc.BloomClock) -> tuple[bool, str, float]:
         """Async outer-loop guard: merge a peer's update?
@@ -217,5 +297,10 @@ class ClockRuntime:
         when the window fits a byte (see ``core.clock.to_wire``)."""
         return bc.to_wire(self.clock)
 
-    def clock_from_snapshot(self, snap: dict) -> bc.BloomClock:
-        return bc.from_wire(snap, device=self.device)
+    @staticmethod
+    def clock_from_snapshot(snap: dict, device=None) -> bc.BloomClock:
+        """A clock from a ``snapshot`` dict (a manifest's ``clock``) or a
+        wire frame, on ``device`` (None: the CPU, as
+        ``core.clock.from_wire``); the runtime's methods move it to
+        their device."""
+        return bc.from_wire(snap, device=device)

@@ -1573,3 +1573,196 @@ def test_cuda_serve_launcher_smoke_exits_zero(cuda):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "on cuda: prefill 4x32" in proc.stdout
     assert "[serve] tiered admission: same" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# training (repro_torch.runtime.training, checkpoint, async_trainer,
+# launch.train)
+# ---------------------------------------------------------------------------
+
+def train_run(device, state, cfg, n_steps: int = 3):
+    """``n_steps`` of the port's train step from ``state`` (copied to
+    ``device``) on the smoke data stream."""
+    from repro_torch.checkpoint.manager import _leaves, _rebuild
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import make_train_step
+
+    state = _rebuild(state, lambda key, t: t.to(device))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    step = make_train_step(cfg, OptConfig(lr=1e-3, total_steps=10),
+                           ClockConfig(m=64))
+    metrics = []
+    for s in range(n_steps):
+        batch = data.batch(s, device=device)
+        batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return _rebuild(state, lambda key, t: t.cpu()), metrics, dict(_leaves(state))
+
+
+def smoke_train_state(state_dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1_5_0_5b"), dtype="float32")
+    state = init_train_state(torch.Generator().manual_seed(0), cfg,
+                             OptConfig(total_steps=10, state_dtype=state_dtype),
+                             ClockConfig(m=64), device="cpu")
+    return cfg, state
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda):
+    """Three float32 steps of the qwen smoke config on the card and the
+    CPU from one state: exactly one tick launch a step (nothing else
+    launches), clock cells and steps identical, loss and grad norm
+    within rtol 2e-4, params within rtol 2e-4 / atol 2e-5 (the
+    reference's own microbatch tolerance)."""
+    cfg, state = smoke_train_state()
+    ops.reset_launches()
+    got, gm, _ = train_run(cuda, state, cfg)
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    assert launched == {"bloom_tick": 3}, launched
+    want, wm, _ = train_run("cpu", state, cfg)
+    for g, w in zip(gm, wm):
+        assert g["clock_sum"] == w["clock_sum"] and g["lr"] == w["lr"]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=2e-4)
+    assert torch.equal(got.clock_cells, want.clock_cells)
+    assert int(got.step) == int(want.step) == 3
+    for k in want.params:
+        np.testing.assert_allclose(got.params[k].numpy(), want.params[k].numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_restores_on_cpu(cuda, tmp_path):
+    """An int8-moment state on the card, saved asynchronously (one host
+    snapshot), restored on the CPU and back on the card: every leaf
+    identical; the manifest's clock, decoded on the CPU by the static
+    ``clock_from_snapshot``, admitted by a card runtime as by a CPU
+    one, with one merge-compare launch."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _leaves, _rebuild
+    from repro_torch.runtime.clock_runtime import ClockConfig, ClockRuntime
+
+    _, state = smoke_train_state("int8")
+    on_card = _rebuild(state, lambda key, t: t.to(cuda))
+    rt = ClockRuntime(ClockConfig(m=64), device=cuda)
+    for s in range(5):
+        rt.tick_step(s)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, on_card, rt.snapshot())
+    mgr.wait()
+    back, manifest = mgr.restore(target_structure=state, device="cpu")
+    again, _ = mgr.restore(target_structure=state)
+    for (key, a), (_, b), (_, c) in zip(_leaves(state), _leaves(back),
+                                        _leaves(again)):
+        assert b.device.type == "cpu" and c.device.type == "cuda", key
+        assert torch.equal(a, b) and torch.equal(a, c.cpu()), key
+    clock = ClockRuntime.clock_from_snapshot(manifest["clock"])
+    assert clock.cells.device.type == "cpu"
+    card_rt = ClockRuntime(ClockConfig(m=64), device=cuda)
+    ops.reset_launches()
+    got = card_rt.admit_restore(clock)
+    assert ops.LAUNCHES["bloom_merge_compare"] == 1
+    want = ClockRuntime(ClockConfig(m=64), device="cpu").admit_restore(clock)
+    assert got[:2] == want[:2] == (True, "descendant")
+    assert_fp_close(torch.tensor([got[2]]), torch.tensor([want[2]]))
+
+
+def async_run(device, params, cfg):
+    """The forked-pod sequence of the reference's async tests on
+    ``device``: 3 pods, 2 local SGD steps, two rounds; pod 2 restored
+    from its pre-commit clock before round 2."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.async_trainer import (AsyncConfig,
+                                                   AsyncCoordinator,
+                                                   run_pod_round)
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import cross_entropy
+
+    def sgd_step(p, batch):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        logits, _ = T.forward_train(leaves, cfg, batch["tokens"])
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return ({k: w.detach() - 2e-3 * g
+                 for (k, w), g in zip(leaves.items(), grads)}, loss.detach())
+
+    a_cfg = AsyncConfig(n_pods=3, local_steps=2, outer_lr=0.5)
+    c_cfg = ClockConfig(m=256, fp_threshold=1.0 - 1e-6, straggler_gap=1e9)
+    coord = AsyncCoordinator(params, a_cfg, c_cfg, device=device)
+    pods = coord.add_pods([0, 1, 2], c_cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+
+    def data_fn(pod_id, step):
+        return data.batch(step * 10 + pod_id, device=device)
+
+    decisions, stale = [], None
+    for rnd, base in enumerate((0, 50)):
+        deltas = {}
+        for pod in pods:
+            deltas[pod.pod_id], _ = run_pod_round(pod, sgd_step, data_fn,
+                                                  a_cfg, base)
+            if pod.pod_id == 2 and rnd == 0:
+                stale = pod.clock.clock
+        decisions.append(coord.outer_step(pods, deltas))
+        if rnd == 0:
+            pods[2].clock.clock = stale
+    rows = {name: getattr(coord.registry, name).cpu().numpy()
+            for name in ("cells_u8", "base", "sums", "alive")}
+    return decisions, rows, coord.clock.clock.logical_cells().cpu().numpy()
+
+
+@pytest.mark.gpu
+def test_cuda_async_coordinator_matches_cpu(cuda):
+    """The async coordinator on the card and the CPU from the same
+    params: decisions and statuses identical (pod 2 forked in round 2),
+    fp within 5e-2, registry rows and the coordinator clock identical;
+    packed one-vs-many and the tick launched on the card."""
+    cfg, state = smoke_train_state()
+    ops.reset_launches()
+    got = async_run(cuda, state.params, cfg)
+    assert ops.LAUNCHES["one_vs_many_packed"] == 2
+    assert ops.LAUNCHES["bloom_tick"] > 0
+    want = async_run("cpu", state.params, cfg)
+    for dg, dw in zip(got[0], want[0]):
+        assert {p: d[:2] for p, d in dg.items()} == {p: d[:2] for p, d in dw.items()}
+        assert_fp_close(torch.tensor([d[2] for d in dg.values()]),
+                        torch.tensor([d[2] for d in dw.values()]))
+    assert got[0][1][2][:2] == (False, "forked")
+    assert got[0][1][0][0] and got[0][1][1][0]
+    for name, rows in got[1].items():
+        np.testing.assert_array_equal(rows, want[1][name], err_msg=name)
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+def test_cuda_train_launcher_restart_exits_zero(cuda, tmp_path):
+    """``python -m repro_torch.launch.train --smoke`` on the card with a
+    checkpoint every 4 steps and a failure injected at step 8: exit 0,
+    step 8 restored as a descendant and admitted."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--steps", "12", "--batch", "4", "--seq", "32", "--ckpt-every", "4",
+         "--inject-failure", "8", "--ckpt-dir", str(tmp_path / "ckpt")],
+        env={**os.environ, "PYTHONPATH": src}, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("[train] restore step=8 lineage=descendant fp=1.00e+00 "
+            "admitted=True") in proc.stdout
+    assert "[train] done: 4 steps" in proc.stdout
