@@ -9,7 +9,7 @@ On a host with several cards, ``python3 chip_smoke.py --shard-only``
 builds the kernels and runs phase 4b alone (with the unsharded gossip
 sim it is held to), its shards of s <= the card count on distinct cards.
 ``python3 chip_smoke.py --model-only`` builds them and runs phase 10
-alone, ``--train-only`` phase 11 alone.
+alone, ``--train-only`` phase 11 alone, ``--moe-only`` phase 12 alone.
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -171,9 +171,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     and packed one-vs-many launched; ``outer_step`` ms), then at 2
     layers on the card and the CPU: decisions, statuses, registry rows
     and the coordinator clock identical, fp within 5e-2;
-12. one JSON line of kernel records (the three serving kernels also
+12. the MoE family (``[moe]`` lines): (a) grok-1 and DeepSeek-V2 at
+    their full widths, depth cut to ``MOE_SERVE_LAYERS`` = 4 (weights
+    random from the seed, built unstacked), one after the other, each
+    serving ``launch.serve``'s defaults as phase 10 (a) and (c) do
+    (tick, merge_compare and i32 one-vs-many must have run): admit and
+    generate ms, tok/s, the bare decode step beside its weight-read
+    bound (every expert's weights, each expert holding one slot), one
+    decode step under the profiler, peak memory, the share of slots
+    capacity dropped; ``python -m repro_torch.launch.serve --arch <each>
+    --smoke`` in a child process must exit 0; (b) ``make_train_step``
+    at the full widths, depth 1, bfloat16 masters and int8 moments,
+    ``launch.train``'s batch 8 and seq 128, 4 steps (grok with its
+    expert width cut to 16,384: ``MOE_TRAIN_CUTS``): step ms, tokens/s,
+    loss and aux a step, peak memory, one step under the profiler, one
+    tick a step; (c) both configs at the full widths and depth 1 on the
+    card and the CPU (``model_run`` with 4 tokens, routes logged by
+    forward hooks): clocks, registry rows and masks identical, the share
+    of tokens whose experts differ printed, logits and greedy tokens
+    held on the rows whose routes agree so far; one DeepSeek-V2 train
+    step card vs CPU;
+13. one JSON line of kernel records (the three serving kernels also
     carry their launches on the serving path, the four training
-    kernels theirs on the training path), the card line, then the
+    kernels theirs on the training path, tick, merge_compare and i32
+    one-vs-many theirs on the MoE phase), the card line, then the
     verdict line.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
@@ -3279,8 +3300,9 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def decode_steps(model, cfg, prompts, feed=None, timed: bool = False):
-    """Prefill, then ``MODEL_GEN`` greedy decode steps on the bare model
+def decode_steps(model, cfg, prompts, feed=None, timed: bool = False,
+                 n_gen: int = MODEL_GEN):
+    """Prefill, then ``n_gen`` greedy decode steps on the bare model
     (no clocks): each step's logits as float32 on the host, the tokens
     fed (``feed``'s where given, else the argmax), the prefill's and,
     with ``timed``, each step's host-clock ms to a synchronise."""
@@ -3295,7 +3317,7 @@ def decode_steps(model, cfg, prompts, feed=None, timed: bool = False):
     sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     out, fed, ms = [logits.float().cpu()], [], []
-    for i in range(MODEL_GEN):
+    for i in range(n_gen):
         tok = (feed[i].to(dev) if feed is not None
                else logits.argmax(-1).to(torch.int32))
         fed.append(tok.cpu())
@@ -3311,34 +3333,17 @@ def decode_steps(model, cfg, prompts, feed=None, timed: bool = False):
             "caches": caches, "next": logits.argmax(-1).to(torch.int32)}
 
 
-def drive_model(dev) -> dict:
-    """Phase 10 (a) and (c) at Qwen1.5-0.5B's full config on the card:
-    engine A serves ``launch.serve``'s defaults (admit, then ``generate``)
-    and engines B and C guard a migration (B merged A's clock and adopts
-    the session, C ticked its own history and refuses it), with the
-    launch counts reset just before and read just after; then the bare
-    model's prefill and decode steps timed, one decode step profiled."""
-    import torch
-    from repro_torch.configs import get_config
+def guarded_serve(a, cfg, prompts, tag: str) -> dict:
+    """Engine ``a`` admits ``prompts`` and generates ``MODEL_GEN`` tokens;
+    engine B merges A's clock and adopts the session, C ticks its own
+    history and refuses it; the launch counts reset just before and read
+    just after.  Returns the session, its tokens on the host, admit and
+    generate seconds, the launches and the migration verdicts."""
     from repro_torch.core import clock as bc
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_params
     from repro_torch.runtime.clock_runtime import LineageStatus
 
-    cfg = get_config(MODEL_ARCH)
-    check(cfg.n_params() == MODEL_PARAMS,
-          f"{MODEL_ARCH}: {cfg.n_params()} params, not {MODEL_PARAMS}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
-    a = model_engine(params, cfg, dev, "A")
-    sync(dev)
-    setup_s = time.perf_counter() - t0
-    prompts = model_prompts(cfg.vocab)
-    warm = decode_steps(a.model, cfg, prompts.to(dev))   # cuBLAS set-up
-    del warm
-
+    dev = a.device
     ops.reset_launches()
     sync(dev)
     t0 = time.perf_counter()
@@ -3358,17 +3363,49 @@ def drive_model(dev) -> dict:
     sync(dev)
     launches = {k: ops.LAUNCHES[k] for k in MODEL_KERNELS}
     check(b_ok and b_status in (LineageStatus.SAME, LineageStatus.ANCESTOR),
-          f"replica B refused A's session ({b_status}, fp {b_fp})")
+          f"{tag} replica B refused A's session ({b_status}, fp {b_fp})")
     check(not c_ok and c_status == LineageStatus.FORKED,
-          f"replica C did not refuse A's session ({c_status})")
+          f"{tag} replica C did not refuse A's session ({c_status})")
     check(list(mask) == [True] and sess["sid"] in b.sessions,
-          f"replica B's adopt_many gave {list(mask)}")
+          f"{tag} replica B's adopt_many gave {list(mask)}")
     toks = out.cpu()
     check(tuple(toks.shape) == (MODEL_BATCH, MODEL_GEN)
           and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-          f"generated tokens {tuple(toks.shape)} out of range")
-    check(bool(torch.isfinite(sess["last_logits"].float()).all()),
-          "non-finite logits")
+          f"{tag} generated tokens {tuple(toks.shape)} out of range")
+    check(bool(sess["last_logits"].float().isfinite().all()),
+          f"{tag} non-finite logits")
+    return {"sess": sess, "toks": toks, "admit_s": t1 - t0,
+            "generate_s": t2 - t1, "launches": launches,
+            "migration": {"B": [b_status, b_fp], "C": c_status}}
+
+
+def drive_model(dev) -> dict:
+    """Phase 10 (a) and (c) at Qwen1.5-0.5B's full config on the card:
+    engine A serves ``launch.serve``'s defaults (admit, then ``generate``)
+    and engines B and C guard a migration (``guarded_serve``); then the
+    bare model's prefill and decode steps timed, one decode step
+    profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import clock as bc
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(MODEL_ARCH)
+    check(cfg.n_params() == MODEL_PARAMS,
+          f"{MODEL_ARCH}: {cfg.n_params()} params, not {MODEL_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    a = model_engine(params, cfg, dev, "A")
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    prompts = model_prompts(cfg.vocab)
+    warm = decode_steps(a.model, cfg, prompts.to(dev))   # cuBLAS set-up
+    del warm
+
+    run = guarded_serve(a, cfg, prompts, "[model]")
+    sess, toks = run["sess"], run["toks"]
 
     timed = decode_steps(a.model, cfg, prompts.to(dev), timed=True)
     # the engine step's clock work alone: one tick and one session merge
@@ -3384,9 +3421,9 @@ def drive_model(dev) -> dict:
     caches = timed["caches"]
     prof = profiled(lambda: T.decode_step(a.model, cfg, caches, nxt,
                                           MODEL_PROMPT + MODEL_GEN))
-    gen_s = t2 - t1
+    gen_s = run["generate_s"]
     return {
-        "setup_s": setup_s, "prefill_ms": (t1 - t0) * 1e3,
+        "setup_s": setup_s, "prefill_ms": run["admit_s"] * 1e3,
         "generate_ms": gen_s * 1e3, "tok_s": MODEL_BATCH * MODEL_GEN / gen_s,
         "engine_step_ms": gen_s * 1e3 / MODEL_GEN,
         "decode_ms": float(np.median(timed["ms"][1:])),
@@ -3398,25 +3435,26 @@ def drive_model(dev) -> dict:
         "weight_bytes": sum(b.numel() * b.element_size()
                             for b in a.model.buffers()),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "sample": toks[:, :8].tolist(),
-        "migration": {"B": [b_status, b_fp], "C": c_status},
+        "launches": run["launches"], "sample": toks[:, :8].tolist(),
+        "migration": run["migration"],
         "clock_sum": float(a.clock.clock.sum()),
     }
 
 
-def model_run(device, params, cfg, feed=None) -> dict:
-    """Phase 10 (b) on one device: the bare model's prefill and decode
-    steps (fed ``feed``'s tokens where given), then engine A serves the
-    same prompts and engine B, which ticked once and merged A's clock,
-    classifies A's first session and a second one admitted after the
-    merge."""
+def model_run(device, params, cfg, feed=None, n_gen: int = MODEL_GEN) -> dict:
+    """Phase 10 (b) on one device: the bare model's prefill and ``n_gen``
+    decode steps (fed ``feed``'s tokens where given), then engine A
+    serves the same prompts for ``n_gen`` tokens and engine B, which
+    ticked once and merged A's clock, classifies A's first session and
+    a second one admitted after the merge."""
     from repro_torch.core import clock as bc
 
     a = model_engine(params, cfg, device, "A")
     prompts = model_prompts(cfg.vocab)
-    steps = decode_steps(a.model, cfg, prompts.to(device), feed=feed)
+    steps = decode_steps(a.model, cfg, prompts.to(device), feed=feed,
+                         n_gen=n_gen)
     s1 = a.admit(prompts)
-    out = a.generate(s1, MODEL_GEN)
+    out = a.generate(s1, n_gen)
     b = model_engine(a.model, cfg, device, "B")
     b.clock.tick("own", 1)
     b.clock.clock = bc.merge(b.clock.clock, a.clock.clock)
@@ -3434,6 +3472,61 @@ def model_run(device, params, cfg, feed=None) -> dict:
             "lineage": lineage, "cells": cells, "rows": rows,
             "slots": {"A": dict(a.sessions._slot_of),
                       "B": dict(b.sessions._slot_of)}}
+
+
+def compare_model_runs(g: dict, c: dict, tag: str, held=None) -> tuple:
+    """Hold two ``model_run``s, the card's ``g`` and the CPU's ``c`` (fed
+    the card's tokens): logits within ``LOGIT_ATOL + LOGIT_RTOL |x|``
+    and greedy tokens identical outside near ties, on the rows ``held``
+    [B, steps] marks at each step (all of them without it); the
+    engines' tokens identical up to a row's first difference, which must
+    fall on a near tie or an unheld step; clocks, registry rows and
+    slots, the adopt_many mask and the lineage identical, fp within
+    tolerance.  Returns (max logit gap, excused [B, steps], rows whose
+    engine tokens diverged, fp gap)."""
+    steps = len(g["steps"]["logits"])
+    if held is None:
+        held = np.ones((MODEL_BATCH, steps), bool)
+    max_gap, excused = 0.0, np.zeros((MODEL_BATCH, steps), bool)
+    for i, (lg, lc) in enumerate(zip(g["steps"]["logits"],
+                                     c["steps"]["logits"])):
+        lg, lc = lg.numpy(), lc.numpy()
+        check(bool(np.isfinite(lg).all() and np.isfinite(lc).all()),
+              f"{tag} non-finite logits at step {i}")
+        rows = held[:, i]
+        gap = np.abs(lg - lc)[rows]
+        check(bool((gap <= LOGIT_ATOL + LOGIT_RTOL * np.abs(lc[rows])).all()),
+              f"{tag} logits of step {i} differ by {gap.max()} across devices")
+        max_gap = max(max_gap, float(gap.max(initial=0.0)))
+        top2 = np.sort(lc, -1)[:, -2:]
+        # the argmax may differ only where the CPU's top two logits lie
+        # within the tolerance of each other (a near tie)
+        near = (top2[:, 1] - top2[:, 0]
+                <= LOGIT_ATOL + LOGIT_RTOL * np.abs(top2[:, 1]))
+        excused[:, i] = near | ~rows
+        same = lg.argmax(-1) == lc.argmax(-1)
+        check(bool((same | excused[:, i]).all()),
+              f"{tag} greedy tokens of step {i} differ past the tolerance")
+    # the engines' tokens: identical up to a row's first difference,
+    # which must fall on a step whose top two logits are within tolerance
+    diverged = 0
+    for r in range(MODEL_BATCH):
+        diff = np.flatnonzero(g["tokens"][r] != c["tokens"][r])
+        if diff.size:
+            check(bool(excused[r, diff[0]]),
+                  f"{tag} engine tokens of row {r} differ at step {diff[0]}")
+            diverged += 1
+    for name, cells in g["cells"].items():
+        check_equal(cells, c["cells"][name], f"{tag} {name} clock cells")
+    for name, rows in g["rows"].items():
+        check_equal(rows, c["rows"][name], f"{tag} registry {name}")
+    check(g["slots"] == c["slots"], f"{tag} registry slots differ")
+    check_equal(g["mask"], c["mask"], f"{tag} adopt_many mask")
+    check(list(g["mask"]) == [True, False], f"{tag} mask {list(g['mask'])}")
+    check(g["lineage"][:2] == c["lineage"][:2],
+          f"{tag} can_adopt {g['lineage']} vs {c['lineage']}")
+    fp_gap = check_fp([g["lineage"][2]], [c["lineage"][2]], f"{tag} can_adopt")
+    return max_gap, excused, diverged, fp_gap
 
 
 def model_cpu_check(dev) -> dict:
@@ -3457,42 +3550,7 @@ def model_cpu_check(dev) -> dict:
         c = model_run("cpu", params, cfg, feed=g["steps"]["fed"])
     t_cpu = time.perf_counter() - t0
 
-    max_gap, excused = 0.0, np.zeros((MODEL_BATCH, MODEL_GEN + 1), bool)
-    for i, (lg, lc) in enumerate(zip(g["steps"]["logits"],
-                                     c["steps"]["logits"])):
-        lg, lc = lg.numpy(), lc.numpy()
-        gap = np.abs(lg - lc)
-        check(bool((gap <= LOGIT_ATOL + LOGIT_RTOL * np.abs(lc)).all()),
-              f"[model] logits of step {i} differ by {gap.max()} across devices")
-        max_gap = max(max_gap, float(gap.max()))
-        top2 = np.sort(lc, -1)[:, -2:]
-        # the argmax may differ only where the CPU's top two logits lie
-        # within the tolerance of each other (a near tie)
-        near = (top2[:, 1] - top2[:, 0]
-                <= LOGIT_ATOL + LOGIT_RTOL * np.abs(top2[:, 1]))
-        excused[:, i] = near
-        same = lg.argmax(-1) == lc.argmax(-1)
-        check(bool((same | near).all()),
-              f"[model] greedy tokens of step {i} differ past the tolerance")
-    # the engines' tokens: identical up to a row's first difference,
-    # which must fall on a step whose top two logits are within tolerance
-    diverged = 0
-    for r in range(MODEL_BATCH):
-        diff = np.flatnonzero(g["tokens"][r] != c["tokens"][r])
-        if diff.size:
-            check(bool(excused[r, diff[0]]),
-                  f"[model] engine tokens of row {r} differ at step {diff[0]}")
-            diverged += 1
-    for name, cells in g["cells"].items():
-        check_equal(cells, c["cells"][name], f"[model] {name} clock cells")
-    for name, rows in g["rows"].items():
-        check_equal(rows, c["rows"][name], f"[model] registry {name}")
-    check(g["slots"] == c["slots"], "[model] registry slots differ")
-    check_equal(g["mask"], c["mask"], "[model] adopt_many mask")
-    check(list(g["mask"]) == [True, False], f"[model] mask {list(g['mask'])}")
-    check(g["lineage"][:2] == c["lineage"][:2],
-          f"[model] can_adopt {g['lineage']} vs {c['lineage']}")
-    fp_gap = check_fp([g["lineage"][2]], [c["lineage"][2]], "[model] can_adopt")
+    max_gap, excused, diverged, fp_gap = compare_model_runs(g, c, "[model]")
     return {"layers": MODEL_CMP_LAYERS, "max_logit_gap": max_gap,
             "near_tie_steps": int(excused.sum()),
             "rows_diverged_at_near_ties": diverged,
@@ -4001,6 +4059,414 @@ def train_phase(dev, rate: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE family (grok-1, DeepSeek-V2 with MLA)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("grok_1_314b", "deepseek_v2_236b")
+#: serving at the full widths: depth 64 (grok) and 60 (DeepSeek) cut to
+#: 4 layers, so the bfloat16 weights (21.29 B and 16.94 B params, 42.6
+#: and 33.9 GB) fit on one card; built unstacked (``scan_layers=False``,
+#: the same math) so that ``init_params`` draws one layer's expert leaf
+#: at a time in float32 (grok: 1.61 B elements, 12.9 GB of transients,
+#: against 51.5 GB for the 4-layer stacked leaf)
+MOE_SERVE_LAYERS = 4
+#: training at the full widths and depth 1, bfloat16 masters and int8
+#: AdamW moments (the configs' own memory policy).  Reckoned peak: the
+#: old and new params and moments and the grads, 10.06 bytes a param,
+#: plus three float32 copies of the largest leaf while AdamW updates it:
+#: DeepSeek 5.02 B params, largest leaf 1.26 B: ~66 GB; grok 6.53 B,
+#: 1.61 B: ~85 GB, past the card's 80, so grok trains with its expert
+#: width cut 32,768 -> 16,384 (4.12 B params, ~51 GB)
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_CUTS = {"grok_1_314b": {"moe_d_ff": 16384}, "deepseek_v2_236b": {}}
+#: ``launch.train``'s batch and sequence, a few steps (the median leaves
+#: out the first)
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 8, 128, 4
+#: card against CPU: the full widths at depth 1; the CPU's bare decode
+#: and the engines' generate cut to 4 tokens (a CPU decode step reads
+#: every expert's weights, 13 GB for grok)
+MOE_CMP_GEN = 4
+#: int8-moment training across devices: the share of params that may
+#: part by more than the AdamW step bound (an int8 code of v rounding to
+#: 0 on one side divides m by eps there; tests/test_torch_training.py
+#: saw 37 of 191,456 at the smoke config)
+MOE_PARTED_SHARE = 1e-3
+
+
+def moe_cfg(arch: str, layers: int, **cuts):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=layers, **cuts)
+
+
+@contextlib.contextmanager
+def route_log(model):
+    """While active, every MoE layer's routing of every forward call:
+    (top-k expert ids [T, k], kept [T, k] token-major) on the host, in
+    call and layer order, recomputed from the layer's input with the
+    port's own routing functions."""
+    import torch
+    from repro_torch.models import moe
+
+    log = []
+
+    def hook(module, args, _out):
+        cfg = module.cfg
+        x2d = args[0].reshape(-1, cfg.d_model)
+        T, k = x2d.shape[0], cfg.top_k
+        _, idx = moe._top_k_gates(x2d @ module.weights["router"], k)
+        E_phys = cfg.n_experts * cfg.moe_replicas
+        phys = moe._phys_idx(idx, cfg.moe_replicas)
+        _, _, _, keep_s, order = moe._dispatch_indices(
+            phys, T, k, E_phys, moe._capacity(cfg, T, E_phys))
+        keep = torch.empty_like(keep_s)
+        keep[order] = keep_s
+        log.append((idx.cpu().numpy(), keep.view(T, k).cpu().numpy()))
+
+    handles = [layer.moe.register_forward_hook(hook) for layer in model.layers]
+    try:
+        yield log
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def drive_moe(dev, arch: str) -> dict:
+    """Phase 12 (a) for one config at ``MOE_SERVE_LAYERS`` layers: engine
+    A serves ``launch.serve``'s defaults and B and C guard a migration
+    (``guarded_serve``); the bare model's prefill and decode steps
+    timed, one decode step profiled, the share of slots capacity
+    dropped."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = moe_cfg(arch, MOE_SERVE_LAYERS, scan_layers=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    init_peak = torch.cuda.max_memory_allocated()
+    a = model_engine(params, cfg, dev, "A")
+    del params
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    prompts = model_prompts(cfg.vocab)
+    # cuBLAS set-up; the routes of the same greedy run the engine makes
+    with route_log(a.model) as log:
+        warm = decode_steps(a.model, cfg, prompts.to(dev))
+    del warm
+    L = cfg.n_layers
+    drop = {"prefill": 1 - float(np.mean([k.mean() for _, k in log[:L]])),
+            "decode": 1 - float(np.mean([k.mean() for _, k in log[L:]]))}
+
+    run = guarded_serve(a, cfg, prompts, f"[moe] {arch}:")
+    toks = run["toks"]
+    timed = decode_steps(a.model, cfg, prompts.to(dev), timed=True)
+    nxt, caches = timed["next"], timed["caches"]
+    prof = profiled(lambda: T.decode_step(a.model, cfg, caches, nxt,
+                                          MODEL_PROMPT + MODEL_GEN))
+    gen_s = run["generate_s"]
+    # a decode step reads every weight once (each expert holds C = 1
+    # slot, so every expert's GEMMs run), but of an untied embedding
+    # table only the batch's rows
+    weight_bytes = sum(b.numel() * b.element_size()
+                       for n, b in a.model.named_buffers()
+                       if not (n == "embed.tokens" and not cfg.tie_embeddings))
+    return {
+        "arch": arch, "layers": L, "params": cfg.n_params(),
+        "setup_s": setup_s, "admit_ms": run["admit_s"] * 1e3,
+        "generate_ms": gen_s * 1e3, "tok_s": MODEL_BATCH * MODEL_GEN / gen_s,
+        "decode_ms": float(np.median(timed["ms"][1:])),
+        "decode_ms_all": timed["ms"], "prefill_bare_ms": timed["prefill_ms"],
+        "profile": prof, "weight_bytes": weight_bytes,
+        "init_peak_gb": init_peak / 1e9,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "dropped": drop, "launches": run["launches"],
+        "migration": run["migration"], "sample": toks[:, :8].tolist()}
+
+
+def moe_train_opt(n_steps: int):
+    """``launch.train``'s optimizer for ``n_steps``, with the configs'
+    int8 moments."""
+    from repro_torch.optim.adamw import OptConfig
+    return OptConfig(lr=3e-3, total_steps=n_steps,
+                     warmup_steps=max(n_steps // 20, 5), state_dtype="int8")
+
+
+def drive_moe_train(dev, arch: str) -> dict:
+    """Phase 12 (b): ``MOE_TRAIN_STEPS`` steps of ``make_train_step`` at
+    the full widths (less ``MOE_TRAIN_CUTS``), depth 1, bfloat16 masters
+    and int8 moments, ``launch.train``'s batch and sequence, the launch
+    counts reset just before and read just after; one more step
+    profiled."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state, make_train_step
+
+    cfg = moe_cfg(arch, MOE_TRAIN_LAYERS, **MOE_TRAIN_CUTS[arch])
+    check(cfg.param_dtype == "bfloat16", f"[moe] {arch}: masters {cfg.param_dtype}")
+    opt_cfg = moe_train_opt(MOE_TRAIN_STEPS)
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MOE_TRAIN_SEQ,
+                                  global_batch=MOE_TRAIN_BATCH))
+    step = make_train_step(cfg, opt_cfg, clock_cfg)
+    ops.reset_launches()
+    ms, metrics = [], []
+    for s in range(MOE_TRAIN_STEPS):
+        batch = data.batch(s, device=dev)
+        batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {k: ops.LAUNCHES[k] for k in MODEL_KERNELS}
+    for i, m in enumerate(metrics):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["aux"]) and m["aux"] > 0,
+              f"[moe] {arch} train step {i}: loss {m['loss']} aux {m['aux']}")
+        check(m["clock_sum"] == clock_cfg.k * (i + 1),
+              f"[moe] {arch} train step {i}: clock_sum {m['clock_sum']}")
+    check(launches["bloom_tick"] == MOE_TRAIN_STEPS,
+          f"[moe] {arch}: {launches} launches in {MOE_TRAIN_STEPS} steps")
+    prof = profiled(lambda: step(state, batch))
+    return {"arch": arch, "params": cfg.n_params(),
+            "cuts": MOE_TRAIN_CUTS[arch], "step_ms": float(np.median(ms[1:])),
+            "step_ms_all": ms, "metrics": metrics, "profile": prof,
+            "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def moe_routes(gl: list, cl: list, n_layers: int, n_gen: int) -> dict:
+    """The bare runs' routes on the card (``gl``) and the CPU (``cl``),
+    ``route_log`` entries of the prefill and ``n_gen`` decode calls:
+    per (row, position), whether every layer gave the token the same
+    expert set and kept the same slots on both devices."""
+    S = MODEL_PROMPT
+    ids_same = np.ones((MODEL_BATCH, S + n_gen), bool)
+    kept_same = ids_same.copy()
+    for call in range(1 + n_gen):
+        cols = slice(0, S) if call == 0 else slice(S + call - 1, S + call)
+        for layer in range(n_layers):
+            (gi, gk), (ci, ck) = (gl[call * n_layers + layer],
+                                  cl[call * n_layers + layer])
+            og, oc = np.argsort(gi, -1), np.argsort(ci, -1)
+            ids = (np.take_along_axis(gi, og, -1)
+                   == np.take_along_axis(ci, oc, -1)).all(-1)
+            kept = (np.take_along_axis(gk, og, -1)
+                    == np.take_along_axis(ck, oc, -1)).all(-1)
+            ids_same[:, cols] &= ids.reshape(MODEL_BATCH, -1)
+            kept_same[:, cols] &= kept.reshape(MODEL_BATCH, -1)
+    return {"ids_same": ids_same, "agree": ids_same & kept_same}
+
+
+def moe_cpu_check(dev, arch: str) -> dict:
+    """Phase 12 (c) for one config at the full widths, depth 1: the
+    weights drawn once on the card and copied to the CPU, ``model_run``
+    on both (the CPU's bare decode fed the card's tokens) under
+    ``route_log``.  A token's routes agree when every layer gave it the
+    same experts and kept slots on both devices; a row's logits are held
+    up to its first position whose routes (or an earlier one's) differ,
+    since a different expert set is a different function of the input."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = moe_cfg(arch, 1, scan_layers=False)
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    model = T.build(params, cfg, dev)
+    t0 = time.perf_counter()
+    with route_log(model) as glog:
+        g = model_run(dev, model, cfg, n_gen=MOE_CMP_GEN)
+    t_card = time.perf_counter() - t0
+    del model
+    model = T.build({k: v.cpu() for k, v in params.items()}, cfg, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with card_blocks(), route_log(model) as clog:
+        c = model_run("cpu", model, cfg, feed=g["steps"]["fed"],
+                      n_gen=MOE_CMP_GEN)
+    t_cpu = time.perf_counter() - t0
+    del model
+    n_bare = (1 + MOE_CMP_GEN) * cfg.n_layers
+    r = moe_routes(glog[:n_bare], clog[:n_bare], cfg.n_layers, MOE_CMP_GEN)
+    S = MODEL_PROMPT
+    held_pos = np.logical_and.accumulate(r["agree"], axis=1)
+    held = held_pos[:, S - 1:]              # logits of positions S-1, S, ...
+    max_gap, excused, diverged, fp_gap = compare_model_runs(
+        g, c, f"[moe] {arch}", held=held)
+    return {"arch": arch, "layers": cfg.n_layers, "tokens": int(r["agree"].size),
+            "route_differs_share": float(1 - r["ids_same"].mean()),
+            "route_or_kept_differs_share": float(1 - r["agree"].mean()),
+            "logit_steps_held": int(held.sum()), "logit_steps": int(held.size),
+            "max_logit_gap": max_gap, "near_tie_or_unheld_steps": int(excused.sum()),
+            "rows_diverged": diverged,
+            "tokens_identical": bool((g["tokens"] == c["tokens"]).all()),
+            "fp_abs_gap": fp_gap, "card_s": t_card, "cpu_s": t_cpu}
+
+
+def moe_train_cpu_check(dev) -> dict:
+    """Phase 12 (c), training: one step of (b)'s DeepSeek-V2 config
+    (full widths, depth 1, bfloat16 masters, int8 moments) at batch
+    ``TRAIN_CMP_BATCH``, seq ``TRAIN_CMP_SEQ`` on the card and the CPU
+    from one state: clock cells and the step identical, loss, aux and
+    grad norm within ``TRAIN_LOSS_RTOL``; params within the step's AdamW
+    bound (2 x 1.0003 x lr plus the weight decay's share) and one
+    bfloat16 rounding a side, but for at most ``MOE_PARTED_SHARE``
+    of them."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state
+
+    cfg = moe_cfg("deepseek_v2_236b", MOE_TRAIN_LAYERS)
+    opt_cfg = moe_train_opt(1)
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    t0 = time.perf_counter()
+    g = train_run(dev, state, cfg, opt_cfg, clock_cfg, 1)
+    t_card = time.perf_counter() - t0
+    gs = g.pop("state")                 # stays on the card (host memory)
+    start = move_state(state, "cpu")
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = train_run("cpu", start, cfg, opt_cfg, clock_cfg, 1)
+    t_cpu = time.perf_counter() - t0
+    del start
+    cs = c["state"]
+    check_equal(host(gs.clock_cells), host(cs.clock_cells),
+                "[moe] train card vs CPU clock cells")
+    check(int(gs.step) == int(cs.step) == 1, "[moe] train steps")
+    (mg,), (mc,) = g["metrics"], c["metrics"]
+    gaps = {}
+    for key in ("loss", "aux", "grad_norm"):
+        gaps[key] = abs(mg[key] - mc[key]) / abs(mc[key])
+        check(gaps[key] <= TRAIN_LOSS_RTOL,
+              f"[moe] train {key}: card {mg[key]} CPU {mc[key]}")
+    lr = mc["lr"]
+    parted = n = 0
+    worst = 0.0
+    for k, p in cs.params.items():     # compared on the card, a leaf a time
+        q = gs.params[k]
+        check(q.dtype == p.dtype == torch.bfloat16, f"[moe] train param {k} dtype")
+        p, q = p.to(dev).float(), q.float()
+        d = (q - p).abs()
+        bound = (2 * 1.0003 * lr + 2 * lr * opt_cfg.weight_decay * p.abs()
+                 + 2 ** -7 * p.abs())
+        parted += int((d > bound).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()))
+        check(bool(torch.isfinite(q).all()), f"[moe] train param {k} not finite")
+    check(parted <= MOE_PARTED_SHARE * n,
+          f"[moe] train: {parted} of {n} params past the AdamW step bound")
+    return {"params": cfg.n_params(), "batch": TRAIN_CMP_BATCH,
+            "seq": TRAIN_CMP_SEQ, "metrics": [mg, mc], "rel_gaps": gaps,
+            "parted": parted, "of": n, "max_param_gap": worst,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def moe_phase(dev, rate: float) -> dict:
+    """Phase 12: (a) serving each config at ``MOE_SERVE_LAYERS`` layers,
+    and through the launcher's smoke in a child process, (b) training,
+    (c) card against CPU.  Returns the phase's launches (serving and
+    training summed)."""
+    import torch
+
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
+    for arch in MOE_ARCHS:
+        run = drive_moe(dev, arch)
+        bound_ms = run["weight_bytes"] / rate * 1e3
+        prof = run["profile"]
+        print(f"[moe] {arch} full widths, depth cut to {run['layers']} layers "
+              f"({run['params']} bfloat16 params), serving launch.serve's "
+              f"defaults on the card: weights and engine set up in "
+              f"{run['setup_s']:.2f} s; admit (prefill {MODEL_BATCH}x"
+              f"{MODEL_PROMPT}) {run['admit_ms']} ms, the bare prefill "
+              f"{run['prefill_bare_ms']} ms; generate {MODEL_GEN} tokens "
+              f"{run['generate_ms']} ms ({run['tok_s']} tok/s)")
+        print(f"[moe] {arch} decode step (bare model, host clock to a "
+              f"synchronise): median over steps 2-{MODEL_GEN} "
+              f"{run['decode_ms']} ms, all {json.dumps(run['decode_ms_all'])}; "
+              f"bound {bound_ms} ms ({run['weight_bytes']} bytes of weights a "
+              f"step reads at {rate / 1e12} TB/s): the step at "
+              f"{run['decode_ms'] / bound_ms:.2f}x it")
+        print(f"[moe] {arch} one decode step under the profiler: wall "
+              f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+              f"({prof['device_events']} device events), copies "
+              f"{prof['copy_ms']} ms, idle share {prof['idle_share']} "
+              f"({prof['idle_share_with_copies']} with copies), top "
+              f"{json.dumps(prof['top_device_ms'])}")
+        print(f"[moe] {arch} peak memory {run['peak_gb']} GB (while drawing "
+              f"the weights {run['init_peak_gb']} GB); slots dropped by "
+              f"capacity {json.dumps(run['dropped'])}; launches "
+              f"{json.dumps(run['launches'])}; migration B "
+              f"{run['migration']['B']}, C {run['migration']['C']}; sample "
+              f"{run['sample']}")
+        for kname, n in run["launches"].items():
+            check(n > 0, f"kernel {kname} was not launched on the {arch} "
+                         f"serving path")
+            launches[kname] += n
+        del run
+        torch.cuda.empty_cache()
+        out, wall = run_child([sys.executable, "-m", "repro_torch.launch.serve",
+                               "--arch", arch, "--smoke"],
+                              f"python -m repro_torch.launch.serve --arch {arch}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+        check(any("on cuda: prefill" in ln for ln in lines),
+              f"launch.serve --arch {arch} printed no serving line:\n{out[-2000:]}")
+        print(f"[moe] python -m repro_torch.launch.serve --arch {arch} --smoke "
+              f"exited 0 in {wall:.1f} s: {json.dumps(lines)}")
+    for arch in ("deepseek_v2_236b", "grok_1_314b"):
+        tr = drive_moe_train(dev, arch)
+        tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+        prof = tr["profile"]
+        print(f"[moe] {arch} training at the full widths"
+              + (f" but {json.dumps(tr['cuts'])}" if tr["cuts"] else "")
+              + f", depth {MOE_TRAIN_LAYERS} ({tr['params']} params, bfloat16 "
+              f"masters, int8 moments), batch {MOE_TRAIN_BATCH}, seq "
+              f"{MOE_TRAIN_SEQ}: step median of 2-{MOE_TRAIN_STEPS} "
+              f"{tr['step_ms']} ms, all {json.dumps(tr['step_ms_all'])}; "
+              f"{tokens / tr['step_ms'] * 1e3} tokens/s; loss and aux "
+              f"{json.dumps([[m['loss'], m['aux']] for m in tr['metrics']])}; "
+              f"peak memory {tr['peak_gb']} GB; launches "
+              f"{json.dumps(tr['launches'])}")
+        print(f"[moe] {arch} one train step under the profiler: wall "
+              f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+              f"({prof['device_events']} device events), copies "
+              f"{prof['copy_ms']} ms, idle share {prof['idle_share']}, top "
+              f"{json.dumps(prof['top_device_ms'])}")
+        for kname, n in tr["launches"].items():
+            launches[kname] += n
+        del tr
+        torch.cuda.empty_cache()
+    for arch in MOE_ARCHS:
+        small = moe_cpu_check(dev, arch)
+        print(f"[moe] {arch} card and CPU at the full widths, depth 1: "
+              f"clocks, registry rows and adopt_many masks identical; logits "
+              f"within {LOGIT_ATOL} + {LOGIT_RTOL}|x| and greedy tokens "
+              f"identical outside near ties, on the rows whose routes agree "
+              f"so far: {json.dumps(small)}")
+        torch.cuda.empty_cache()
+    tc = moe_train_cpu_check(dev)
+    print(f"[moe] deepseek_v2_236b one train step, card and CPU from one state "
+          f"(depth 1, full widths, batch {TRAIN_CMP_BATCH}, seq "
+          f"{TRAIN_CMP_SEQ}): clock cells identical, loss, aux and grad norm "
+          f"within {TRAIN_LOSS_RTOL}, params within the AdamW step bound but "
+          f"for at most {MOE_PARTED_SHARE} of them: {json.dumps(tc)}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -4025,9 +4491,10 @@ _SOURCES = {
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--shard-only"], ["--model-only"], ["--train-only"]):
+    if args not in ([], ["--shard-only"], ["--model-only"], ["--train-only"],
+                    ["--moe-only"]):
         print("usage: chip_smoke.py [--shard-only | --model-only | "
-              "--train-only]", file=sys.stderr)
+              "--train-only | --moe-only]", file=sys.stderr)
         return 2
     shard_only = args == ["--shard-only"]
     try:
@@ -4062,9 +4529,12 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": name,
                                      "count": count}}))
         return 0
-    if args in (["--model-only"], ["--train-only"]):
+    if args in (["--model-only"], ["--train-only"], ["--moe-only"]):
         phase = args[0][2:-5]
-        (model_phase if phase == "model" else train_phase)(dev, hbm_rate(name))
+        t_phase = time.perf_counter()
+        {"model": model_phase, "train": train_phase,
+         "moe": moe_phase}[phase](dev, hbm_rate(name))
+        print(f"[time] {phase} phase {time.perf_counter() - t_phase:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "phase": phase,
                           "device": {"platform": "gpu", "kind": name,
@@ -4211,6 +4681,9 @@ def main() -> int:
     t_train = time.perf_counter()
     train_launches = train_phase(dev, rate)
     print(f"[time] train phase {time.perf_counter() - t_train:.1f} s")
+    t_moe = time.perf_counter()
+    moe_launches = moe_phase(dev, rate)
+    print(f"[time] moe phase {time.perf_counter() - t_moe:.1f} s")
 
     timed = time_kernels(dev, gpu["n_wide"])
     timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
@@ -4234,6 +4707,8 @@ def main() -> int:
             records[-1]["model_serving_launches"] = model_launches[kname]
         if kname in train_launches:
             records[-1]["training_launches"] = train_launches[kname]
+        if kname in moe_launches:
+            records[-1]["moe_launches"] = moe_launches[kname]
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
               f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"

@@ -31,10 +31,14 @@ matrix products without batch dims (the projections; attention's
 batched products are recomputed) and ``"full"`` keeps everything.  The
 three give the same gradients.
 
-Ported: the dense-layer families, ``dense`` and ``vlm`` (qwen, stablelm,
-granite, pixtral's prefix embeddings).  The ``moe``, ``ssm``,
-``hybrid`` and ``encdec`` families and MLA raise
-``NotImplementedError``: they wait for ROADMAP.md queue 1, item 5.
+Ported: the families ``dense`` and ``vlm`` (qwen, stablelm, granite,
+pixtral's prefix embeddings) and ``moe`` (grok-1; DeepSeek-V2 with
+MLA attention and its latent decode cache, ``models.mla``).  A MoE
+layer's FFN is ``models.moe``'s gather path, and the stack sums the
+layers' load-balance losses into ``aux`` as the reference's
+``run_stack`` does (0 for a stack without a router).  The ``ssm``,
+``hybrid`` and ``encdec`` families raise ``NotImplementedError``: they
+wait for ROADMAP.md queue 1, item 5.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
@@ -61,16 +67,16 @@ __all__ = [
     "init_decode_caches",
 ]
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port lacks."""
-    if cfg.family in PORTED_FAMILIES and not cfg.use_mla and not cfg.is_encdec:
+    if cfg.family in PORTED_FAMILIES and not cfg.is_encdec:
         return
-    what = "MLA attention" if cfg.use_mla else f"the {cfg.family!r} family"
     raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported to repro_torch yet (ROADMAP.md "
+        f"{cfg.name}: the {cfg.family!r} family is not ported to "
+        f"repro_torch yet (ROADMAP.md "
         f"queue 1, item 5); the port runs the families "
         f"{', '.join(PORTED_FAMILIES)}")
 
@@ -90,14 +96,21 @@ def layer_params(params: dict, cfg: ModelConfig, i: int,
     return L.sub(params, f"{prefix}_{i}")
 
 
+def _norm_scale(name: str) -> bool:
+    """Whether a layer leaf is a norm scale, held in float32 (``Norm``,
+    MLA's ``q_norm`` and ``kv_norm``); the rest is held in the compute
+    dtype."""
+    return name.startswith("norm") or name.endswith("_norm")
+
+
 def _layer_dicts(params: dict, cfg: ModelConfig,
                  prefix: str = "layers") -> list[dict]:
     """Every layer's flat dict.  A stacked leaf is cast once to the
-    dtype its block holds (norm scales float32, as ``Norm``; the rest
-    the compute dtype) and split by one ``unbind``."""
+    dtype its block holds (``_norm_scale``) and split by one
+    ``unbind``."""
     if not cfg.scan_layers:
         return [L.sub(params, f"{prefix}_{i}") for i in range(cfg.n_layers)]
-    split = {k: v.to(torch.float32 if k.startswith("norm")
+    split = {k: v.to(torch.float32 if _norm_scale(k)
                      else cfg.compute_dtype).unbind(0)
              for k, v in L.sub(params, prefix).items()}
     return [{k: v[i] for k, v in split.items()} for i in range(cfg.n_layers)]
@@ -172,25 +185,65 @@ class Attention(Weights):
             window=self.window, cache=cache, angles=angles)
 
 
+class MLA(Weights):
+    """MLA's weights in the compute dtype, its two norm scales in
+    float32 (``mla._rms`` reads them so)."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__({k: v for k, v in params.items()
+                          if not _norm_scale(k)}, cfg.compute_dtype, device)
+        for k, v in params.items():
+            if _norm_scale(k):
+                self.register_buffer(k, v.to(device=device,
+                                             dtype=torch.float32))
+        self.cfg = cfg
+
+    def forward(self, x, *, positions, cache=None, angles=None):
+        return mla_mod.mla_block(self.weights, self.cfg, x,
+                                 positions=positions, cache=cache,
+                                 angles=angles)
+
+
+class MoE(Weights):
+    """The router, the experts and the shared experts."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__(params, cfg.compute_dtype, device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor):
+        return moe_mod.moe_ffn(self.weights, self.cfg, x)
+
+
 class DecoderLayer(nn.Module):
-    """norm -> attention -> residual -> norm -> MLP -> residual."""
+    """norm -> attention (MLA with ``cfg.use_mla``) -> residual -> norm
+    -> MLP (MoE in the ``moe`` family) -> residual."""
 
     def __init__(self, params: dict, cfg: ModelConfig, window: int,
                  device=None):
         super().__init__()
         check_ported(cfg)
         self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
-        self.attn = Attention(L.sub(params, "attn"), cfg, window, device)
+        self.attn = (MLA(L.sub(params, "attn"), cfg, device) if cfg.use_mla
+                     else Attention(L.sub(params, "attn"), cfg, window,
+                                    device))
         self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
-        self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
+        moe = cfg.family == "moe"
+        self.moe = MoE(L.sub(params, "moe"), cfg, device) if moe else None
+        self.mlp = None if moe else MLP(L.sub(params, "mlp"), cfg, device)
 
     def forward(self, x, *, positions, cache=None, angles=None):
-        """Returns (x', new kv): (k, v) without a cache, else the
-        updated cache."""
+        """Returns (x', new kv, aux): the new (k, v) (MLA: (ckv,
+        k_rope)) without a cache, else the updated cache; aux the
+        router's load-balance loss, None without a router."""
         a, kv = self.attn(self.norm1(x), positions=positions, cache=cache,
                           angles=angles)
         x = x + a
-        return x + self.mlp(self.norm2(x)), kv
+        h = self.norm2(x)
+        if self.moe is None:
+            return x + self.mlp(h), kv, None
+        y, aux = self.moe(h)
+        return x + y, kv, aux
 
 
 class Transformer(nn.Module):
@@ -230,25 +283,42 @@ class Transformer(nn.Module):
         return x
 
     def run_stack(self, x, *, positions, caches=None, remat: bool = False):
-        """Every layer in turn.  Returns (x, kv): without caches the
-        per-layer (k, v) list; with them the advanced caches dict.
+        """Every layer in turn.  Returns (x, kv, aux): without caches
+        the per-layer (k, v) (MLA: (ckv, k_rope)) list, with them the
+        advanced caches dict; aux the layers' load-balance losses
+        summed in layer order (float32, 0 without a router).
         ``remat``: run each layer under ``cfg.remat_policy`` when grad
         is enabled (the train mode)."""
-        angles = (L.rope_angles(positions, self.cfg, self.cfg.d_head)
-                  if self.cfg.pos == "rope" else None)
+        cfg = self.cfg
+        if cfg.use_mla:      # MLA rotates qk_rope_dim lanes, whatever pos
+            angles = L.rope_angles(positions, cfg, cfg.qk_rope_dim,
+                                   cfg.qk_rope_dim)
+        else:
+            angles = (L.rope_angles(positions, cfg, cfg.d_head)
+                      if cfg.pos == "rope" else None)
         remat = remat and caches is None and torch.is_grad_enabled()
-        kvs = []
+        kvs, aux = [], None
         for i, layer in enumerate(self.layers):
             cache = caches["attn"].layer(i) if caches is not None else None
-            call = _remat(layer, self.cfg) if remat else layer
-            x, kv = call(x, positions=positions, cache=cache, angles=angles)
+            call = _remat(layer, cfg) if remat else layer
+            x, kv, a = call(x, positions=positions, cache=cache,
+                            angles=angles)
+            if a is not None:
+                aux = a if aux is None else aux + a
             kvs.append(kv)
+        aux = _zero_aux(x.device) if aux is None else aux
         if caches is None:
-            return x, kvs
+            return x, kvs, aux
         c = caches["attn"]
-        return x, {"attn": attn_mod.KVCache(
-            k=c.k, v=c.v, length=min(c.length + 1, c.k.shape[-3]),
-            pos=c.pos + 1, ring=c.ring)}
+        if cfg.use_mla:
+            c = mla_mod.MLACache(
+                ckv=c.ckv, krope=c.krope,
+                length=min(c.length + 1, c.ckv.shape[-2]), pos=c.pos + 1)
+        else:
+            c = attn_mod.KVCache(
+                k=c.k, v=c.v, length=min(c.length + 1, c.k.shape[-3]),
+                pos=c.pos + 1, ring=c.ring)
+        return x, {"attn": c}, aux
 
     def unembed(self, h) -> torch.Tensor:
         """Logits of final-normed hidden states ``h``."""
@@ -271,23 +341,23 @@ def _zero_aux(device) -> torch.Tensor:
 def layer_fn(params: dict, cfg: ModelConfig, x, *, positions, window: int,
              mode: str, cache=None):
     """One decoder layer from its flat dict. mode: train | prefill |
-    decode; ``cache``: {"attn": KVCache} or None.  Returns (x',
-    new_cache, aux)."""
+    decode; ``cache``: {"attn": KVCache or MLACache} or None.  Returns
+    (x', new_cache, aux)."""
     layer = DecoderLayer(params, cfg, window, x.device)
-    x, kv = layer(x, positions=positions,
-                  cache=cache.get("attn") if cache else None)
-    return x, {"attn": kv if mode != "train" else None}, _zero_aux(x.device)
+    x, kv, aux = layer(x, positions=positions,
+                       cache=cache.get("attn") if cache else None)
+    return (x, {"attn": kv if mode != "train" else None},
+            _zero_aux(x.device) if aux is None else aux)
 
 
 def run_stack(params, cfg: ModelConfig, x, *, positions, mode: str,
               caches=None):
     """The layer stack.  Returns (x, stacked caches, aux): prefill's
-    {"attn": (k, v)} stacked on a leading L axis, decode's advanced
-    {"attn": KVCache}, None in train."""
+    {"attn": (k, v)} (MLA: (ckv, k_rope)) stacked on a leading L axis,
+    decode's advanced {"attn": KVCache or MLACache}, None in train."""
     model = build(params, cfg, x.device)
-    x, kv = model.run_stack(x, positions=positions, caches=caches,
-                            remat=mode == "train")
-    aux = _zero_aux(x.device)
+    x, kv, aux = model.run_stack(x, positions=positions, caches=caches,
+                                 remat=mode == "train")
     if mode == "train":
         return x, None, aux
     if caches is not None:
@@ -305,9 +375,9 @@ def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     differentiable with respect to a master dict ``params``."""
     model = build(params, cfg)
     x = model.embed_input(tokens, prefix_embeds)
-    x, _ = model.run_stack(x, positions=_positions(0, x.shape[1], x.device),
-                           remat=True)
-    return model.norm_f(x), _zero_aux(x.device)
+    x, _, aux = model.run_stack(
+        x, positions=_positions(0, x.shape[1], x.device), remat=True)
+    return model.norm_f(x), aux
 
 
 def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None):
@@ -319,9 +389,13 @@ def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None):
 
 def init_decode_caches(cfg: ModelConfig, batch: int, buf_len: int,
                        long_context: bool = False, device=None) -> dict:
-    """Stacked (L-leading) caches for decode; a ring buffer of the
-    window's size when ``long_context`` and the config has a window."""
+    """Stacked (L-leading) caches for decode: MLA's latent cache with
+    ``cfg.use_mla``, else K/V in a ring buffer of the window's size when
+    ``long_context`` and the config has a window."""
     check_ported(cfg)
+    if cfg.use_mla:
+        return {"attn": mla_mod.init_mla_cache(
+            cfg, batch, buf_len, layers=cfg.n_layers, device=device)}
     ring = long_context and cfg.window > 0
     buf = min(buf_len, cfg.window) if ring else buf_len
     return {"attn": attn_mod.init_cache(
@@ -339,7 +413,7 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     model = build(params, cfg)
     x = model.embed_input(tokens, prefix_embeds)
     S = x.shape[1]
-    x, kvs = model.run_stack(x, positions=_positions(0, S, x.device))
+    x, kvs, _ = model.run_stack(x, positions=_positions(0, S, x.device))
     logits = model.unembed(model.norm_f(x[:, -1:]))
     caches = _assemble_prefill_caches(cfg, kvs, S,
                                       buf_len if buf_len else S + 64)
@@ -348,17 +422,22 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
 
 def _assemble_prefill_caches(cfg: ModelConfig, kv_per_layer, S: int,
                              buf_len: int) -> dict:
-    """Per-layer prefill (k, v) [B, S, KV, Dh] into one stacked linear
+    """Per-layer prefill (k, v) [B, S, KV, Dh] (MLA: (ckv, k_rope)
+    [B, S, kv_lora] and [B, S, qk_rope_dim]) into one stacked linear
     cache of ``max(buf_len, S)`` slots, zero past the prompt."""
-    k0 = kv_per_layer[0][0]
-    B, _, KV, Dh = k0.shape
-    shape = (cfg.n_layers, B, max(buf_len, S), KV, Dh)
-    k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
-    v = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
-    for i, (ki, vi) in enumerate(kv_per_layer):
-        k[i, :, :S] = ki
-        v[i, :, :S] = vi
-    return {"attn": attn_mod.KVCache(k=k, v=v, length=S, pos=S, ring=False)}
+    stacked = []
+    for j in range(2):
+        x0 = kv_per_layer[0][j]
+        shape = (cfg.n_layers, x0.shape[0], max(buf_len, S)) + x0.shape[2:]
+        buf = torch.zeros(shape, dtype=x0.dtype, device=x0.device)
+        for i, kv in enumerate(kv_per_layer):
+            buf[i, :, :S] = kv[j]
+        stacked.append(buf)
+    if cfg.use_mla:
+        return {"attn": mla_mod.MLACache(ckv=stacked[0], krope=stacked[1],
+                                         length=S, pos=S)}
+    return {"attn": attn_mod.KVCache(k=stacked[0], v=stacked[1], length=S,
+                                     pos=S, ring=False)}
 
 
 def decode_step(params, cfg: ModelConfig, caches: dict, token, pos):
@@ -370,6 +449,6 @@ def decode_step(params, cfg: ModelConfig, caches: dict, token, pos):
     x = model.embed.tokens[token.to(model.device)[:, None]]
     if cfg.pos == "learned":
         x = x + model.embed.pos[min(max(pos, 0), cfg.max_seq - 1)]
-    x, caches = model.run_stack(x, positions=_positions(pos, 1, x.device),
-                                caches=caches)
+    x, caches, _ = model.run_stack(
+        x, positions=_positions(pos, 1, x.device), caches=caches)
     return model.unembed(model.norm_f(x))[:, 0], caches

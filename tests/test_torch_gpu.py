@@ -3,8 +3,9 @@ card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
 all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
 sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
 (sharded registries, the mesh transport, socket sessions, the chaos
-sim and model serving) on the card against the CPU.  Every test
-here carries the ``gpu`` marker and skips without a CUDA device
+sim, model serving and training, the MoE family) on the card against
+the CPU.  Every test here carries the ``gpu`` marker and skips without
+a CUDA device
 (decided in a fixture, never at import time).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -1602,7 +1603,7 @@ def train_run(device, state, cfg, n_steps: int = 3):
     return _rebuild(state, lambda key, t: t.cpu()), metrics, dict(_leaves(state))
 
 
-def smoke_train_state(state_dtype="float32"):
+def smoke_train_state(state_dtype="float32", arch="qwen1_5_0_5b"):
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -1610,7 +1611,7 @@ def smoke_train_state(state_dtype="float32"):
     from repro_torch.runtime.clock_runtime import ClockConfig
     from repro_torch.runtime.training import init_train_state
 
-    cfg = dataclasses.replace(get_smoke_config("qwen1_5_0_5b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     state = init_train_state(torch.Generator().manual_seed(0), cfg,
                              OptConfig(total_steps=10, state_dtype=state_dtype),
                              ClockConfig(m=64), device="cpu")
@@ -1766,3 +1767,139 @@ def test_cuda_train_launcher_restart_exits_zero(cuda, tmp_path):
     assert ("[train] restore step=8 lineage=descendant fp=1.00e+00 "
             "admitted=True") in proc.stdout
     assert "[train] done: 4 steps" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (repro_torch.models.moe, models.mla)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("grok_1_314b", "deepseek_v2_236b")
+
+
+def moe_smoke(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+    return cfg, init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas,cap", [(1, 1.25), (2, 0.5)])
+def test_cuda_moe_ffn_and_mla_block_match_cpu(cuda, replicas, cap):
+    """DeepSeek's smoke layer 0 in float32 on the card and the CPU:
+    ``moe_ffn`` (with drops at capacity 0.5, replicas 2) output and aux
+    within rtol 1e-4 / atol 1e-5, the expert ids identical; ``mla_block``
+    prefill output and latents, then 3 absorbed decode steps against the
+    latent cache, within the same tolerance."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla, moe
+    from repro_torch.models import transformer as T
+
+    cfg, params = moe_smoke("deepseek_v2_236b", moe_replicas=replicas,
+                            capacity_factor=cap)
+    lp = T.layer_params(params, cfg, 0)
+    x = torch.randn(2, 12, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    tol = dict(rtol=1e-4, atol=1e-5)
+    p_moe = L.sub(lp, "moe")
+    y, aux = moe.moe_ffn(p_moe, cfg, x)
+    yc, auxc = moe.moe_ffn({k: v.to(cuda) for k, v in p_moe.items()}, cfg,
+                           x.to(cuda))
+    torch.testing.assert_close(yc.cpu(), y, **tol)
+    torch.testing.assert_close(auxc.cpu(), aux, **tol)
+    x2d = x.reshape(24, -1)
+    ids = moe._top_k_gates(x2d @ p_moe["router"], cfg.top_k)[1]
+    idc = moe._top_k_gates(x2d.to(cuda) @ p_moe["router"].to(cuda), cfg.top_k)[1]
+    assert torch.equal(idc.cpu(), ids)
+
+    p_att = L.sub(lp, "attn")
+    p_card = {k: v.to(cuda) for k, v in p_att.items()}
+    pos = torch.arange(8)
+    out, (ckv, kr) = mla.mla_block(p_att, cfg, x[:, :8], positions=pos)
+    outc, (ckvc, krc) = mla.mla_block(p_card, cfg, x[:, :8].to(cuda),
+                                      positions=pos.to(cuda))
+    for a, b in ((outc, out), (ckvc, ckv), (krc, kr)):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    caches = []
+    for dev, (c0, k0) in (("cpu", (ckv, kr)), (cuda, (ckvc, krc))):
+        c = mla.init_mla_cache(cfg, 2, 12, device=dev)
+        c.ckv[:, :8], c.krope[:, :8] = c0, k0
+        caches.append(mla.MLACache(c.ckv, c.krope, length=8, pos=8))
+    for t in range(8, 11):
+        o, caches[0] = mla.mla_block(p_att, cfg, x[:, t:t + 1],
+                                     positions=torch.tensor([t]), cache=caches[0])
+        oc, caches[1] = mla.mla_block(p_card, cfg, x[:, t:t + 1].to(cuda),
+                                      positions=torch.tensor([t], device=cuda),
+                                      cache=caches[1])
+        torch.testing.assert_close(oc.cpu(), o, **tol)
+    torch.testing.assert_close(caches[1].ckv.cpu(), caches[0].ckv, **tol)
+    assert (caches[1].length, caches[1].pos) == (11, 11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_serving_engine_matches_cpu(cuda, arch):
+    """Each ``moe`` smoke config in float32 served on the card and the
+    CPU from the same weights (admit, generate, migrate): greedy tokens,
+    clocks, registry rows and the adoption mask identical, logits within
+    1e-4; tick, merge-compare and i32 one-vs-many launched on the card."""
+    cfg, params = moe_smoke(arch)
+    ops.reset_launches()
+    got = serving_run(cuda, params, cfg)
+    launched = {k: ops.LAUNCHES[k] for k in ("bloom_tick", "bloom_merge_compare",
+                                             "one_vs_many_i32")}
+    assert launched == {"bloom_tick": 17, "bloom_merge_compare": 1,
+                        "one_vs_many_i32": 1}, launched
+    want = serving_run("cpu", params, cfg)
+    for g, w in zip(got["tokens"], want["tokens"]):
+        assert torch.equal(g, w)
+    assert list(got["mask"]) == list(want["mask"]) == [True, False]
+    for g, w in zip(got["clocks"], want["clocks"]):
+        np.testing.assert_array_equal(g, w)
+    for name, g in got["rows"].items():
+        np.testing.assert_array_equal(g, want["rows"][name], err_msg=name)
+    torch.testing.assert_close(got["logits"], want["logits"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_train_step_matches_cpu(cuda):
+    """Three float32 steps of DeepSeek's smoke config (MLA, MoE with a
+    shared expert, the router's aux in the loss) on the card and the
+    CPU from one state: one tick launch a step, clock cells identical,
+    loss, aux and grad norm within rtol 2e-4, params within rtol 2e-4 /
+    atol 2e-5."""
+    cfg, state = smoke_train_state(arch="deepseek_v2_236b")
+    ops.reset_launches()
+    got, gm, _ = train_run(cuda, state, cfg)
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    assert launched == {"bloom_tick": 3}, launched
+    want, wm, _ = train_run("cpu", state, cfg)
+    for g, w in zip(gm, wm):
+        assert g["clock_sum"] == w["clock_sum"] and g["aux"] > 0
+        for key in ("loss", "aux", "grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=2e-4)
+    assert torch.equal(got.clock_cells, want.clock_cells)
+    for k in want.params:
+        np.testing.assert_allclose(got.params[k].numpy(), want.params[k].numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_cuda_serve_launcher_deepseek_smoke_exits_zero(cuda):
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "deepseek_v2_236b", "--smoke"],
+        env={**os.environ, "PYTHONPATH": src}, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[serve] deepseek-smoke on cuda: prefill 4x32" in proc.stdout
+    assert "[serve] engine clock sum: 80" in proc.stdout
