@@ -9,7 +9,8 @@ On a host with several cards, ``python3 chip_smoke.py --shard-only``
 builds the kernels and runs phase 4b alone (with the unsharded gossip
 sim it is held to), its shards of s <= the card count on distinct cards.
 ``python3 chip_smoke.py --model-only`` builds them and runs phase 10
-alone, ``--train-only`` phase 11 alone, ``--moe-only`` phase 12 alone.
+alone, ``--train-only`` phase 11 alone, ``--moe-only`` phase 12 alone,
+``--ssm-only`` phase 13 alone.
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -191,11 +192,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     of tokens whose experts differ printed, logits and greedy tokens
     held on the rows whose routes agree so far; one DeepSeek-V2 train
     step card vs CPU;
-13. one JSON line of kernel records (the three serving kernels also
+13. the SSM and hybrid families (``[ssm]`` lines): (a) mamba2-130m and
+    hymba-1.5b at their full configs, nothing cut (weights random from
+    the seed), each serving ``launch.serve``'s defaults as phase 10 (a)
+    and (c) do: admit and generate ms, tok/s, the bare decode step
+    beside its bound (weights, the SSM caches read and written, the
+    K/V), one decode step under the profiler, peak memory; ``python -m
+    repro_torch.launch.serve --arch <each> --smoke`` in a child process
+    must exit 0; (b) ``make_train_step`` at each full config,
+    ``launch.train``'s batch 8, seq 128 (the configs' SSD chunk), lr
+    3e-3, float32 AdamW, 4 steps: every loss and grad norm finite, step
+    ms beside its FLOP and AdamW-byte least times, tokens/s, peak
+    memory, one step under the profiler, one tick a step; (c) both at
+    the full widths and depth 2 on the card and the CPU (``model_run``
+    with 4 tokens): clocks, registry rows and masks identical, logits
+    and the SSM caches within tolerance, greedy tokens identical outside
+    near ties; one train step at batch 2, seq 128 held to the AdamW
+    bound;
+14. one JSON line of kernel records (the three serving kernels also
     carry their launches on the serving path, the four training
     kernels theirs on the training path, tick, merge_compare and i32
-    one-vs-many theirs on the MoE phase), the card line, then the
-    verdict line.
+    one-vs-many theirs on the MoE and the SSM phases), the card line,
+    then the verdict line.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
 resolves (``card_blocks``): the committed table's ``cuda`` entries under
@@ -3646,6 +3664,15 @@ _TRAIN_LINE = re.compile(
     r"\[train\] step=(\d+) loss=(\S+) gnorm=(\S+) clock_sum=(\d+)")
 
 
+def train_opt(n_steps: int, state_dtype: str = "float32"):
+    """``launch.train``'s optimizer for ``n_steps``, with moments of
+    ``state_dtype``."""
+    from repro_torch.optim.adamw import OptConfig
+    return OptConfig(lr=3e-3, total_steps=n_steps,
+                     warmup_steps=max(n_steps // 20, 5),
+                     state_dtype=state_dtype)
+
+
 def train_args(ckpt_dir: str):
     """``launch.train``'s arguments for this phase's run."""
     from repro_torch.launch import train as launch
@@ -3755,15 +3782,16 @@ def move_state(state, device):
     return _rebuild(state, lambda key, t: t.to(device))
 
 
-def train_run(device, state, cfg, opt_cfg, clock_cfg, n_steps: int) -> dict:
+def train_run(device, state, cfg, opt_cfg, clock_cfg, n_steps: int,
+              seq: int = TRAIN_CMP_SEQ) -> dict:
     """``n_steps`` of the launcher's train step from ``state`` (copied to
     ``device``) on the launcher's data stream at the cut batch and
-    sequence."""
+    sequence (``seq``)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.runtime.training import make_train_step
 
     state = move_state(state, device)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CMP_SEQ,
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=TRAIN_CMP_BATCH))
     step = make_train_step(cfg, opt_cfg, clock_cfg)
     metrics = []
@@ -3788,13 +3816,11 @@ def train_cpu_check(dev, cfg) -> dict:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import _leaves
     from repro_torch.causal import CausalPolicy
-    from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.clock_runtime import ClockConfig, ClockRuntime
     from repro_torch.runtime.training import init_train_state
 
     # the launcher's optimizer and clock for a run of TRAIN_CMP_STEPS
-    opt_cfg = OptConfig(lr=3e-3, total_steps=TRAIN_CMP_STEPS,
-                        warmup_steps=max(TRAIN_CMP_STEPS // 20, 5))
+    opt_cfg = train_opt(TRAIN_CMP_STEPS)
     clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
     state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
                              opt_cfg, clock_cfg, device=dev)
@@ -4132,14 +4158,42 @@ def route_log(model):
             h.remove()
 
 
+def serve_figures(a, cfg, prompts, tag: str) -> tuple:
+    """Engine ``a`` (warmed up) serves ``prompts`` under
+    ``guarded_serve``; then the bare model's prefill and decode steps
+    timed and one more decode step profiled.  Returns the figures phases
+    12 and 13 print, and the timed run's caches.  ``weight_bytes``: every
+    weight a decode step reads once, but of an untied embedding table
+    only the batch's rows."""
+    from repro_torch.models import transformer as T
+
+    dev = a.device
+    run = guarded_serve(a, cfg, prompts, tag)
+    timed = decode_steps(a.model, cfg, prompts.to(dev), timed=True)
+    nxt, caches = timed["next"], timed["caches"]
+    prof = profiled(lambda: T.decode_step(a.model, cfg, caches, nxt,
+                                          MODEL_PROMPT + MODEL_GEN))
+    gen_s = run["generate_s"]
+    weight_bytes = sum(b.numel() * b.element_size()
+                       for n, b in a.model.named_buffers()
+                       if not (n == "embed.tokens" and not cfg.tie_embeddings))
+    return {
+        "params": cfg.n_params(), "admit_ms": run["admit_s"] * 1e3,
+        "generate_ms": gen_s * 1e3, "tok_s": MODEL_BATCH * MODEL_GEN / gen_s,
+        "decode_ms": float(np.median(timed["ms"][1:])),
+        "decode_ms_all": timed["ms"], "prefill_bare_ms": timed["prefill_ms"],
+        "profile": prof, "weight_bytes": weight_bytes,
+        "launches": run["launches"], "migration": run["migration"],
+        "sample": run["toks"][:, :8].tolist()}, caches
+
+
 def drive_moe(dev, arch: str) -> dict:
     """Phase 12 (a) for one config at ``MOE_SERVE_LAYERS`` layers: engine
-    A serves ``launch.serve``'s defaults and B and C guard a migration
-    (``guarded_serve``); the bare model's prefill and decode steps
-    timed, one decode step profiled, the share of slots capacity
-    dropped."""
+    A serves ``launch.serve``'s defaults and B and C guard a migration,
+    the bare model is timed (``serve_figures``; each expert holds C = 1
+    slot of a decode step, so every expert's GEMMs run and its weights
+    count), the share of slots capacity dropped."""
     import torch
-    from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
 
     cfg = moe_cfg(arch, MOE_SERVE_LAYERS, scan_layers=False)
@@ -4159,39 +4213,11 @@ def drive_moe(dev, arch: str) -> dict:
     L = cfg.n_layers
     drop = {"prefill": 1 - float(np.mean([k.mean() for _, k in log[:L]])),
             "decode": 1 - float(np.mean([k.mean() for _, k in log[L:]]))}
-
-    run = guarded_serve(a, cfg, prompts, f"[moe] {arch}:")
-    toks = run["toks"]
-    timed = decode_steps(a.model, cfg, prompts.to(dev), timed=True)
-    nxt, caches = timed["next"], timed["caches"]
-    prof = profiled(lambda: T.decode_step(a.model, cfg, caches, nxt,
-                                          MODEL_PROMPT + MODEL_GEN))
-    gen_s = run["generate_s"]
-    # a decode step reads every weight once (each expert holds C = 1
-    # slot, so every expert's GEMMs run), but of an untied embedding
-    # table only the batch's rows
-    weight_bytes = sum(b.numel() * b.element_size()
-                       for n, b in a.model.named_buffers()
-                       if not (n == "embed.tokens" and not cfg.tie_embeddings))
-    return {
-        "arch": arch, "layers": L, "params": cfg.n_params(),
-        "setup_s": setup_s, "admit_ms": run["admit_s"] * 1e3,
-        "generate_ms": gen_s * 1e3, "tok_s": MODEL_BATCH * MODEL_GEN / gen_s,
-        "decode_ms": float(np.median(timed["ms"][1:])),
-        "decode_ms_all": timed["ms"], "prefill_bare_ms": timed["prefill_ms"],
-        "profile": prof, "weight_bytes": weight_bytes,
-        "init_peak_gb": init_peak / 1e9,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "dropped": drop, "launches": run["launches"],
-        "migration": run["migration"], "sample": toks[:, :8].tolist()}
-
-
-def moe_train_opt(n_steps: int):
-    """``launch.train``'s optimizer for ``n_steps``, with the configs'
-    int8 moments."""
-    from repro_torch.optim.adamw import OptConfig
-    return OptConfig(lr=3e-3, total_steps=n_steps,
-                     warmup_steps=max(n_steps // 20, 5), state_dtype="int8")
+    fig, _ = serve_figures(a, cfg, prompts, f"[moe] {arch}:")
+    return {"arch": arch, "layers": L, "setup_s": setup_s, **fig,
+            "init_peak_gb": init_peak / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "dropped": drop}
 
 
 def drive_moe_train(dev, arch: str) -> dict:
@@ -4209,7 +4235,7 @@ def drive_moe_train(dev, arch: str) -> dict:
 
     cfg = moe_cfg(arch, MOE_TRAIN_LAYERS, **MOE_TRAIN_CUTS[arch])
     check(cfg.param_dtype == "bfloat16", f"[moe] {arch}: masters {cfg.param_dtype}")
-    opt_cfg = moe_train_opt(MOE_TRAIN_STEPS)
+    opt_cfg = train_opt(MOE_TRAIN_STEPS, "int8")
     clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
@@ -4328,7 +4354,7 @@ def moe_train_cpu_check(dev) -> dict:
     from repro_torch.runtime.training import init_train_state
 
     cfg = moe_cfg("deepseek_v2_236b", MOE_TRAIN_LAYERS)
-    opt_cfg = moe_train_opt(1)
+    opt_cfg = train_opt(1, "int8")
     clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
     state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
                              opt_cfg, clock_cfg, device=dev)
@@ -4467,6 +4493,295 @@ def moe_phase(dev, rate: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SSM and hybrid families (mamba2-130m, hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2_130m", "hymba_1_5b")
+#: the full configs, nothing cut (src/repro/configs/mamba2_130m.py,
+#: hymba_1_5b.py): mamba2 24 layers, d 768, 24 SSM heads x 64, N 128,
+#: Q 128, V 50,280, tied; hymba 32 layers, d 1,600, 25 heads / 5 kv,
+#: window 2,048 but in layers 0, 15, 31, 50 SSM heads x 64, N 16, d_ff
+#: 5,504, V 32,001
+SSM_PARAMS = {"mamba2_130m": 129_001_920, "hymba_1_5b": 1_641_381_120}
+#: ``launch.train``'s batch and sequence (seq 128 = the configs' chunk,
+#: where the reference's SSD gradient overflows), 4 steps (the median
+#: leaves out the first)
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 8, 128, 4
+#: card against CPU: the full widths at depth 2; the bare decode and the
+#: engines' generate cut to 4 tokens; one train step at batch
+#: ``TRAIN_CMP_BATCH``, seq 128
+SSM_CMP_LAYERS, SSM_CMP_GEN = 2, 4
+
+
+def drive_ssm(dev, arch: str) -> dict:
+    """Phase 13 (a) for one full config: engine A serves
+    ``launch.serve``'s defaults and B and C guard a migration, the bare
+    model is timed (``serve_figures``).  Besides the weights, a decode
+    step reads and writes the SSM caches and reads the K/V of its
+    position (counted at the median timed step's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(arch)
+    check(cfg.n_params() == SSM_PARAMS[arch],
+          f"[ssm] {arch}: {cfg.n_params()} params, not {SSM_PARAMS[arch]}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    a = model_engine(params, cfg, dev, "A")
+    del params
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    prompts = model_prompts(cfg.vocab)
+    warm = decode_steps(a.model, cfg, prompts.to(dev))    # cuBLAS set-up
+    del warm
+    fig, caches = serve_figures(a, cfg, prompts, f"[ssm] {arch}:")
+    state_bytes = 2 * sum(t.numel() * t.element_size()
+                          for t in (caches["ssm"].conv, caches["ssm"].state))
+    kv_bytes = 0
+    if "attn" in caches:
+        k = caches["attn"].k            # [L, B, buf, KV, Dh]
+        per_pos = 2 * k[:, :, 0].numel() * k.element_size()
+        kv_bytes = per_pos * (MODEL_PROMPT + MODEL_GEN // 2 + 1)
+    return {"arch": arch, "setup_s": setup_s, **fig,
+            "state_bytes": state_bytes, "kv_bytes": kv_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def drive_ssm_train(dev, arch: str) -> dict:
+    """Phase 13 (b): ``SSM_TRAIN_STEPS`` steps of ``make_train_step`` at
+    the full config, float32 masters and moments, ``launch.train``'s
+    batch and sequence, the launch counts reset just before and read
+    just after: every step's loss and grad norm finite (a non-finite
+    gradient entry makes the norm non-finite), the params finite after
+    the run; one more step profiled."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state, make_train_step
+
+    cfg = get_config(arch)
+    check(cfg.param_dtype == "float32" and cfg.ssm_chunk == SSM_TRAIN_SEQ,
+          f"[ssm] {arch}: masters {cfg.param_dtype}, chunk {cfg.ssm_chunk}")
+    opt_cfg = train_opt(SSM_TRAIN_STEPS)
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SSM_TRAIN_SEQ,
+                                  global_batch=SSM_TRAIN_BATCH))
+    step = make_train_step(cfg, opt_cfg, clock_cfg)
+    ops.reset_launches()
+    ms, metrics = [], []
+    for s in range(SSM_TRAIN_STEPS):
+        batch = data.batch(s, device=dev)
+        batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {k: ops.LAUNCHES[k] for k in MODEL_KERNELS}
+    for i, m in enumerate(metrics):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"[ssm] {arch} train step {i}: loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+        check(m["clock_sum"] == clock_cfg.k * (i + 1),
+              f"[ssm] {arch} train step {i}: clock_sum {m['clock_sum']}")
+    for k, p in state.params.items():
+        check(bool(p.isfinite().all()), f"[ssm] {arch} param {k} not finite")
+    check(launches["bloom_tick"] == SSM_TRAIN_STEPS,
+          f"[ssm] {arch}: {launches} launches in {SSM_TRAIN_STEPS} steps")
+    prof = profiled(lambda: step(state, batch))
+    return {"arch": arch, "params": cfg.n_params(),
+            "step_ms": float(np.median(ms[1:])), "step_ms_all": ms,
+            "metrics": metrics, "profile": prof, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def ssm_cpu_check(dev, arch: str) -> dict:
+    """Phase 13 (c) for one config at the full widths, depth
+    ``SSM_CMP_LAYERS``: the weights drawn once on the card and copied to
+    the CPU; ``model_run`` on both (the CPU's bare decode fed the card's
+    tokens), held by ``compare_model_runs``, and the bare runs' SSM
+    caches after the decode within ``LOGIT_ATOL + LOGIT_RTOL |x|``; then
+    one train step at batch ``TRAIN_CMP_BATCH``, seq ``SSM_TRAIN_SEQ``
+    from one state: clock cells identical, loss and grad norm within
+    ``TRAIN_LOSS_RTOL``, every param within the most two AdamW steps can
+    part (``train_cpu_check``'s bound)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=SSM_CMP_LAYERS)
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    t0 = time.perf_counter()
+    g = model_run(dev, params, cfg, n_gen=SSM_CMP_GEN)
+    t_card = time.perf_counter() - t0
+    params = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    with card_blocks():
+        c = model_run("cpu", params, cfg, feed=g["steps"]["fed"],
+                      n_gen=SSM_CMP_GEN)
+    t_cpu = time.perf_counter() - t0
+    max_gap, excused, diverged, fp_gap = compare_model_runs(
+        g, c, f"[ssm] {arch}")
+    cache_gap = {}
+    for name in ("conv", "state"):
+        a = host(getattr(g["steps"]["caches"]["ssm"], name).float())
+        b = host(getattr(c["steps"]["caches"]["ssm"], name).float())
+        gap = np.abs(a - b)
+        check(bool(np.isfinite(a).all()
+                   and (gap <= LOGIT_ATOL + LOGIT_RTOL * np.abs(b)).all()),
+              f"[ssm] {arch} SSM {name} cache differs by {gap.max()} "
+              f"across devices")
+        cache_gap[name] = float(gap.max())
+
+    opt_cfg = train_opt(1)
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    t0 = time.perf_counter()
+    gt = train_run(dev, state, cfg, opt_cfg, clock_cfg, 1, seq=SSM_TRAIN_SEQ)
+    t_train_card = time.perf_counter() - t0
+    start = move_state(state, "cpu")
+    del state
+    t0 = time.perf_counter()
+    ct = train_run("cpu", start, cfg, opt_cfg, clock_cfg, 1, seq=SSM_TRAIN_SEQ)
+    t_train_cpu = time.perf_counter() - t0
+    gs, cs = gt["state"], ct["state"]
+    check_equal(host(gs.clock_cells), host(cs.clock_cells),
+                f"[ssm] {arch} train card vs CPU clock cells")
+    (mg,), (mc,) = gt["metrics"], ct["metrics"]
+    gaps = {}
+    for key in ("loss", "grad_norm"):
+        check(np.isfinite(mg[key]), f"[ssm] {arch} train {key} {mg[key]}")
+        gaps[key] = abs(mg[key] - mc[key]) / abs(mc[key])
+        check(gaps[key] <= TRAIN_LOSS_RTOL,
+              f"[ssm] {arch} train {key}: card {mg[key]} CPU {mc[key]}")
+    lr = mc["lr"]
+    p_max = max(float(p.abs().max()) for p in cs.params.values())
+    bound = 2 * 1.0003 * lr + 2 * lr * opt_cfg.weight_decay * p_max + 1e-6
+    worst = 0.0
+    for k, p in cs.params.items():
+        d = float((gs.params[k].cpu() - p).abs().max())
+        worst = max(worst, d)
+        check(d <= bound, f"[ssm] {arch} train param {k}: card and CPU {d} "
+                          f"apart, past the AdamW bound {bound}")
+    return {"arch": arch, "layers": SSM_CMP_LAYERS, "params": cfg.n_params(),
+            "max_logit_gap": max_gap, "near_tie_steps": int(excused.sum()),
+            "rows_diverged_at_near_ties": diverged,
+            "tokens_identical": bool((g["tokens"] == c["tokens"]).all()),
+            "ssm_cache_max_gap": cache_gap, "fp_abs_gap": fp_gap,
+            "train": {"batch": TRAIN_CMP_BATCH, "seq": SSM_TRAIN_SEQ,
+                      "metrics": [mg, mc], "rel_gaps": gaps,
+                      "max_param_gap": worst, "param_bound": bound},
+            "card_s": t_card, "cpu_s": t_cpu, "train_card_s": t_train_card,
+            "train_cpu_s": t_train_cpu}
+
+
+def ssm_phase(dev, rate: float) -> dict:
+    """Phase 13: (a) serving each full config, and through the
+    launcher's smoke in a child process, (b) training each full config,
+    (c) card against CPU.  Returns the phase's launches (serving and
+    training summed)."""
+    import torch
+
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
+    for arch in SSM_ARCHS:
+        run = drive_ssm(dev, arch)
+        step_bytes = run["weight_bytes"] + run["state_bytes"] + run["kv_bytes"]
+        bound_ms = step_bytes / rate * 1e3
+        prof = run["profile"]
+        print(f"[ssm] {arch} full config ({run['params']} float32 masters, "
+              f"bfloat16 compute), serving launch.serve's defaults on the "
+              f"card: weights and engine set up in {run['setup_s']:.2f} s; "
+              f"admit (prefill {MODEL_BATCH}x{MODEL_PROMPT}) "
+              f"{run['admit_ms']} ms, the bare prefill "
+              f"{run['prefill_bare_ms']} ms; generate {MODEL_GEN} tokens "
+              f"{run['generate_ms']} ms ({run['tok_s']} tok/s)")
+        print(f"[ssm] {arch} decode step (bare model, host clock to a "
+              f"synchronise): median over steps 2-{MODEL_GEN} "
+              f"{run['decode_ms']} ms, all {json.dumps(run['decode_ms_all'])}; "
+              f"bound {bound_ms} ms ({run['weight_bytes']} bytes of weights, "
+              f"{run['state_bytes']} of SSM caches read and written, "
+              f"{run['kv_bytes']} of K/V at {rate / 1e12} TB/s): the step at "
+              f"{run['decode_ms'] / bound_ms:.2f}x it")
+        print(f"[ssm] {arch} one decode step under the profiler: wall "
+              f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+              f"({prof['device_events']} device events), copies "
+              f"{prof['copy_ms']} ms, idle share {prof['idle_share']} "
+              f"({prof['idle_share_with_copies']} with copies), top "
+              f"{json.dumps(prof['top_device_ms'])}")
+        print(f"[ssm] {arch} peak memory {run['peak_gb']} GB; launches "
+              f"{json.dumps(run['launches'])}; migration B "
+              f"{run['migration']['B']}, C {run['migration']['C']}; sample "
+              f"{run['sample']}")
+        for kname, n in run["launches"].items():
+            check(n > 0, f"kernel {kname} was not launched on the {arch} "
+                         f"serving path")
+            launches[kname] += n
+        del run
+        torch.cuda.empty_cache()
+        out, wall = run_child([sys.executable, "-m", "repro_torch.launch.serve",
+                               "--arch", arch, "--smoke"],
+                              f"python -m repro_torch.launch.serve --arch {arch}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+        check(any("on cuda: prefill" in ln for ln in lines),
+              f"launch.serve --arch {arch} printed no serving line:\n{out[-2000:]}")
+        print(f"[ssm] python -m repro_torch.launch.serve --arch {arch} --smoke "
+              f"exited 0 in {wall:.1f} s: {json.dumps(lines)}")
+    for arch in SSM_ARCHS:
+        tr = drive_ssm_train(dev, arch)
+        tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+        flop_ms = 6 * tr["params"] * tokens / BF16_FLOPS * 1e3
+        adamw_ms = ADAMW_BYTES * tr["params"] / rate * 1e3
+        prof = tr["profile"]
+        print(f"[ssm] {arch} training at the full config ({tr['params']} "
+              f"params, float32 masters and moments), batch {SSM_TRAIN_BATCH}, "
+              f"seq {SSM_TRAIN_SEQ}: step median of 2-{SSM_TRAIN_STEPS} "
+              f"{tr['step_ms']} ms, all {json.dumps(tr['step_ms_all'])}; "
+              f"{tokens / tr['step_ms'] * 1e3} tokens/s; least times: "
+              f"{flop_ms} ms of bfloat16 FLOPs (6 x {tr['params']} x {tokens} "
+              f"at {BF16_FLOPS / 1e12} TFLOP/s), {adamw_ms} ms of AdamW bytes "
+              f"({ADAMW_BYTES} a param at {rate / 1e12} TB/s): the step at "
+              f"{tr['step_ms'] / max(flop_ms, adamw_ms):.1f}x the larger; "
+              f"loss and grad norm, all finite "
+              f"{json.dumps([[m['loss'], m['grad_norm']] for m in tr['metrics']])}; "
+              f"peak memory {tr['peak_gb']} GB; launches "
+              f"{json.dumps(tr['launches'])}")
+        print(f"[ssm] {arch} one train step under the profiler: wall "
+              f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+              f"({prof['device_events']} device events), copies "
+              f"{prof['copy_ms']} ms, idle share {prof['idle_share']}, top "
+              f"{json.dumps(prof['top_device_ms'])}")
+        for kname, n in tr["launches"].items():
+            launches[kname] += n
+        del tr
+        torch.cuda.empty_cache()
+    for arch in SSM_ARCHS:
+        small = ssm_cpu_check(dev, arch)
+        print(f"[ssm] {arch} card and CPU at the full widths, depth "
+              f"{SSM_CMP_LAYERS} (reduced: depth only): clocks, registry rows "
+              f"and adopt_many masks identical; logits and SSM caches within "
+              f"{LOGIT_ATOL} + {LOGIT_RTOL}|x|, greedy tokens identical outside "
+              f"near ties; one train step within {TRAIN_LOSS_RTOL} (loss, grad "
+              f"norm) and the AdamW bound (params): {json.dumps(small)}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -4492,9 +4807,9 @@ _SOURCES = {
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--shard-only"], ["--model-only"], ["--train-only"],
-                    ["--moe-only"]):
+                    ["--moe-only"], ["--ssm-only"]):
         print("usage: chip_smoke.py [--shard-only | --model-only | "
-              "--train-only | --moe-only]", file=sys.stderr)
+              "--train-only | --moe-only | --ssm-only]", file=sys.stderr)
         return 2
     shard_only = args == ["--shard-only"]
     try:
@@ -4529,11 +4844,12 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": name,
                                      "count": count}}))
         return 0
-    if args in (["--model-only"], ["--train-only"], ["--moe-only"]):
+    if args in (["--model-only"], ["--train-only"], ["--moe-only"],
+                ["--ssm-only"]):
         phase = args[0][2:-5]
         t_phase = time.perf_counter()
-        {"model": model_phase, "train": train_phase,
-         "moe": moe_phase}[phase](dev, hbm_rate(name))
+        {"model": model_phase, "train": train_phase, "moe": moe_phase,
+         "ssm": ssm_phase}[phase](dev, hbm_rate(name))
         print(f"[time] {phase} phase {time.perf_counter() - t_phase:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "phase": phase,
@@ -4684,6 +5000,9 @@ def main() -> int:
     t_moe = time.perf_counter()
     moe_launches = moe_phase(dev, rate)
     print(f"[time] moe phase {time.perf_counter() - t_moe:.1f} s")
+    t_ssm = time.perf_counter()
+    ssm_launches = ssm_phase(dev, rate)
+    print(f"[time] ssm phase {time.perf_counter() - t_ssm:.1f} s")
 
     timed = time_kernels(dev, gpu["n_wide"])
     timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
@@ -4709,6 +5028,8 @@ def main() -> int:
             records[-1]["training_launches"] = train_launches[kname]
         if kname in moe_launches:
             records[-1]["moe_launches"] = moe_launches[kname]
+        if kname in ssm_launches:
+            records[-1]["ssm_launches"] = ssm_launches[kname]
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
               f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"

@@ -32,13 +32,21 @@ batched products are recomputed) and ``"full"`` keeps everything.  The
 three give the same gradients.
 
 Ported: the families ``dense`` and ``vlm`` (qwen, stablelm, granite,
-pixtral's prefix embeddings) and ``moe`` (grok-1; DeepSeek-V2 with
-MLA attention and its latent decode cache, ``models.mla``).  A MoE
-layer's FFN is ``models.moe``'s gather path, and the stack sums the
+pixtral's prefix embeddings), ``moe`` (grok-1; DeepSeek-V2 with MLA
+attention and its latent decode cache, ``models.mla``), ``ssm``
+(mamba2: a stack of ``models.ssm`` blocks, no MLP) and ``hybrid``
+(hymba: attention, windowed but in ``cfg.global_layers``, and the SSM
+on the same normed input, fused by ``_fuse_paths``, then the MLP).  A
+MoE layer's FFN is ``models.moe``'s gather path, and the stack sums the
 layers' load-balance losses into ``aux`` as the reference's
-``run_stack`` does (0 for a stack without a router).  The ``ssm``,
-``hybrid`` and ``encdec`` families raise ``NotImplementedError``: they
-wait for ROADMAP.md queue 1, item 5.
+``run_stack`` does (0 for a stack without a router).  A layer's caches
+are a dict, ``{"attn": KVCache or MLACache}`` and/or ``{"ssm":
+SSMCache}`` as its family has them; the SSM cache is written in place
+and has no length or position.  The leaves the reference reads as
+float32 from the master (``held_f32``: the norm scales, the SSM's
+``norm``, ``dt_bias``, ``a_log`` and ``d_skip``, the fusion gains) are
+held in float32, the rest in the compute dtype.  The ``encdec`` family
+raises ``NotImplementedError``: it waits for ROADMAP.md queue 1, item 6.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
@@ -67,7 +76,7 @@ __all__ = [
     "init_decode_caches",
 ]
 
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -77,7 +86,7 @@ def check_ported(cfg: ModelConfig) -> None:
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported to "
         f"repro_torch yet (ROADMAP.md "
-        f"queue 1, item 5); the port runs the families "
+        f"queue 1, item 6); the port runs the families "
         f"{', '.join(PORTED_FAMILIES)}")
 
 
@@ -96,21 +105,29 @@ def layer_params(params: dict, cfg: ModelConfig, i: int,
     return L.sub(params, f"{prefix}_{i}")
 
 
-def _norm_scale(name: str) -> bool:
-    """Whether a layer leaf is a norm scale, held in float32 (``Norm``,
-    MLA's ``q_norm`` and ``kv_norm``); the rest is held in the compute
-    dtype."""
-    return name.startswith("norm") or name.endswith("_norm")
+#: leaves, by their last path component, that the reference reads as
+#: float32 from the master (``.astype(jnp.float32)``): MLA's norm
+#: scales, the SSM's gated-norm scale, step bias, decay and skip, and
+#: the hybrid's fusion gains
+_F32_LEAVES = frozenset({"q_norm", "kv_norm", "norm", "dt_bias", "a_log",
+                         "d_skip", "gain_attn", "gain_ssm"})
+
+
+def held_f32(name: str) -> bool:
+    """Whether a layer leaf (``"norm1/scale"``, ``"ssm/a_log"``, or a
+    block's own ``"a_log"``) is held in float32: a ``Norm``'s leaves and
+    ``_F32_LEAVES``; the rest is held in the compute dtype."""
+    return (name.split("/", 1)[0].startswith("norm")
+            or name.rsplit("/", 1)[-1] in _F32_LEAVES)
 
 
 def _layer_dicts(params: dict, cfg: ModelConfig,
                  prefix: str = "layers") -> list[dict]:
     """Every layer's flat dict.  A stacked leaf is cast once to the
-    dtype its block holds (``_norm_scale``) and split by one
-    ``unbind``."""
+    dtype its block holds (``held_f32``) and split by one ``unbind``."""
     if not cfg.scan_layers:
         return [L.sub(params, f"{prefix}_{i}") for i in range(cfg.n_layers)]
-    split = {k: v.to(torch.float32 if _norm_scale(k)
+    split = {k: v.to(torch.float32 if held_f32(k)
                      else cfg.compute_dtype).unbind(0)
              for k, v in L.sub(params, prefix).items()}
     return [{k: v[i] for k, v in split.items()} for i in range(cfg.n_layers)]
@@ -142,12 +159,16 @@ def _remat(fn, cfg: ModelConfig):
 
 class Weights(nn.Module):
     """One block's weights as buffers under the reference's names, cast
-    once; ``weights`` is the flat dict the ``layers`` functions read."""
+    once to ``dtype``, but the leaves the reference reads as float32
+    (``held_f32``) to float32; ``weights`` is the flat dict the
+    ``layers`` functions read."""
 
     def __init__(self, params: dict, dtype: torch.dtype, device=None):
         super().__init__()
         for name, t in params.items():
-            self.register_buffer(name, t.to(device=device, dtype=dtype))
+            self.register_buffer(name, t.to(
+                device=device,
+                dtype=torch.float32 if held_f32(name) else dtype))
 
     @property
     def weights(self) -> dict:
@@ -190,12 +211,7 @@ class MLA(Weights):
     float32 (``mla._rms`` reads them so)."""
 
     def __init__(self, params: dict, cfg: ModelConfig, device=None):
-        super().__init__({k: v for k, v in params.items()
-                          if not _norm_scale(k)}, cfg.compute_dtype, device)
-        for k, v in params.items():
-            if _norm_scale(k):
-                self.register_buffer(k, v.to(device=device,
-                                             dtype=torch.float32))
+        super().__init__(params, cfg.compute_dtype, device)
         self.cfg = cfg
 
     def forward(self, x, *, positions, cache=None, angles=None):
@@ -215,35 +231,90 @@ class MoE(Weights):
         return moe_mod.moe_ffn(self.weights, self.cfg, x)
 
 
+class SSM(Weights):
+    """The Mamba2 block: ``in_proj``, ``conv_w``, ``conv_b`` and
+    ``out_proj`` in the compute dtype, ``norm``, ``dt_bias``, ``a_log``
+    and ``d_skip`` in float32."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__(params, cfg.compute_dtype, device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, cache=None):
+        return ssm_mod.ssm_block(self.weights, self.cfg, x, cache=cache)
+
+
+def _fuse_paths(gains: dict, a_out: torch.Tensor,
+                s_out: torch.Tensor) -> torch.Tensor:
+    """Hymba-style fusion: each path RMS-normalized in float32, times its
+    float32 gain (``gains``: the layer's ``fuse/`` leaves), the mean of
+    the two, cast to the attention output's dtype."""
+    def _n(x):
+        xf = x.float()
+        return xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+
+    ga, gs = gains["gain_attn"].float(), gains["gain_ssm"].float()
+    return (0.5 * (_n(a_out) * ga + _n(s_out) * gs)).to(a_out.dtype)
+
+
 class DecoderLayer(nn.Module):
-    """norm -> attention (MLA with ``cfg.use_mla``) -> residual -> norm
-    -> MLP (MoE in the ``moe`` family) -> residual."""
+    """One layer by family: ``ssm`` norm -> SSM -> residual; the others
+    norm -> attention (MLA with ``cfg.use_mla``; in ``hybrid`` beside
+    the SSM on the same input, the two fused) -> residual -> norm -> MLP
+    (MoE in the ``moe`` family) -> residual."""
 
     def __init__(self, params: dict, cfg: ModelConfig, window: int,
                  device=None):
         super().__init__()
         check_ported(cfg)
+        fam = cfg.family
         self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
-        self.attn = (MLA(L.sub(params, "attn"), cfg, device) if cfg.use_mla
-                     else Attention(L.sub(params, "attn"), cfg, window,
-                                    device))
-        self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
-        moe = cfg.family == "moe"
-        self.moe = MoE(L.sub(params, "moe"), cfg, device) if moe else None
-        self.mlp = None if moe else MLP(L.sub(params, "mlp"), cfg, device)
+        self.attn = self.ssm = self.fuse = self.norm2 = self.moe = None
+        self.mlp = None
+        if cfg.attends:
+            self.attn = (MLA(L.sub(params, "attn"), cfg, device) if cfg.use_mla
+                         else Attention(L.sub(params, "attn"), cfg, window,
+                                        device))
+        if fam in ("ssm", "hybrid"):
+            self.ssm = SSM(L.sub(params, "ssm"), cfg, device)
+        if fam == "hybrid":
+            self.fuse = Weights(L.sub(params, "fuse"), cfg.compute_dtype,
+                                device)
+        if fam != "ssm":       # a pure mamba stack has no MLP (d_ff = 0)
+            self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
+            if fam == "moe":
+                self.moe = MoE(L.sub(params, "moe"), cfg, device)
+            else:
+                self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
 
     def forward(self, x, *, positions, cache=None, angles=None):
-        """Returns (x', new kv, aux): the new (k, v) (MLA: (ckv,
-        k_rope)) without a cache, else the updated cache; aux the
-        router's load-balance loss, None without a router."""
-        a, kv = self.attn(self.norm1(x), positions=positions, cache=cache,
-                          angles=angles)
-        x = x + a
+        """``cache``: the layer's {"attn": ..., "ssm": ...} in decode,
+        else None.  Returns (x', new, aux): ``new`` has the layer's
+        "attn" (the new (k, v) (MLA: (ckv, k_rope)) without a cache, else
+        the updated cache) and "ssm" (an ``SSMCache``) as its family has
+        them; aux the router's load-balance loss, None without a
+        router."""
+        cache = cache or {}
+        new = {}
+        h = self.norm1(x)
+        if self.attn is not None:
+            a, new["attn"] = self.attn(h, positions=positions,
+                                       cache=cache.get("attn"), angles=angles)
+        if self.ssm is not None:
+            s, new["ssm"] = self.ssm(h, cache=cache.get("ssm"))
+        if self.attn is None:
+            x = x + s
+        elif self.ssm is None:
+            x = x + a
+        else:
+            x = x + _fuse_paths(self.fuse.weights, a, s)
+        if self.norm2 is None:
+            return x, new, None
         h = self.norm2(x)
         if self.moe is None:
-            return x + self.mlp(h), kv, None
+            return x + self.mlp(h), new, None
         y, aux = self.moe(h)
-        return x + y, kv, aux
+        return x + y, new, aux
 
 
 class Transformer(nn.Module):
@@ -283,42 +354,45 @@ class Transformer(nn.Module):
         return x
 
     def run_stack(self, x, *, positions, caches=None, remat: bool = False):
-        """Every layer in turn.  Returns (x, kv, aux): without caches
-        the per-layer (k, v) (MLA: (ckv, k_rope)) list, with them the
-        advanced caches dict; aux the layers' load-balance losses
-        summed in layer order (float32, 0 without a router).
-        ``remat``: run each layer under ``cfg.remat_policy`` when grad
-        is enabled (the train mode)."""
+        """Every layer in turn.  Returns (x, new, aux): without caches
+        the per-layer dicts of ``DecoderLayer.forward``, with them the
+        caches dict, its attention cache advanced (the SSM cache is
+        updated in place); aux the layers' load-balance losses summed in
+        layer order (float32, 0 without a router).  ``remat``: run each
+        layer under ``cfg.remat_policy`` when grad is enabled (the train
+        mode)."""
         cfg = self.cfg
+        angles = None
         if cfg.use_mla:      # MLA rotates qk_rope_dim lanes, whatever pos
             angles = L.rope_angles(positions, cfg, cfg.qk_rope_dim,
                                    cfg.qk_rope_dim)
-        else:
-            angles = (L.rope_angles(positions, cfg, cfg.d_head)
-                      if cfg.pos == "rope" else None)
+        elif cfg.attends and cfg.pos == "rope":
+            angles = L.rope_angles(positions, cfg, cfg.d_head)
         remat = remat and caches is None and torch.is_grad_enabled()
-        kvs, aux = [], None
+        news, aux = [], None
         for i, layer in enumerate(self.layers):
-            cache = caches["attn"].layer(i) if caches is not None else None
+            cache = ({k: c.layer(i) for k, c in caches.items()}
+                     if caches is not None else None)
             call = _remat(layer, cfg) if remat else layer
-            x, kv, a = call(x, positions=positions, cache=cache,
-                            angles=angles)
+            x, new, a = call(x, positions=positions, cache=cache,
+                             angles=angles)
             if a is not None:
                 aux = a if aux is None else aux + a
-            kvs.append(kv)
+            news.append(new)
         aux = _zero_aux(x.device) if aux is None else aux
         if caches is None:
-            return x, kvs, aux
-        c = caches["attn"]
-        if cfg.use_mla:
-            c = mla_mod.MLACache(
+            return x, news, aux
+        caches = dict(caches)
+        c = caches.get("attn")
+        if isinstance(c, mla_mod.MLACache):
+            caches["attn"] = mla_mod.MLACache(
                 ckv=c.ckv, krope=c.krope,
                 length=min(c.length + 1, c.ckv.shape[-2]), pos=c.pos + 1)
-        else:
-            c = attn_mod.KVCache(
+        elif c is not None:
+            caches["attn"] = attn_mod.KVCache(
                 k=c.k, v=c.v, length=min(c.length + 1, c.k.shape[-3]),
                 pos=c.pos + 1, ring=c.ring)
-        return x, {"attn": c}, aux
+        return x, caches, aux
 
     def unembed(self, h) -> torch.Tensor:
         """Logits of final-normed hidden states ``h``."""
@@ -341,29 +415,47 @@ def _zero_aux(device) -> torch.Tensor:
 def layer_fn(params: dict, cfg: ModelConfig, x, *, positions, window: int,
              mode: str, cache=None):
     """One decoder layer from its flat dict. mode: train | prefill |
-    decode; ``cache``: {"attn": KVCache or MLACache} or None.  Returns
-    (x', new_cache, aux)."""
+    decode; ``cache``: the layer's {"attn": KVCache or MLACache, "ssm":
+    SSMCache} (as its family has them) or None.  Returns (x', new_cache,
+    aux), ``new_cache`` with the family's keys (None in train)."""
     layer = DecoderLayer(params, cfg, window, x.device)
-    x, kv, aux = layer(x, positions=positions,
-                       cache=cache.get("attn") if cache else None)
-    return (x, {"attn": kv if mode != "train" else None},
+    x, new, aux = layer(x, positions=positions, cache=cache)
+    return (x, {k: v if mode != "train" else None for k, v in new.items()},
             _zero_aux(x.device) if aux is None else aux)
+
+
+def _stack_ssm(news: list[dict]) -> ssm_mod.SSMCache:
+    """The layers' prefill ``SSMCache``s stacked on a leading L axis."""
+    return ssm_mod.SSMCache(conv=torch.stack([n["ssm"].conv for n in news]),
+                            state=torch.stack([n["ssm"].state for n in news]))
+
+
+def _stack_layers(news: list[dict]) -> dict:
+    """Per-layer prefill outputs stacked on a leading L axis: "attn" the
+    (k, v) (MLA: (ckv, k_rope)) pair, "ssm" an ``SSMCache``."""
+    out = {}
+    if "attn" in news[0]:
+        out["attn"] = tuple(torch.stack([n["attn"][j] for n in news])
+                            for j in range(2))
+    if "ssm" in news[0]:
+        out["ssm"] = _stack_ssm(news)
+    return out
 
 
 def run_stack(params, cfg: ModelConfig, x, *, positions, mode: str,
               caches=None):
     """The layer stack.  Returns (x, stacked caches, aux): prefill's
-    {"attn": (k, v)} (MLA: (ckv, k_rope)) stacked on a leading L axis,
-    decode's advanced {"attn": KVCache or MLACache}, None in train."""
+    {"attn": (k, v) (MLA: (ckv, k_rope)), "ssm": SSMCache} (as the
+    family has them) stacked on a leading L axis, decode's advanced
+    caches, None in train."""
     model = build(params, cfg, x.device)
-    x, kv, aux = model.run_stack(x, positions=positions, caches=caches,
-                                 remat=mode == "train")
+    x, new, aux = model.run_stack(x, positions=positions, caches=caches,
+                                  remat=mode == "train")
     if mode == "train":
         return x, None, aux
     if caches is not None:
-        return x, kv, aux
-    return x, {"attn": (torch.stack([k for k, _ in kv]),
-                        torch.stack([v for _, v in kv]))}, aux
+        return x, new, aux
+    return x, _stack_layers(new), aux
 
 
 def _positions(start: int, S: int, device) -> torch.Tensor:
@@ -389,18 +481,26 @@ def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None):
 
 def init_decode_caches(cfg: ModelConfig, batch: int, buf_len: int,
                        long_context: bool = False, device=None) -> dict:
-    """Stacked (L-leading) caches for decode: MLA's latent cache with
-    ``cfg.use_mla``, else K/V in a ring buffer of the window's size when
-    ``long_context`` and the config has a window."""
+    """Stacked (L-leading) caches for decode: "ssm" for the ``ssm`` and
+    ``hybrid`` families; "attn" for every family that attends: MLA's
+    latent cache with ``cfg.use_mla``, else K/V in a ring buffer of the
+    window's size when ``long_context`` and the config has a window."""
     check_ported(cfg)
+    caches = {}
     if cfg.use_mla:
-        return {"attn": mla_mod.init_mla_cache(
-            cfg, batch, buf_len, layers=cfg.n_layers, device=device)}
-    ring = long_context and cfg.window > 0
-    buf = min(buf_len, cfg.window) if ring else buf_len
-    return {"attn": attn_mod.init_cache(
-        cfg, batch, buf, cfg.n_kv_heads, cfg.d_head, ring=ring,
-        layers=cfg.n_layers, device=device)}
+        caches["attn"] = mla_mod.init_mla_cache(
+            cfg, batch, buf_len, layers=cfg.n_layers, device=device)
+    elif cfg.attends:
+        ring = long_context and cfg.window > 0
+        buf = min(buf_len, cfg.window) if ring else buf_len
+        caches["attn"] = attn_mod.init_cache(
+            cfg, batch, buf, cfg.n_kv_heads, cfg.d_head, ring=ring,
+            layers=cfg.n_layers, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        caches["ssm"] = ssm_mod.init_ssm_cache(cfg, batch,
+                                               layers=cfg.n_layers,
+                                               device=device)
+    return caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
@@ -413,37 +513,44 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     model = build(params, cfg)
     x = model.embed_input(tokens, prefix_embeds)
     S = x.shape[1]
-    x, kvs, _ = model.run_stack(x, positions=_positions(0, S, x.device))
+    x, news, _ = model.run_stack(x, positions=_positions(0, S, x.device))
     logits = model.unembed(model.norm_f(x[:, -1:]))
-    caches = _assemble_prefill_caches(cfg, kvs, S,
+    caches = _assemble_prefill_caches(cfg, news, S,
                                       buf_len if buf_len else S + 64)
     return logits[:, 0], caches
 
 
-def _assemble_prefill_caches(cfg: ModelConfig, kv_per_layer, S: int,
+def _assemble_prefill_caches(cfg: ModelConfig, news: list[dict], S: int,
                              buf_len: int) -> dict:
-    """Per-layer prefill (k, v) [B, S, KV, Dh] (MLA: (ckv, k_rope)
-    [B, S, kv_lora] and [B, S, qk_rope_dim]) into one stacked linear
-    cache of ``max(buf_len, S)`` slots, zero past the prompt."""
+    """Per-layer prefill outputs (``DecoderLayer.forward``'s dicts) into
+    decode-ready stacked caches: the (k, v) [B, S, KV, Dh] (MLA: (ckv,
+    k_rope) [B, S, kv_lora] and [B, S, qk_rope_dim]) into one linear
+    cache of ``max(buf_len, S)`` slots, zero past the prompt; the SSM
+    caches stacked on a leading L axis."""
+    caches = {"ssm": _stack_ssm(news)} if "ssm" in news[0] else {}
+    if "attn" not in news[0]:
+        return caches
     stacked = []
     for j in range(2):
-        x0 = kv_per_layer[0][j]
-        shape = (cfg.n_layers, x0.shape[0], max(buf_len, S)) + x0.shape[2:]
-        buf = torch.zeros(shape, dtype=x0.dtype, device=x0.device)
-        for i, kv in enumerate(kv_per_layer):
-            buf[i, :, :S] = kv[j]
+        x0 = news[0]["attn"][j]
+        buf = x0.new_zeros((cfg.n_layers, x0.shape[0], max(buf_len, S))
+                           + x0.shape[2:])
+        for i, n in enumerate(news):
+            buf[i, :, :S] = n["attn"][j]
         stacked.append(buf)
     if cfg.use_mla:
-        return {"attn": mla_mod.MLACache(ckv=stacked[0], krope=stacked[1],
-                                         length=S, pos=S)}
-    return {"attn": attn_mod.KVCache(k=stacked[0], v=stacked[1], length=S,
-                                     pos=S, ring=False)}
+        caches["attn"] = mla_mod.MLACache(ckv=stacked[0], krope=stacked[1],
+                                          length=S, pos=S)
+    else:
+        caches["attn"] = attn_mod.KVCache(k=stacked[0], v=stacked[1],
+                                          length=S, pos=S, ring=False)
+    return caches
 
 
 def decode_step(params, cfg: ModelConfig, caches: dict, token, pos):
     """One decode step: token [B] int, pos (int or 0-d) the token's
     absolute position.  -> (logits [B, V], caches), the caches updated
-    in place (``models.attention``)."""
+    in place (``models.attention``, ``models.ssm``)."""
     model = build(params, cfg)
     pos = int(pos)
     x = model.embed.tokens[token.to(model.device)[:, None]]

@@ -3,8 +3,8 @@ card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
 all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
 sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
 (sharded registries, the mesh transport, socket sessions, the chaos
-sim, model serving and training, the MoE family) on the card against
-the CPU.  Every test here carries the ``gpu`` marker and skips without
+sim, model serving and training, the MoE, SSM and hybrid families) on
+the card against the CPU.  Every test here carries the ``gpu`` marker and skips without
 a CUDA device
 (decided in a fixture, never at import time).
 
@@ -1581,9 +1581,9 @@ def test_cuda_serve_launcher_smoke_exits_zero(cuda):
 # launch.train)
 # ---------------------------------------------------------------------------
 
-def train_run(device, state, cfg, n_steps: int = 3):
+def train_run(device, state, cfg, n_steps: int = 3, seq: int = 32):
     """``n_steps`` of the port's train step from ``state`` (copied to
-    ``device``) on the smoke data stream."""
+    ``device``) on the smoke data stream (``seq`` tokens a row)."""
     from repro_torch.checkpoint.manager import _leaves, _rebuild
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import OptConfig
@@ -1591,7 +1591,7 @@ def train_run(device, state, cfg, n_steps: int = 3):
     from repro_torch.runtime.training import make_train_step
 
     state = _rebuild(state, lambda key, t: t.to(device))
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=8))
     step = make_train_step(cfg, OptConfig(lr=1e-3, total_steps=10),
                            ClockConfig(m=64))
     metrics = []
@@ -1603,7 +1603,7 @@ def train_run(device, state, cfg, n_steps: int = 3):
     return _rebuild(state, lambda key, t: t.cpu()), metrics, dict(_leaves(state))
 
 
-def smoke_train_state(state_dtype="float32", arch="qwen1_5_0_5b"):
+def smoke_train_state(state_dtype="float32", arch="qwen1_5_0_5b", **kw):
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -1611,7 +1611,7 @@ def smoke_train_state(state_dtype="float32", arch="qwen1_5_0_5b"):
     from repro_torch.runtime.clock_runtime import ClockConfig
     from repro_torch.runtime.training import init_train_state
 
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
     state = init_train_state(torch.Generator().manual_seed(0), cfg,
                              OptConfig(total_steps=10, state_dtype=state_dtype),
                              ClockConfig(m=64), device="cpu")
@@ -1903,3 +1903,95 @@ def test_cuda_serve_launcher_deepseek_smoke_exits_zero(cuda):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "[serve] deepseek-smoke on cuda: prefill 4x32" in proc.stdout
     assert "[serve] engine clock sum: 80" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families (repro_torch.models.ssm)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2_130m", "hymba_1_5b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_cuda_ssm_forward_prefill_decode_match_cpu(cuda, arch):
+    """Each smoke config in float32 on the card and the CPU from the same
+    weights: forward_train logits, prefill logits and caches, 4 decode
+    steps and the caches after them (the SSM caches written in place)
+    within rtol 1e-4 / atol 1e-4."""
+    from repro_torch.models import transformer as T
+
+    cfg, params = moe_smoke(arch)
+    tok = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab, (2, 12)))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    runs = []
+    for dev in ("cpu", cuda):
+        model = T.build(params, cfg, dev)
+        logits, _ = T.forward_train(model, cfg, tok)
+        pre, caches = T.prefill(model, cfg, tok[:, :8], buf_len=16)
+        steps = [pre]
+        for t in range(8, 12):
+            lo, caches = T.decode_step(model, cfg, caches, tok[:, t], t)
+            steps.append(lo)
+        runs.append((logits, steps, caches))
+    (lc, sc, cc), (lg, sg, cg) = runs
+    torch.testing.assert_close(lg.cpu(), lc, **tol)
+    for g, c in zip(sg, sc):
+        torch.testing.assert_close(g.cpu(), c, **tol)
+    assert sorted(cg) == sorted(cc)
+    torch.testing.assert_close(cg["ssm"].state.cpu(), cc["ssm"].state, **tol)
+    torch.testing.assert_close(cg["ssm"].conv.cpu(), cc["ssm"].conv, **tol)
+    if "attn" in cc:
+        torch.testing.assert_close(cg["attn"].k.cpu(), cc["attn"].k, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_cuda_ssm_serving_engine_matches_cpu(cuda, arch):
+    """Each smoke config in float32 served on the card and the CPU
+    (admit, generate, migrate): greedy tokens, clocks, registry rows and
+    the adoption mask identical, logits within 1e-4; tick, merge-compare
+    and i32 one-vs-many launched on the card."""
+    cfg, params = moe_smoke(arch)
+    ops.reset_launches()
+    got = serving_run(cuda, params, cfg)
+    launched = {k: ops.LAUNCHES[k] for k in ("bloom_tick", "bloom_merge_compare",
+                                             "one_vs_many_i32")}
+    assert launched == {"bloom_tick": 17, "bloom_merge_compare": 1,
+                        "one_vs_many_i32": 1}, launched
+    want = serving_run("cpu", params, cfg)
+    for g, w in zip(got["tokens"], want["tokens"]):
+        assert torch.equal(g, w)
+    assert list(got["mask"]) == list(want["mask"]) == [True, False]
+    for g, w in zip(got["clocks"], want["clocks"]):
+        np.testing.assert_array_equal(g, w)
+    for name, g in got["rows"].items():
+        np.testing.assert_array_equal(g, want["rows"][name], err_msg=name)
+    torch.testing.assert_close(got["logits"], want["logits"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_cuda_ssm_train_step_at_chunk_128_matches_cpu(cuda, arch):
+    """Two float32 steps of each smoke config at the full configs' chunk
+    (Q = 128, seq 128, where the reference's SSD gradient overflows) on
+    the card and the CPU from one state: one tick launch a step, losses
+    and grad norms finite and within rtol 2e-4, clock cells identical,
+    params within rtol 2e-4 / atol 2e-5."""
+    cfg, state = smoke_train_state(arch=arch, ssm_chunk=128)
+    ops.reset_launches()
+    got, gm, _ = train_run(cuda, state, cfg, n_steps=2, seq=128)
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    assert launched == {"bloom_tick": 2}, launched
+    want, wm, _ = train_run("cpu", state, cfg, n_steps=2, seq=128)
+    for g, w in zip(gm, wm):
+        assert np.isfinite(g["loss"]) and np.isfinite(g["grad_norm"])
+        assert g["clock_sum"] == w["clock_sum"]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=2e-4)
+    assert torch.equal(got.clock_cells, want.clock_cells)
+    for k in want.params:
+        assert bool(got.params[k].isfinite().all()), k
+        np.testing.assert_allclose(got.params[k].numpy(), want.params[k].numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)

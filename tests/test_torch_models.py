@@ -418,8 +418,7 @@ def test_layer_fn_and_run_stack_match_the_model():
     assert none is None and torch.equal(y2, y)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1_5b",
-                                  "whisper_large_v3"])
+@pytest.mark.parametrize("arch", ["whisper_large_v3"])
 def test_unported_families_raise(arch):
     _, cfg = smoke_pair(arch, dtype="float32")
     p = TP.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -427,5 +426,5 @@ def test_unported_families_raise(arch):
     for call in (lambda: TT.forward_train(p, cfg, tok),
                  lambda: TT.prefill(p, cfg, tok),
                  lambda: TT.init_decode_caches(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
             call()

@@ -214,12 +214,15 @@ def run_both(jcfg, tcfg, n_steps, opt=dict(lr=1e-3, total_steps=10), **kw):
     *(pytest.param(a, n, id=f"{a}-{n}") for a, n in (
         ("stablelm_1_6b", 1), ("granite_20b", 1), ("pixtral_12b", 1),
         ("grok_1_314b", 1), ("deepseek_v2_236b", 1),
-        ("deepseek_v2_236b", 3)))])
+        ("deepseek_v2_236b", 3), ("mamba2_130m", 1), ("hymba_1_5b", 1),
+        ("hymba_1_5b", 3)))])
 def test_train_steps_match_reference(arch, n_steps):
     """One and three steps at float32 compute under OptConfig(total_steps
-    =10)'s warmup, for the dense and vlm smoke configs and both ``moe``
+    =10)'s warmup, for the dense and vlm smoke configs, both ``moe``
     ones (whose router aux enters the loss with ``aux_coef`` and carries
-    a gradient into the router): loss, aux and grad norm per step and
+    a gradient into the router) and the ``ssm`` and ``hybrid`` ones
+    (the SSD at the smoke chunk, 16, where the reference's gradient is
+    finite): loss, aux and grad norm per step and
     every param within rtol 2e-4 / atol 2e-5; clock cells, the step and
     lr identical."""
     jcfg, tcfg = smoke_pair(arch, dtype="float32")
@@ -383,10 +386,9 @@ def test_unstacked_layout_matches_reference():
 
 
 def test_families_not_yet_ported_raise():
-    """The SSM, hybrid and enc-dec families raise ``NotImplementedError``
-    when a train step is made for them (ROADMAP queue 1, item 5, part
-    2)."""
-    for arch in ("mamba2_130m", "hymba_1_5b", "whisper_large_v3"):
+    """The enc-dec family raises ``NotImplementedError`` when a train
+    step is made for it (ROADMAP queue 1, item 6)."""
+    for arch in ("whisper_large_v3",):
         cfg = tconfigs.get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="not ported"):
             TT.make_train_step(cfg, TA.OptConfig(), TClockConfig(m=64))
