@@ -10,7 +10,7 @@ builds the kernels and runs phase 4b alone (with the unsharded gossip
 sim it is held to), its shards of s <= the card count on distinct cards.
 ``python3 chip_smoke.py --model-only`` builds them and runs phase 10
 alone, ``--train-only`` phase 11 alone, ``--moe-only`` phase 12 alone,
-``--ssm-only`` phase 13 alone.
+``--ssm-only`` phase 13 alone, ``--encdec-only`` phase 14 alone.
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -190,8 +190,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     card and the CPU (``model_run`` with 4 tokens, routes logged by
     forward hooks): clocks, registry rows and masks identical, the share
     of tokens whose experts differ printed, logits and greedy tokens
-    held on the rows whose routes agree so far; one DeepSeek-V2 train
-    step card vs CPU;
+    held on the rows whose routes agree so far (the DeepSeek-V2 train
+    step card vs CPU is cut for the script's time limit; the ``gpu``
+    tests hold the MoE train step card vs CPU at the smoke config);
 13. the SSM and hybrid families (``[ssm]`` lines): (a) mamba2-130m and
     hymba-1.5b at their full configs, nothing cut (weights random from
     the seed), each serving ``launch.serve``'s defaults as phase 10 (a)
@@ -209,11 +210,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     and the SSM caches within tolerance, greedy tokens identical outside
     near ties; one train step at batch 2, seq 128 held to the AdamW
     bound;
-14. one JSON line of kernel records (the three serving kernels also
+14. the enc-dec family (``[encdec]`` lines): (a) whisper-large-v3 at
+    its full config, nothing cut (weights random from the seed), serving
+    ``launch.serve``'s batch, prompt and tokens with frames [4, 1,500,
+    1,280] from a seeded CPU generator, through the functional entry
+    points (the engine passes no frames, as the reference's does not):
+    encode ms, prefill ms, the bare decode step beside its bound (the
+    decoder's weights but the cross K/V projections, the cross K/V, the
+    self K/V), tok/s, one decode step under the profiler, peak memory;
+    (b) ``make_train_step`` at the full config, seq 128, lr 3e-3,
+    float32 AdamW, 4 steps, at the largest batch of 8, 4, 2, 1 whose
+    first step stays under 76 GB (the encoder keeps its activations, as
+    the reference's does): every loss and grad norm finite, one tick a
+    step with the launch counts reset just before and read just after,
+    step ms beside its FLOP and AdamW-byte least times, tokens/s, peak
+    memory, one step under the profiler; (c) the full widths at depth 2
+    (decoder and encoder), full-length frames, on the card and the CPU:
+    prefill and 4 decode steps (logits and the cross and self K/V within
+    tolerance, greedy tokens identical outside near ties), one train
+    step held to the AdamW bound;
+15. one JSON line of kernel records (the three serving kernels also
     carry their launches on the serving path, the four training
     kernels theirs on the training path, tick, merge_compare and i32
-    one-vs-many theirs on the MoE and the SSM phases), the card line,
-    then the verdict line.
+    one-vs-many theirs on the MoE and the SSM phases, tick its ticks on
+    the enc-dec path), the card line, then the verdict line.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
 resolves (``card_blocks``): the committed table's ``cuda`` entries under
@@ -224,6 +244,7 @@ No JAX and nothing of the JAX package is imported.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pathlib
@@ -3319,18 +3340,19 @@ def sync(device) -> None:
 
 
 def decode_steps(model, cfg, prompts, feed=None, timed: bool = False,
-                 n_gen: int = MODEL_GEN):
-    """Prefill, then ``n_gen`` greedy decode steps on the bare model
-    (no clocks): each step's logits as float32 on the host, the tokens
-    fed (``feed``'s where given, else the argmax), the prefill's and,
-    with ``timed``, each step's host-clock ms to a synchronise."""
+                 n_gen: int = MODEL_GEN, frames=None):
+    """Prefill (an enc-dec model's with the encoder over ``frames``),
+    then ``n_gen`` greedy decode steps on the bare model (no clocks):
+    each step's logits as float32 on the host, the tokens fed
+    (``feed``'s where given, else the argmax), the prefill's and, with
+    ``timed``, each step's host-clock ms to a synchronise."""
     import torch
     from repro_torch.models import transformer as T
 
     dev = model.device
     sync(dev)
     t0 = time.perf_counter()
-    logits, caches = T.prefill(model, cfg, prompts,
+    logits, caches = T.prefill(model, cfg, prompts, enc_frames=frames,
                                buf_len=MODEL_PROMPT + MODEL_GEN + 8)
     sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -3492,22 +3514,18 @@ def model_run(device, params, cfg, feed=None, n_gen: int = MODEL_GEN) -> dict:
                       "B": dict(b.sessions._slot_of)}}
 
 
-def compare_model_runs(g: dict, c: dict, tag: str, held=None) -> tuple:
-    """Hold two ``model_run``s, the card's ``g`` and the CPU's ``c`` (fed
-    the card's tokens): logits within ``LOGIT_ATOL + LOGIT_RTOL |x|``
-    and greedy tokens identical outside near ties, on the rows ``held``
-    [B, steps] marks at each step (all of them without it); the
-    engines' tokens identical up to a row's first difference, which must
-    fall on a near tie or an unheld step; clocks, registry rows and
-    slots, the adopt_many mask and the lineage identical, fp within
-    tolerance.  Returns (max logit gap, excused [B, steps], rows whose
-    engine tokens diverged, fp gap)."""
-    steps = len(g["steps"]["logits"])
+def compare_logit_steps(gl: list, cl: list, tag: str, held=None) -> tuple:
+    """Hold two ``decode_steps`` runs' logits, the card's ``gl`` and the
+    CPU's ``cl`` (fed the card's tokens): within ``LOGIT_ATOL +
+    LOGIT_RTOL |x|`` and greedy tokens identical outside near ties, on
+    the rows ``held`` [B, steps] marks at each step (all of them
+    without it).  Returns (max logit gap, excused [B, steps]: near ties
+    and unheld steps)."""
+    steps = len(gl)
     if held is None:
         held = np.ones((MODEL_BATCH, steps), bool)
     max_gap, excused = 0.0, np.zeros((MODEL_BATCH, steps), bool)
-    for i, (lg, lc) in enumerate(zip(g["steps"]["logits"],
-                                     c["steps"]["logits"])):
+    for i, (lg, lc) in enumerate(zip(gl, cl)):
         lg, lc = lg.numpy(), lc.numpy()
         check(bool(np.isfinite(lg).all() and np.isfinite(lc).all()),
               f"{tag} non-finite logits at step {i}")
@@ -3525,6 +3543,19 @@ def compare_model_runs(g: dict, c: dict, tag: str, held=None) -> tuple:
         same = lg.argmax(-1) == lc.argmax(-1)
         check(bool((same | excused[:, i]).all()),
               f"{tag} greedy tokens of step {i} differ past the tolerance")
+    return max_gap, excused
+
+
+def compare_model_runs(g: dict, c: dict, tag: str, held=None) -> tuple:
+    """Hold two ``model_run``s, the card's ``g`` and the CPU's ``c`` (fed
+    the card's tokens): the bare runs' logits by ``compare_logit_steps``
+    (on the rows ``held`` marks); the engines' tokens identical up to a
+    row's first difference, which must fall on a near tie or an unheld
+    step; clocks, registry rows and slots, the adopt_many mask and the
+    lineage identical, fp within tolerance.  Returns (max logit gap,
+    excused [B, steps], rows whose engine tokens diverged, fp gap)."""
+    max_gap, excused = compare_logit_steps(
+        g["steps"]["logits"], c["steps"]["logits"], tag, held)
     # the engines' tokens: identical up to a row's first difference,
     # which must fall on a step whose top two logits are within tolerance
     diverged = 0
@@ -3786,7 +3817,8 @@ def train_run(device, state, cfg, opt_cfg, clock_cfg, n_steps: int,
               seq: int = TRAIN_CMP_SEQ) -> dict:
     """``n_steps`` of the launcher's train step from ``state`` (copied to
     ``device``) on the launcher's data stream at the cut batch and
-    sequence (``seq``)."""
+    sequence (``seq``); an enc-dec config's batch with a step's frames
+    (``encdec_frames``)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.runtime.training import make_train_step
 
@@ -3798,6 +3830,9 @@ def train_run(device, state, cfg, opt_cfg, clock_cfg, n_steps: int,
     for s in range(n_steps):
         batch = data.batch(s, device=device)
         batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        if cfg.is_encdec:
+            batch["enc_frames"] = encdec_frames(TRAIN_CMP_BATCH, cfg,
+                                                s).to(device)
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
     return {"state": state, "metrics": metrics}
@@ -4113,11 +4148,6 @@ MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 8, 128, 4
 #: and the engines' generate cut to 4 tokens (a CPU decode step reads
 #: every expert's weights, 13 GB for grok)
 MOE_CMP_GEN = 4
-#: int8-moment training across devices: the share of params that may
-#: part by more than the AdamW step bound (an int8 code of v rounding to
-#: 0 on one side divides m by eps there; tests/test_torch_training.py
-#: saw 37 of 191,456 at the smoke config)
-MOE_PARTED_SHARE = 1e-3
 
 
 def moe_cfg(arch: str, layers: int, **cuts):
@@ -4339,68 +4369,6 @@ def moe_cpu_check(dev, arch: str) -> dict:
             "fp_abs_gap": fp_gap, "card_s": t_card, "cpu_s": t_cpu}
 
 
-def moe_train_cpu_check(dev) -> dict:
-    """Phase 12 (c), training: one step of (b)'s DeepSeek-V2 config
-    (full widths, depth 1, bfloat16 masters, int8 moments) at batch
-    ``TRAIN_CMP_BATCH``, seq ``TRAIN_CMP_SEQ`` on the card and the CPU
-    from one state: clock cells and the step identical, loss, aux and
-    grad norm within ``TRAIN_LOSS_RTOL``; params within the step's AdamW
-    bound (2 x 1.0003 x lr plus the weight decay's share) and one
-    bfloat16 rounding a side, but for at most ``MOE_PARTED_SHARE``
-    of them."""
-    import torch
-    from repro_torch.causal import CausalPolicy
-    from repro_torch.runtime.clock_runtime import ClockConfig
-    from repro_torch.runtime.training import init_train_state
-
-    cfg = moe_cfg("deepseek_v2_236b", MOE_TRAIN_LAYERS)
-    opt_cfg = train_opt(1, "int8")
-    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
-    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
-                             opt_cfg, clock_cfg, device=dev)
-    t0 = time.perf_counter()
-    g = train_run(dev, state, cfg, opt_cfg, clock_cfg, 1)
-    t_card = time.perf_counter() - t0
-    gs = g.pop("state")                 # stays on the card (host memory)
-    start = move_state(state, "cpu")
-    del state
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    c = train_run("cpu", start, cfg, opt_cfg, clock_cfg, 1)
-    t_cpu = time.perf_counter() - t0
-    del start
-    cs = c["state"]
-    check_equal(host(gs.clock_cells), host(cs.clock_cells),
-                "[moe] train card vs CPU clock cells")
-    check(int(gs.step) == int(cs.step) == 1, "[moe] train steps")
-    (mg,), (mc,) = g["metrics"], c["metrics"]
-    gaps = {}
-    for key in ("loss", "aux", "grad_norm"):
-        gaps[key] = abs(mg[key] - mc[key]) / abs(mc[key])
-        check(gaps[key] <= TRAIN_LOSS_RTOL,
-              f"[moe] train {key}: card {mg[key]} CPU {mc[key]}")
-    lr = mc["lr"]
-    parted = n = 0
-    worst = 0.0
-    for k, p in cs.params.items():     # compared on the card, a leaf a time
-        q = gs.params[k]
-        check(q.dtype == p.dtype == torch.bfloat16, f"[moe] train param {k} dtype")
-        p, q = p.to(dev).float(), q.float()
-        d = (q - p).abs()
-        bound = (2 * 1.0003 * lr + 2 * lr * opt_cfg.weight_decay * p.abs()
-                 + 2 ** -7 * p.abs())
-        parted += int((d > bound).sum())
-        n += d.numel()
-        worst = max(worst, float(d.max()))
-        check(bool(torch.isfinite(q).all()), f"[moe] train param {k} not finite")
-    check(parted <= MOE_PARTED_SHARE * n,
-          f"[moe] train: {parted} of {n} params past the AdamW step bound")
-    return {"params": cfg.n_params(), "batch": TRAIN_CMP_BATCH,
-            "seq": TRAIN_CMP_SEQ, "metrics": [mg, mc], "rel_gaps": gaps,
-            "parted": parted, "of": n, "max_param_gap": worst,
-            "card_s": t_card, "cpu_s": t_cpu}
-
-
 def moe_phase(dev, rate: float) -> dict:
     """Phase 12: (a) serving each config at ``MOE_SERVE_LAYERS`` layers,
     and through the launcher's smoke in a child process, (b) training,
@@ -4483,13 +4451,6 @@ def moe_phase(dev, rate: float) -> dict:
               f"identical outside near ties, on the rows whose routes agree "
               f"so far: {json.dumps(small)}")
         torch.cuda.empty_cache()
-    tc = moe_train_cpu_check(dev)
-    print(f"[moe] deepseek_v2_236b one train step, card and CPU from one state "
-          f"(depth 1, full widths, batch {TRAIN_CMP_BATCH}, seq "
-          f"{TRAIN_CMP_SEQ}): clock cells identical, loss, aux and grad norm "
-          f"within {TRAIN_LOSS_RTOL}, params within the AdamW step bound but "
-          f"for at most {MOE_PARTED_SHARE} of them: {json.dumps(tc)}")
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -4605,24 +4566,76 @@ def drive_ssm_train(dev, arch: str) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def cache_gap_of(g, c, what: str) -> float:
+    """A cache tensor on the card ``g`` and the CPU ``c``: finite and
+    within ``LOGIT_ATOL + LOGIT_RTOL |x|``.  Returns the largest gap."""
+    a, b = host(g.float()), host(c.float())
+    gap = np.abs(a - b)
+    check(bool(np.isfinite(a).all()
+               and (gap <= LOGIT_ATOL + LOGIT_RTOL * np.abs(b)).all()),
+          f"{what} differs by {gap.max()} across devices")
+    return float(gap.max())
+
+
+def one_step_cpu_check(dev, cfg, seq: int, tag: str) -> dict:
+    """One train step at ``cfg``, batch ``TRAIN_CMP_BATCH``, seq ``seq``
+    on the card and the CPU from one state drawn on the card: clock
+    cells identical, loss and grad norm within ``TRAIN_LOSS_RTOL``,
+    every param within the most two AdamW steps can part
+    (``train_cpu_check``'s bound)."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state
+
+    opt_cfg = train_opt(1)
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    t0 = time.perf_counter()
+    gt = train_run(dev, state, cfg, opt_cfg, clock_cfg, 1, seq=seq)
+    t_card = time.perf_counter() - t0
+    start = move_state(state, "cpu")
+    del state
+    t0 = time.perf_counter()
+    ct = train_run("cpu", start, cfg, opt_cfg, clock_cfg, 1, seq=seq)
+    t_cpu = time.perf_counter() - t0
+    gs, cs = gt["state"], ct["state"]
+    check_equal(host(gs.clock_cells), host(cs.clock_cells),
+                f"{tag} train card vs CPU clock cells")
+    (mg,), (mc,) = gt["metrics"], ct["metrics"]
+    gaps = {}
+    for key in ("loss", "grad_norm"):
+        check(np.isfinite(mg[key]), f"{tag} train {key} {mg[key]}")
+        gaps[key] = abs(mg[key] - mc[key]) / abs(mc[key])
+        check(gaps[key] <= TRAIN_LOSS_RTOL,
+              f"{tag} train {key}: card {mg[key]} CPU {mc[key]}")
+    lr = mc["lr"]
+    p_max = max(float(p.abs().max()) for p in cs.params.values())
+    bound = 2 * 1.0003 * lr + 2 * lr * opt_cfg.weight_decay * p_max + 1e-6
+    worst = 0.0
+    for k, p in cs.params.items():
+        d = float((gs.params[k].cpu() - p).abs().max())
+        worst = max(worst, d)
+        check(d <= bound, f"{tag} train param {k}: card and CPU {d} "
+                          f"apart, past the AdamW bound {bound}")
+    return {"batch": TRAIN_CMP_BATCH, "seq": seq, "metrics": [mg, mc],
+            "rel_gaps": gaps, "max_param_gap": worst, "param_bound": bound,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
 def ssm_cpu_check(dev, arch: str) -> dict:
     """Phase 13 (c) for one config at the full widths, depth
     ``SSM_CMP_LAYERS``: the weights drawn once on the card and copied to
     the CPU; ``model_run`` on both (the CPU's bare decode fed the card's
     tokens), held by ``compare_model_runs``, and the bare runs' SSM
     caches after the decode within ``LOGIT_ATOL + LOGIT_RTOL |x|``; then
-    one train step at batch ``TRAIN_CMP_BATCH``, seq ``SSM_TRAIN_SEQ``
-    from one state: clock cells identical, loss and grad norm within
-    ``TRAIN_LOSS_RTOL``, every param within the most two AdamW steps can
-    part (``train_cpu_check``'s bound)."""
+    one train step at seq ``SSM_TRAIN_SEQ`` (``one_step_cpu_check``)."""
     import dataclasses
 
     import torch
-    from repro_torch.causal import CausalPolicy
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params
-    from repro_torch.runtime.clock_runtime import ClockConfig
-    from repro_torch.runtime.training import init_train_state
 
     cfg = dataclasses.replace(get_config(arch), n_layers=SSM_CMP_LAYERS)
     params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
@@ -4637,58 +4650,18 @@ def ssm_cpu_check(dev, arch: str) -> dict:
     t_cpu = time.perf_counter() - t0
     max_gap, excused, diverged, fp_gap = compare_model_runs(
         g, c, f"[ssm] {arch}")
-    cache_gap = {}
-    for name in ("conv", "state"):
-        a = host(getattr(g["steps"]["caches"]["ssm"], name).float())
-        b = host(getattr(c["steps"]["caches"]["ssm"], name).float())
-        gap = np.abs(a - b)
-        check(bool(np.isfinite(a).all()
-                   and (gap <= LOGIT_ATOL + LOGIT_RTOL * np.abs(b)).all()),
-              f"[ssm] {arch} SSM {name} cache differs by {gap.max()} "
-              f"across devices")
-        cache_gap[name] = float(gap.max())
+    cache_gap = {name: cache_gap_of(
+        getattr(g["steps"]["caches"]["ssm"], name),
+        getattr(c["steps"]["caches"]["ssm"], name),
+        f"[ssm] {arch} SSM {name} cache") for name in ("conv", "state")}
 
-    opt_cfg = train_opt(1)
-    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
-    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
-                             opt_cfg, clock_cfg, device=dev)
-    t0 = time.perf_counter()
-    gt = train_run(dev, state, cfg, opt_cfg, clock_cfg, 1, seq=SSM_TRAIN_SEQ)
-    t_train_card = time.perf_counter() - t0
-    start = move_state(state, "cpu")
-    del state
-    t0 = time.perf_counter()
-    ct = train_run("cpu", start, cfg, opt_cfg, clock_cfg, 1, seq=SSM_TRAIN_SEQ)
-    t_train_cpu = time.perf_counter() - t0
-    gs, cs = gt["state"], ct["state"]
-    check_equal(host(gs.clock_cells), host(cs.clock_cells),
-                f"[ssm] {arch} train card vs CPU clock cells")
-    (mg,), (mc,) = gt["metrics"], ct["metrics"]
-    gaps = {}
-    for key in ("loss", "grad_norm"):
-        check(np.isfinite(mg[key]), f"[ssm] {arch} train {key} {mg[key]}")
-        gaps[key] = abs(mg[key] - mc[key]) / abs(mc[key])
-        check(gaps[key] <= TRAIN_LOSS_RTOL,
-              f"[ssm] {arch} train {key}: card {mg[key]} CPU {mc[key]}")
-    lr = mc["lr"]
-    p_max = max(float(p.abs().max()) for p in cs.params.values())
-    bound = 2 * 1.0003 * lr + 2 * lr * opt_cfg.weight_decay * p_max + 1e-6
-    worst = 0.0
-    for k, p in cs.params.items():
-        d = float((gs.params[k].cpu() - p).abs().max())
-        worst = max(worst, d)
-        check(d <= bound, f"[ssm] {arch} train param {k}: card and CPU {d} "
-                          f"apart, past the AdamW bound {bound}")
+    train = one_step_cpu_check(dev, cfg, SSM_TRAIN_SEQ, f"[ssm] {arch}")
     return {"arch": arch, "layers": SSM_CMP_LAYERS, "params": cfg.n_params(),
             "max_logit_gap": max_gap, "near_tie_steps": int(excused.sum()),
             "rows_diverged_at_near_ties": diverged,
             "tokens_identical": bool((g["tokens"] == c["tokens"]).all()),
             "ssm_cache_max_gap": cache_gap, "fp_abs_gap": fp_gap,
-            "train": {"batch": TRAIN_CMP_BATCH, "seq": SSM_TRAIN_SEQ,
-                      "metrics": [mg, mc], "rel_gaps": gaps,
-                      "max_param_gap": worst, "param_bound": bound},
-            "card_s": t_card, "cpu_s": t_cpu, "train_card_s": t_train_card,
-            "train_cpu_s": t_train_cpu}
+            "train": train, "card_s": t_card, "cpu_s": t_cpu}
 
 
 def ssm_phase(dev, rate: float) -> dict:
@@ -4782,6 +4755,346 @@ def ssm_phase(dev, rate: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the enc-dec family (whisper-large-v3)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper_large_v3"
+#: the full config, nothing cut (src/repro/configs/whisper_large_v3.py):
+#: 32 encoder and 32 decoder layers, d 1,280, 20 heads x 64, d_ff 5,120,
+#: 1,500 frames, V 51,866 padded to 51,968, untied, learned positions
+ENCDEC_PARAMS = 1_656_586_240
+#: the train step: ``launch.train``'s seq 128, lr 3e-3, float32 AdamW, 4
+#: steps; the batch the largest of these whose step stays under
+#: ``ENCDEC_PEAK_GB`` on the card (the encoder keeps its activations: it
+#: runs without remat, as the reference runs it)
+ENCDEC_BATCHES, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = (8, 4, 2, 1), 128, 4
+ENCDEC_PEAK_GB = 76.0
+#: card against CPU: the full widths at depth 2 (decoder and encoder), the
+#: frames at the full 1,500; 4 decode steps; one train step at batch
+#: ``TRAIN_CMP_BATCH``, seq ``TRAIN_CMP_SEQ``
+ENCDEC_CMP_LAYERS, ENCDEC_CMP_GEN = 2, 4
+
+
+def encdec_frames(batch: int, cfg, step: int = 0):
+    """The encoder's input, frame embeddings [batch, enc_seq, d_model]
+    (the conv frontend is a stub), from a CPU generator seeded by the
+    step."""
+    import torch
+    return torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                       generator=torch.Generator().manual_seed(SEED + 2 + step))
+
+
+def encdec_step_flops(cfg, batch: int, seq: int) -> float:
+    """The matrix FLOPs of a train step (forward and backward: 6 a
+    parameter and a row it multiplies): the encoder's layers and the
+    cross K/V projections over ``batch`` x enc_seq frames, the rest of
+    the decoder and the head over ``batch`` x ``seq`` tokens; the
+    attention's scores and values at 12 Sq Skv d a layer and a sample
+    (the decoder's causal self-attention at half of seq^2)."""
+    from repro_torch.models.params import param_table
+
+    frames, enc, dec = batch * cfg.enc_seq, 0, 0
+    for k, info in param_table(cfg).items():
+        n = int(np.prod(info.shape))
+        if k.startswith(("enc_layers", "encoder/norm_f")) or re.fullmatch(
+                r"layers/cross/[wb][kv]", k):
+            enc += n
+        elif not k.startswith(("embed/", "encoder/pos")):
+            dec += n
+    se, d = cfg.enc_seq, cfg.d_model
+    attn = 12 * d * batch * (cfg.n_enc_layers * se * se
+                             + cfg.n_layers * (seq * seq / 2 + seq * se))
+    return 6 * (enc * frames + dec * batch * seq) + attn
+
+
+def drive_encdec(dev) -> dict:
+    """Phase 14 (a): the full config serving ``launch.serve``'s batch,
+    prompt and tokens through the functional entry points (the engine
+    passes no frames, as the reference's does not): the encoder alone,
+    then ``prefill`` with the frames and ``MODEL_GEN`` greedy
+    ``decode_step``s timed (``decode_steps``), one more decode step
+    profiled.  A decode step reads the decoder's weights but the cross
+    K/V projections (and of the embedding tables one row a token), the
+    cross K/V and the self-attention K/V of its position (counted at the
+    median timed step's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(ENCDEC_ARCH)
+    check(cfg.n_params() == ENCDEC_PARAMS,
+          f"[encdec] {cfg.n_params()} params, not {ENCDEC_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    model = T.build(params, cfg, dev)
+    del params
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    prompts = model_prompts(cfg.vocab).to(dev)
+    frames = encdec_frames(MODEL_BATCH, cfg).to(dev)
+    warm = decode_steps(model, cfg, prompts, frames=frames)   # cuBLAS set-up
+    del warm
+    sync(dev)
+    t0 = time.perf_counter()
+    enc = T.encode(model, cfg, frames)
+    sync(dev)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(enc.shape) == (MODEL_BATCH, cfg.enc_seq, cfg.d_model)
+          and bool(enc.isfinite().all()),
+          f"[encdec] encoder output {tuple(enc.shape)} or not finite")
+    del enc
+    timed = decode_steps(model, cfg, prompts, frames=frames, timed=True)
+    caches, nxt = timed["caches"], timed["next"]
+    toks = torch.stack(timed["fed"], 1)
+    check(tuple(toks.shape) == (MODEL_BATCH, MODEL_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"[encdec] generated tokens {tuple(toks.shape)} out of range")
+    check(all(bool(lo.isfinite().all()) for lo in timed["logits"]),
+          "[encdec] non-finite logits")
+    prof = profiled(lambda: T.decode_step(model, cfg, caches, nxt,
+                                          MODEL_PROMPT + MODEL_GEN))
+    weight_bytes = sum(
+        b.numel() * b.element_size() for n, b in model.named_buffers()
+        if not n.startswith(("encoder.", "embed."))
+        and not re.search(r"\.cross\.[wb][kv]$", n))
+    ck = caches["cross"].k
+    cross_bytes = 2 * ck.numel() * ck.element_size()
+    k = caches["attn"].k                 # [L, B, buf, KV, Dh]
+    kv_bytes = (2 * k[:, :, 0].numel() * k.element_size()
+                * (MODEL_PROMPT + MODEL_GEN // 2 + 1))
+    decode_s = sum(timed["ms"]) / 1e3
+    return {"params": cfg.n_params(), "frames": list(frames.shape),
+            "setup_s": setup_s,
+            "encode_ms": encode_ms, "prefill_ms": timed["prefill_ms"],
+            "decode_ms": float(np.median(timed["ms"][1:])),
+            "decode_ms_all": timed["ms"],
+            "tok_s": MODEL_BATCH * MODEL_GEN / decode_s, "profile": prof,
+            "weight_bytes": weight_bytes, "cross_bytes": cross_bytes,
+            "kv_bytes": kv_bytes, "sample": toks[:, :8].tolist(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def drive_encdec_train(dev) -> dict:
+    """Phase 14 (b): ``ENCDEC_TRAIN_STEPS`` steps of ``make_train_step``
+    at the full config, float32 masters and moments, seq
+    ``ENCDEC_TRAIN_SEQ``, each batch with its frames, the launch counts
+    reset just before and read just after.  The first step is tried at
+    each of ``ENCDEC_BATCHES`` in turn from the fresh state: a batch
+    that runs out of memory or peaks at ``ENCDEC_PEAK_GB`` or more is
+    dropped, and the first that fits is the run's (its first step the
+    run's first).  Every loss and grad norm finite, the params finite
+    after the run, one tick a step; one more step profiled."""
+    import torch
+    from repro_torch.causal import CausalPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import init_train_state, make_train_step
+
+    cfg = get_config(ENCDEC_ARCH)
+    check(cfg.param_dtype == "float32", f"[encdec] masters {cfg.param_dtype}")
+    opt_cfg = train_opt(ENCDEC_TRAIN_STEPS)
+    clock_cfg = ClockConfig(policy=CausalPolicy(fp_threshold=1e-4))
+    state = init_train_state(torch.Generator(dev).manual_seed(SEED), cfg,
+                             opt_cfg, clock_cfg, device=dev)
+    step = make_train_step(cfg, opt_cfg, clock_cfg)
+
+    def batch_of(s: int, b: int) -> dict:
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=ENCDEC_TRAIN_SEQ,
+                                      global_batch=b))
+        batch = data.batch(s, device=dev)
+        batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        batch["enc_frames"] = encdec_frames(b, cfg, s).to(dev)
+        return batch
+
+    ops.reset_launches()
+    tried, dropped = {}, 0
+    for b in ENCDEC_BATCHES:
+        batch = batch_of(0, b)
+        gc.collect()                 # what a failed attempt left behind
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        try:
+            new, m = step(state, batch)
+            sync(dev)
+        except torch.OutOfMemoryError:
+            tried[b] = "out of memory"
+            continue
+        first_ms = (time.perf_counter() - t0) * 1e3
+        tried[b] = torch.cuda.max_memory_allocated() / 1e9
+        if tried[b] < ENCDEC_PEAK_GB:
+            state = new
+            break
+        dropped += 1                 # a step that ran: its tick launched
+        del new, m
+    else:
+        raise SmokeFailure(f"[encdec] no train batch fits: {tried}")
+    del new, batch                   # the fresh state goes with them
+    print(f"[encdec] train batch {b}: first steps tried at {json.dumps(tried)} "
+          f"(peak GB)", flush=True)
+    ms, metrics = [first_ms], [{k: float(v) for k, v in m.items()}]
+    for s in range(1, ENCDEC_TRAIN_STEPS):
+        batch = batch_of(s, b)
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {k: ops.LAUNCHES[k] for k in MODEL_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, m in enumerate(metrics):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"[encdec] train step {i}: loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+        check(m["clock_sum"] == clock_cfg.k * (i + 1),
+              f"[encdec] train step {i}: clock_sum {m['clock_sum']}")
+    for k, p in state.params.items():
+        check(bool(p.isfinite().all()), f"[encdec] param {k} not finite")
+    check(launches["bloom_tick"] == ENCDEC_TRAIN_STEPS + dropped,
+          f"[encdec] {launches} launches in {ENCDEC_TRAIN_STEPS} steps "
+          f"(+{dropped} dropped)")
+    check(peak_gb < ENCDEC_PEAK_GB, f"[encdec] train peak {peak_gb} GB")
+    launches["bloom_tick"] -= dropped
+    prof = profiled(lambda: step(state, batch))
+    return {"params": cfg.n_params(), "batch": b, "tried": tried,
+            "enc_seq": cfg.enc_seq,
+            "step_ms": float(np.median(ms[1:])), "step_ms_all": ms,
+            "flops": encdec_step_flops(cfg, b, ENCDEC_TRAIN_SEQ),
+            "metrics": metrics, "profile": prof, "launches": launches,
+            "peak_gb": peak_gb}
+
+
+def encdec_cpu_check(dev) -> dict:
+    """Phase 14 (c): the full widths at depth ``ENCDEC_CMP_LAYERS``
+    (decoder and encoder), the weights drawn once on the card and copied
+    to the CPU, the same prompts and full-length frames on both: prefill
+    and ``ENCDEC_CMP_GEN`` decode steps (the CPU fed the card's tokens)
+    held by ``compare_logit_steps``, the cross and self K/V after them
+    within ``LOGIT_ATOL + LOGIT_RTOL |x|``; one train step
+    (``one_step_cpu_check``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
+                              n_layers=ENCDEC_CMP_LAYERS,
+                              n_enc_layers=ENCDEC_CMP_LAYERS)
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    prompts, frames = model_prompts(cfg.vocab), encdec_frames(MODEL_BATCH, cfg)
+    t0 = time.perf_counter()
+    g = decode_steps(T.build(params, cfg, dev), cfg, prompts.to(dev),
+                     frames=frames.to(dev), n_gen=ENCDEC_CMP_GEN)
+    t_card = time.perf_counter() - t0
+    params = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    c = decode_steps(T.build(params, cfg, "cpu"), cfg, prompts, feed=g["fed"],
+                     frames=frames, n_gen=ENCDEC_CMP_GEN)
+    t_cpu = time.perf_counter() - t0
+    del params
+    max_gap, excused = compare_logit_steps(g["logits"], c["logits"],
+                                           "[encdec]")
+    gc, cc = g["caches"], c["caches"]
+    cache_gap = {name: cache_gap_of(getattr(gc[key], n), getattr(cc[key], n),
+                                    f"[encdec] {name}")
+                 for name, key, n in (("cross k", "cross", "k"),
+                                      ("cross v", "cross", "v"),
+                                      ("self k", "attn", "k"),
+                                      ("self v", "attn", "v"))}
+    train = one_step_cpu_check(dev, cfg, TRAIN_CMP_SEQ, "[encdec]")
+    return {"layers": ENCDEC_CMP_LAYERS, "params": cfg.n_params(),
+            "max_logit_gap": max_gap, "near_tie_steps": int(excused.sum()),
+            "tokens_identical": all(
+                bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                for a, b in zip(g["logits"], c["logits"])),
+            "cache_max_gap": cache_gap, "train": train,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def encdec_phase(dev, rate: float) -> dict:
+    """Phase 14: (a) serving the full config, (b) training it, (c) card
+    against CPU at depth 2.  Returns the phase's launches (the train
+    steps' ticks)."""
+    import torch
+
+    run = drive_encdec(dev)
+    step_bytes = run["weight_bytes"] + run["cross_bytes"] + run["kv_bytes"]
+    bound_ms = step_bytes / rate * 1e3
+    prof = run["profile"]
+    print(f"[encdec] {ENCDEC_ARCH} full config ({run['params']} float32 "
+          f"masters, bfloat16 compute) on the card, {MODEL_BATCH} prompts of "
+          f"{MODEL_PROMPT} tokens, frames {run['frames']}: "
+          f"weights set up in {run['setup_s']:.2f} s; encode "
+          f"{run['encode_ms']} ms; prefill (encode, the decoder over the "
+          f"prompts, the cross K/V) {run['prefill_ms']} ms; {MODEL_GEN} greedy "
+          f"tokens {run['tok_s']} tok/s; sample {run['sample']}")
+    print(f"[encdec] decode step (bare model, host clock to a synchronise): "
+          f"median over steps 2-{MODEL_GEN} {run['decode_ms']} ms, all "
+          f"{json.dumps(run['decode_ms_all'])}; bound {bound_ms} ms "
+          f"({run['weight_bytes']} bytes of decoder weights and head, "
+          f"{run['cross_bytes']} of cross K/V, {run['kv_bytes']} of self K/V "
+          f"at {rate / 1e12} TB/s): the step at "
+          f"{run['decode_ms'] / bound_ms:.2f}x it")
+    print(f"[encdec] one decode step under the profiler: wall "
+          f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+          f"({prof['device_events']} device events), copies "
+          f"{prof['copy_ms']} ms, idle share {prof['idle_share']} "
+          f"({prof['idle_share_with_copies']} with copies), top "
+          f"{json.dumps(prof['top_device_ms'])}; peak memory "
+          f"{run['peak_gb']} GB")
+    del run
+    torch.cuda.empty_cache()
+    tr = drive_encdec_train(dev)
+    b = tr["batch"]
+    tokens = b * ENCDEC_TRAIN_SEQ
+    flop_ms = tr["flops"] / BF16_FLOPS * 1e3
+    adamw_ms = ADAMW_BYTES * tr["params"] / rate * 1e3
+    prof = tr["profile"]
+    print(f"[encdec] training at the full config ({tr['params']} params, "
+          f"float32 masters and moments), seq {ENCDEC_TRAIN_SEQ}, batch {b} "
+          f"(first steps tried, peak GB: {json.dumps(tr['tried'])}; reduced "
+          f"from 8 under {ENCDEC_PEAK_GB} GB): step median of "
+          f"2-{ENCDEC_TRAIN_STEPS} {tr['step_ms']} ms, all "
+          f"{json.dumps(tr['step_ms_all'])}; {tokens / tr['step_ms'] * 1e3} "
+          f"tokens/s ({b * tr['enc_seq'] / tr['step_ms'] * 1e3} frames/s); least "
+          f"times: {flop_ms} ms of bfloat16 FLOPs ({tr['flops']} at "
+          f"{BF16_FLOPS / 1e12} TFLOP/s), {adamw_ms} ms of AdamW bytes "
+          f"({ADAMW_BYTES} a param at {rate / 1e12} TB/s): the step at "
+          f"{tr['step_ms'] / max(flop_ms, adamw_ms):.1f}x the larger; loss and "
+          f"grad norm, all finite "
+          f"{json.dumps([[m['loss'], m['grad_norm']] for m in tr['metrics']])}; "
+          f"peak memory {tr['peak_gb']} GB; launches "
+          f"{json.dumps(tr['launches'])}")
+    print(f"[encdec] one train step under the profiler: wall "
+          f"{prof['wall_ms']} ms, kernels {prof['kernel_ms']} ms "
+          f"({prof['device_events']} device events), copies "
+          f"{prof['copy_ms']} ms, idle share {prof['idle_share']}, top "
+          f"{json.dumps(prof['top_device_ms'])}")
+    launches = tr["launches"]
+    check(launches["bloom_tick"] > 0,
+          "kernel bloom_tick was not launched on the enc-dec path")
+    del tr
+    torch.cuda.empty_cache()
+    small = encdec_cpu_check(dev)
+    print(f"[encdec] card and CPU at the full widths, depth "
+          f"{ENCDEC_CMP_LAYERS} + {ENCDEC_CMP_LAYERS} (reduced: depth only): "
+          f"logits, cross and self K/V within {LOGIT_ATOL} + {LOGIT_RTOL}|x|, "
+          f"greedy tokens identical outside near ties; one train step within "
+          f"{TRAIN_LOSS_RTOL} (loss, grad norm) and the AdamW bound (params): "
+          f"{json.dumps(small)}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 _SOURCES = {
     "bloom_tick": ("src/repro_torch/kernels/csrc/bloom_tick.cu",
                    "src/repro/kernels/bloom_tick.py:32"),
@@ -4806,10 +5119,13 @@ _SOURCES = {
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--shard-only"], ["--model-only"], ["--train-only"],
-                    ["--moe-only"], ["--ssm-only"]):
+    phases = {"model": model_phase, "train": train_phase, "moe": moe_phase,
+              "ssm": ssm_phase, "encdec": encdec_phase}
+    if args not in ([], ["--shard-only"],
+                    *([f"--{name}-only"] for name in phases)):
         print("usage: chip_smoke.py [--shard-only | --model-only | "
-              "--train-only | --moe-only | --ssm-only]", file=sys.stderr)
+              "--train-only | --moe-only | --ssm-only | --encdec-only]",
+              file=sys.stderr)
         return 2
     shard_only = args == ["--shard-only"]
     try:
@@ -4844,12 +5160,10 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": name,
                                      "count": count}}))
         return 0
-    if args in (["--model-only"], ["--train-only"], ["--moe-only"],
-                ["--ssm-only"]):
+    if args:
         phase = args[0][2:-5]
         t_phase = time.perf_counter()
-        {"model": model_phase, "train": train_phase, "moe": moe_phase,
-         "ssm": ssm_phase}[phase](dev, hbm_rate(name))
+        phases[phase](dev, hbm_rate(name))
         print(f"[time] {phase} phase {time.perf_counter() - t_phase:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "phase": phase,
@@ -5003,6 +5317,9 @@ def main() -> int:
     t_ssm = time.perf_counter()
     ssm_launches = ssm_phase(dev, rate)
     print(f"[time] ssm phase {time.perf_counter() - t_ssm:.1f} s")
+    t_encdec = time.perf_counter()
+    encdec_launches = encdec_phase(dev, rate)
+    print(f"[time] encdec phase {time.perf_counter() - t_encdec:.1f} s")
 
     timed = time_kernels(dev, gpu["n_wide"])
     timed["hybrid"] = time_hybrid(dev, hyb["hot_rows"], hyb["tail_rows"])
@@ -5030,6 +5347,8 @@ def main() -> int:
             records[-1]["moe_launches"] = moe_launches[kname]
         if kname in ssm_launches:
             records[-1]["ssm_launches"] = ssm_launches[kname]
+        if encdec_launches.get(kname):
+            records[-1]["encdec_launches"] = encdec_launches[kname]
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
               f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"

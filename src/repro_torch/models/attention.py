@@ -8,10 +8,14 @@ same ``NEG_INF`` fill and ``1e-30`` floor, scores and the accumulator
 in float32 (``acc_dtype`` bfloat16 when ``cfg.attn_acc == "bf16"``).
 The model code has no Pallas kernel, so none is ported here.
 
-Masks: causal, sliding window (0 = off), non-causal.  Decode (Sq == 1)
+Masks: causal, sliding window (0 = off), non-causal (the encoder, and
+cross-attention: ``attn_block``'s ``xa``, K and V from the encoder's
+output, no RoPE, never a self-attention cache).  Decode (Sq == 1)
 runs the same path single-shot against a cache; sliding-window decode
 keeps a ring buffer (softmax is permutation-invariant over KV, and RoPE
 is applied before keys are cached, so ring order needs no rotation).
+The enc-dec decoder's cross K/V live in a ``CrossCache``, which decode
+reads and never writes.
 
 The cache is written in place: ``cache_update`` stores the new token's
 K/V into the cache's buffers and returns a ``KVCache`` over the same
@@ -33,8 +37,8 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rope
 
-__all__ = ["attention_core", "attn_block", "KVCache", "init_cache",
-           "cache_update"]
+__all__ = ["attention_core", "attn_block", "KVCache", "CrossCache",
+           "init_cache", "cache_update"]
 
 NEG_INF = -1e30
 
@@ -119,6 +123,20 @@ class KVCache:
                        self.ring)
 
 
+@dataclasses.dataclass
+class CrossCache:
+    """An enc-dec decoder's cross K/V, [..., B, enc_seq, KV, Dh] each
+    (the reference's ``(ck, cv)`` pair); a stacked cache has a leading
+    layer axis.  Prefill fills it, decode only reads it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    def layer(self, i: int) -> "CrossCache":
+        """Layer ``i`` of a stacked cache: views of its buffers."""
+        return CrossCache(self.k[i], self.v[i])
+
+
 def init_cache(cfg: ModelConfig, batch: int, buf_len: int, kv_heads: int,
                d_head: int, ring: bool = False, *, layers: int | None = None,
                device=None) -> KVCache:
@@ -152,11 +170,12 @@ def attn_block(
     window: int = 0,
     cache: KVCache | None = None,
     angles=None,                  # layers.rope_angles of ``positions``
+    xa: torch.Tensor | None = None,   # cross-attention source [B, Se, D]
 ):
     """Full GQA block: qkv proj, rope, core, out proj.
 
-    Returns (out [B,Sq,D], new_cache): in prefill the new (k, v), in
-    decode the updated cache.
+    Returns (out [B,Sq,D], new_cache): in prefill (and with ``xa``) the
+    new (k, v), in decode the updated cache.
     """
     dt = cfg.compute_dtype
     B, Sq, _ = x.shape
@@ -166,20 +185,22 @@ def attn_block(
     if "bq" in params:
         q = q + params["bq"].to(dt)
     q = q.reshape(B, Sq, H, Dh)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    kv_src = xa if xa is not None else x
+    Skv = kv_src.shape[1]
+    k = kv_src @ params["wk"].to(dt)
+    v = kv_src @ params["wv"].to(dt)
     if "bk" in params:
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    k = k.reshape(B, Sq, KV, Dh)
-    v = v.reshape(B, Sq, KV, Dh)
+    k = k.reshape(B, Skv, KV, Dh)
+    v = v.reshape(B, Skv, KV, Dh)
 
-    if cfg.pos == "rope":
+    if cfg.pos == "rope" and xa is None:
         q = rope(q, positions, cfg, angles=angles)
         k = rope(k, positions, cfg, angles=angles)
 
     acc = torch.bfloat16 if cfg.attn_acc == "bf16" else torch.float32
-    if cache is not None:
+    if cache is not None and xa is None:
         new_cache = cache_update(cache, k, v)
         # linear cache: slot == absolute position, so the window mask
         # applies; ring cache: the buffer is the window, and positions
@@ -191,8 +212,8 @@ def attn_block(
     else:
         new_cache = (k, v)   # prefill: the stack builds the cache from it
         out = attention_core(
-            q, k, v, causal=causal, window=window,
-            q_offset=positions[0] if causal else 0, kv_valid=Sq,
+            q, k, v, causal=causal and xa is None, window=window,
+            q_offset=positions[0] if causal else 0, kv_valid=Skv,
             chunk=cfg.attn_chunk, acc_dtype=acc)
     out = out.reshape(B, Sq, H * Dh) @ params["wo"].to(dt)
     return out, new_cache

@@ -1,4 +1,4 @@
-"""The decoder stack: train (differentiable), prefill and decode.
+"""The layer stacks: train (differentiable), prefill and decode.
 
 The JAX package's functional entry points stay the entry points
 (``forward_train(params, cfg, tokens)``, ``prefill``, ``decode_step``,
@@ -36,17 +36,26 @@ pixtral's prefix embeddings), ``moe`` (grok-1; DeepSeek-V2 with MLA
 attention and its latent decode cache, ``models.mla``), ``ssm``
 (mamba2: a stack of ``models.ssm`` blocks, no MLP) and ``hybrid``
 (hymba: attention, windowed but in ``cfg.global_layers``, and the SSM
-on the same normed input, fused by ``_fuse_paths``, then the MLP).  A
+on the same normed input, fused by ``_fuse_paths``, then the MLP) and
+``encdec`` (whisper: an ``Encoder`` over precomputed frame embeddings,
+``enc_frames`` [B, enc_seq, d_model], run without remat as the
+reference runs it, and a decoder whose layers add a non-causal
+cross-attention to the encoder's output between the self-attention and
+the MLP).  A
 MoE layer's FFN is ``models.moe``'s gather path, and the stack sums the
 layers' load-balance losses into ``aux`` as the reference's
 ``run_stack`` does (0 for a stack without a router).  A layer's caches
-are a dict, ``{"attn": KVCache or MLACache}`` and/or ``{"ssm":
-SSMCache}`` as its family has them; the SSM cache is written in place
-and has no length or position.  The leaves the reference reads as
+are a dict, ``{"attn": KVCache or MLACache}``, ``{"ssm": SSMCache}``
+and ``{"cross": CrossCache}`` as its family has them; the SSM cache is
+written in place and has no length or position, and the cross K/V that
+prefill computes from the encoder's output are only read by decode
+(``_cross_from_cache``).  The enc-dec entry points (``encode``,
+``forward_hidden``, ``forward_train``, ``prefill``) take
+``enc_frames`` and raise ``ValueError`` without them (the reference
+fails with an ``AttributeError``).  The leaves the reference reads as
 float32 from the master (``held_f32``: the norm scales, the SSM's
 ``norm``, ``dt_bias``, ``a_log`` and ``d_skip``, the fusion gains) are
-held in float32, the rest in the compute dtype.  The ``encdec`` family
-raises ``NotImplementedError``: it waits for ROADMAP.md queue 1, item 6.
+held in float32, the rest in the compute dtype.
 """
 from __future__ import annotations
 
@@ -65,28 +74,29 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "Transformer",
+    "Encoder",
     "build",
     "layer_windows",
     "layer_fn",
     "run_stack",
     "forward_hidden",
     "forward_train",
+    "encode",
     "prefill",
     "decode_step",
     "init_decode_caches",
 ]
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port lacks."""
-    if cfg.family in PORTED_FAMILIES and not cfg.is_encdec:
+    if cfg.family in PORTED_FAMILIES:
         return
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported to "
-        f"repro_torch yet (ROADMAP.md "
-        f"queue 1, item 6); the port runs the families "
+        f"repro_torch; the port runs the families "
         f"{', '.join(PORTED_FAMILIES)}")
 
 
@@ -121,16 +131,18 @@ def held_f32(name: str) -> bool:
             or name.rsplit("/", 1)[-1] in _F32_LEAVES)
 
 
-def _layer_dicts(params: dict, cfg: ModelConfig,
-                 prefix: str = "layers") -> list[dict]:
-    """Every layer's flat dict.  A stacked leaf is cast once to the
+def _layer_dicts(params: dict, cfg: ModelConfig, prefix: str = "layers",
+                 n_layers: int | None = None) -> list[dict]:
+    """Every layer's flat dict (``n_layers`` of them, the decoder's
+    ``cfg.n_layers`` by default).  A stacked leaf is cast once to the
     dtype its block holds (``held_f32``) and split by one ``unbind``."""
+    n = cfg.n_layers if n_layers is None else n_layers
     if not cfg.scan_layers:
-        return [L.sub(params, f"{prefix}_{i}") for i in range(cfg.n_layers)]
+        return [L.sub(params, f"{prefix}_{i}") for i in range(n)]
     split = {k: v.to(torch.float32 if held_f32(k)
                      else cfg.compute_dtype).unbind(0)
              for k, v in L.sub(params, prefix).items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(cfg.n_layers)]
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -194,16 +206,21 @@ class MLP(Weights):
 
 
 class Attention(Weights):
+    """GQA attention: causal self-attention, or non-causal (the encoder,
+    and cross-attention given ``xa``)."""
+
     def __init__(self, params: dict, cfg: ModelConfig, window: int,
-                 device=None):
+                 device=None, causal: bool = True):
         super().__init__(params, cfg.compute_dtype, device)
         self.cfg = cfg
         self.window = window
+        self.causal = causal
 
-    def forward(self, x, *, positions, cache=None, angles=None):
+    def forward(self, x, *, positions, cache=None, angles=None, xa=None):
         return attn_mod.attn_block(
-            self.weights, self.cfg, x, positions=positions, causal=True,
-            window=self.window, cache=cache, angles=angles)
+            self.weights, self.cfg, x, positions=positions,
+            causal=self.causal, window=self.window, cache=cache,
+            angles=angles, xa=xa)
 
 
 class MLA(Weights):
@@ -257,20 +274,93 @@ def _fuse_paths(gains: dict, a_out: torch.Tensor,
     return (0.5 * (_n(a_out) * ga + _n(s_out) * gs)).to(a_out.dtype)
 
 
+def _cross_from_cache(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (the decode
+    path): ``params`` the layer's ``cross`` leaves (``wq``, ``bq``,
+    ``wo``), ``ck``/``cv`` [B, enc_seq, KV, Dh]; one shot over every
+    cached key at a float32 accumulator, as the reference computes it
+    whatever ``cfg.attn_acc``."""
+    dt = cfg.compute_dtype
+    B, Sq, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.d_head
+    q = x @ params["wq"].to(dt)
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+    q = q.reshape(B, Sq, H, Dh)
+    out = attn_mod.attention_core(
+        q, ck, cv, causal=False, window=0, q_offset=0,
+        kv_valid=ck.shape[1], chunk=cfg.attn_chunk)
+    return out.reshape(B, Sq, H * Dh) @ params["wo"].to(dt)
+
+
+def _needs_frames(cfg: ModelConfig) -> ValueError:
+    return ValueError(
+        f"{cfg.name}: an enc-dec config needs enc_frames [B, enc_seq, "
+        f"d_model], the encoder's input")
+
+
+class EncoderLayer(nn.Module):
+    """norm -> non-causal self-attention -> residual -> norm -> MLP ->
+    residual."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
+        self.attn = Attention(L.sub(params, "attn"), cfg, 0, device,
+                              causal=False)
+        self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
+        self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
+
+    def forward(self, x, *, positions):
+        a, _ = self.attn(self.norm1(x), positions=positions)
+        x = x + a
+        return x + self.mlp(self.norm2(x))
+
+
+class Encoder(nn.Module):
+    """The whisper encoder over precomputed frame embeddings (the conv
+    frontend is a stub): the frames cast to the compute dtype, plus
+    ``encoder/pos``, ``cfg.n_enc_layers`` ``EncoderLayer``s, then
+    ``encoder/norm_f``.  Without remat, as the reference runs it."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.register_buffer("pos", params["encoder/pos"].to(
+            device=device, dtype=cfg.compute_dtype))
+        self.layers = nn.ModuleList(
+            EncoderLayer(lp, cfg, device)
+            for lp in _layer_dicts(params, cfg, "enc_layers",
+                                   cfg.n_enc_layers))
+        self.norm_f = Norm(L.sub(params, "encoder/norm_f"), cfg, device)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, Se, D] -> the encoder's output [B, Se, D]."""
+        x = frames.to(device=self.pos.device, dtype=self.cfg.compute_dtype)
+        x = x + self.pos[: x.shape[1]]
+        positions = torch.arange(x.shape[1], device=x.device)
+        for layer in self.layers:
+            x = layer(x, positions=positions)
+        return self.norm_f(x)
+
+
 class DecoderLayer(nn.Module):
     """One layer by family: ``ssm`` norm -> SSM -> residual; the others
     norm -> attention (MLA with ``cfg.use_mla``; in ``hybrid`` beside
-    the SSM on the same input, the two fused) -> residual -> norm -> MLP
-    (MoE in the ``moe`` family) -> residual."""
+    the SSM on the same input, the two fused) -> residual -> (``encdec``:
+    norm -> cross-attention to the encoder's output -> residual) -> norm
+    -> MLP (MoE in the ``moe`` family) -> residual."""
 
     def __init__(self, params: dict, cfg: ModelConfig, window: int,
                  device=None):
         super().__init__()
         check_ported(cfg)
+        self.cfg = cfg
         fam = cfg.family
         self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
         self.attn = self.ssm = self.fuse = self.norm2 = self.moe = None
-        self.mlp = None
+        self.mlp = self.norm_cross = self.cross = None
         if cfg.attends:
             self.attn = (MLA(L.sub(params, "attn"), cfg, device) if cfg.use_mla
                          else Attention(L.sub(params, "attn"), cfg, window,
@@ -280,6 +370,10 @@ class DecoderLayer(nn.Module):
         if fam == "hybrid":
             self.fuse = Weights(L.sub(params, "fuse"), cfg.compute_dtype,
                                 device)
+        if cfg.is_encdec:
+            self.norm_cross = Norm(L.sub(params, "norm_cross"), cfg, device)
+            self.cross = Attention(L.sub(params, "cross"), cfg, 0, device,
+                                   causal=False)
         if fam != "ssm":       # a pure mamba stack has no MLP (d_ff = 0)
             self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
             if fam == "moe":
@@ -287,13 +381,17 @@ class DecoderLayer(nn.Module):
             else:
                 self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
 
-    def forward(self, x, *, positions, cache=None, angles=None):
-        """``cache``: the layer's {"attn": ..., "ssm": ...} in decode,
-        else None.  Returns (x', new, aux): ``new`` has the layer's
-        "attn" (the new (k, v) (MLA: (ckv, k_rope)) without a cache, else
-        the updated cache) and "ssm" (an ``SSMCache``) as its family has
-        them; aux the router's load-balance loss, None without a
-        router."""
+    def forward(self, x, *, positions, cache=None, angles=None,
+                enc_out=None):
+        """``cache``: the layer's {"attn": ..., "ssm": ..., "cross": ...}
+        in decode, else None; ``enc_out``: the encoder's output, which
+        the cross-attention reads where the cache has no "cross".
+        Returns (x', new, aux): ``new`` has the layer's "attn" (the new
+        (k, v) (MLA: (ckv, k_rope)) without a cache, else the updated
+        cache), "ssm" (an ``SSMCache``) and "cross" (the new cross
+        (k, v) from ``enc_out``, else the ``CrossCache`` read) as its
+        family has them; aux the router's load-balance loss, None
+        without a router."""
         cache = cache or {}
         new = {}
         h = self.norm1(x)
@@ -308,6 +406,19 @@ class DecoderLayer(nn.Module):
             x = x + a
         else:
             x = x + _fuse_paths(self.fuse.weights, a, s)
+        if self.cross is not None:
+            hc = self.norm_cross(x)
+            cc = cache.get("cross")
+            if cc is not None:
+                c = _cross_from_cache(self.cross.weights, self.cfg, hc,
+                                      cc.k, cc.v)
+                new["cross"] = cc
+            elif enc_out is None:
+                raise _needs_frames(self.cfg)
+            else:
+                c, new["cross"] = self.cross(hc, positions=positions,
+                                             xa=enc_out)
+            x = x + c
         if self.norm2 is None:
             return x, new, None
         h = self.norm2(x)
@@ -331,6 +442,8 @@ class Transformer(nn.Module):
         if cfg.pos == "learned":
             self.embed.register_buffer(
                 "pos", params["embed/pos"].to(device=device, dtype=dt))
+        self.encoder = (Encoder(params, cfg, device) if cfg.is_encdec
+                        else None)
         windows = layer_windows(cfg)
         self.layers = nn.ModuleList(
             DecoderLayer(lp, cfg, windows[i], device)
@@ -353,14 +466,23 @@ class Transformer(nn.Module):
             x = x + self.embed.pos[: x.shape[1]]
         return x
 
-    def run_stack(self, x, *, positions, caches=None, remat: bool = False):
+    def encode(self, frames) -> torch.Tensor:
+        """The encoder's output for ``frames`` [B, enc_seq, d_model];
+        ``ValueError`` without them."""
+        if frames is None:
+            raise _needs_frames(self.cfg)
+        return self.encoder(frames)
+
+    def run_stack(self, x, *, positions, caches=None, remat: bool = False,
+                  enc_out=None):
         """Every layer in turn.  Returns (x, new, aux): without caches
         the per-layer dicts of ``DecoderLayer.forward``, with them the
         caches dict, its attention cache advanced (the SSM cache is
-        updated in place); aux the layers' load-balance losses summed in
-        layer order (float32, 0 without a router).  ``remat``: run each
-        layer under ``cfg.remat_policy`` when grad is enabled (the train
-        mode)."""
+        updated in place, the cross cache only read); aux the layers'
+        load-balance losses summed in layer order (float32, 0 without a
+        router).  ``remat``: run each layer under ``cfg.remat_policy``
+        when grad is enabled (the train mode).  ``enc_out``: the
+        encoder's output, for an enc-dec stack without caches."""
         cfg = self.cfg
         angles = None
         if cfg.use_mla:      # MLA rotates qk_rope_dim lanes, whatever pos
@@ -375,7 +497,7 @@ class Transformer(nn.Module):
                      if caches is not None else None)
             call = _remat(layer, cfg) if remat else layer
             x, new, a = call(x, positions=positions, cache=cache,
-                             angles=angles)
+                             angles=angles, enc_out=enc_out)
             if a is not None:
                 aux = a if aux is None else aux + a
             news.append(new)
@@ -413,13 +535,15 @@ def _zero_aux(device) -> torch.Tensor:
 
 
 def layer_fn(params: dict, cfg: ModelConfig, x, *, positions, window: int,
-             mode: str, cache=None):
+             mode: str, cache=None, enc_out=None):
     """One decoder layer from its flat dict. mode: train | prefill |
     decode; ``cache``: the layer's {"attn": KVCache or MLACache, "ssm":
-    SSMCache} (as its family has them) or None.  Returns (x', new_cache,
-    aux), ``new_cache`` with the family's keys (None in train)."""
+    SSMCache, "cross": CrossCache} (as its family has them) or None;
+    ``enc_out``: the encoder's output (enc-dec, without a cross cache).
+    Returns (x', new_cache, aux), ``new_cache`` with the family's keys
+    (None in train)."""
     layer = DecoderLayer(params, cfg, window, x.device)
-    x, new, aux = layer(x, positions=positions, cache=cache)
+    x, new, aux = layer(x, positions=positions, cache=cache, enc_out=enc_out)
     return (x, {k: v if mode != "train" else None for k, v in new.items()},
             _zero_aux(x.device) if aux is None else aux)
 
@@ -430,27 +554,38 @@ def _stack_ssm(news: list[dict]) -> ssm_mod.SSMCache:
                             state=torch.stack([n["ssm"].state for n in news]))
 
 
+def _stack_cross(news: list[dict]) -> attn_mod.CrossCache:
+    """The layers' prefill cross (k, v) as one ``CrossCache`` on a
+    leading L axis."""
+    return attn_mod.CrossCache(*(torch.stack([n["cross"][j] for n in news])
+                                 for j in range(2)))
+
+
 def _stack_layers(news: list[dict]) -> dict:
     """Per-layer prefill outputs stacked on a leading L axis: "attn" the
-    (k, v) (MLA: (ckv, k_rope)) pair, "ssm" an ``SSMCache``."""
+    (k, v) (MLA: (ckv, k_rope)) pair, "ssm" an ``SSMCache``, "cross" a
+    ``CrossCache``."""
     out = {}
     if "attn" in news[0]:
         out["attn"] = tuple(torch.stack([n["attn"][j] for n in news])
                             for j in range(2))
     if "ssm" in news[0]:
         out["ssm"] = _stack_ssm(news)
+    if "cross" in news[0]:
+        out["cross"] = _stack_cross(news)
     return out
 
 
 def run_stack(params, cfg: ModelConfig, x, *, positions, mode: str,
-              caches=None):
+              caches=None, enc_out=None):
     """The layer stack.  Returns (x, stacked caches, aux): prefill's
-    {"attn": (k, v) (MLA: (ckv, k_rope)), "ssm": SSMCache} (as the
-    family has them) stacked on a leading L axis, decode's advanced
-    caches, None in train."""
+    {"attn": (k, v) (MLA: (ckv, k_rope)), "ssm": SSMCache, "cross":
+    CrossCache} (as the family has them) stacked on a leading L axis,
+    decode's advanced caches, None in train.  ``enc_out``: the
+    encoder's output (enc-dec, without caches)."""
     model = build(params, cfg, x.device)
     x, new, aux = model.run_stack(x, positions=positions, caches=caches,
-                                  remat=mode == "train")
+                                  remat=mode == "train", enc_out=enc_out)
     if mode == "train":
         return x, None, aux
     if caches is not None:
@@ -462,20 +597,31 @@ def _positions(start: int, S: int, device) -> torch.Tensor:
     return torch.arange(start, start + S, device=device)
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+def encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+    """The whisper encoder over precomputed frame embeddings ``frames``
+    [B, Se, D] (the conv frontend is a stub) -> [B, Se, D]."""
+    return build(params, cfg).encode(frames)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+                   enc_frames=None):
     """Teacher-forced final hidden states [B, S, D] (pre-unembed) + aux;
-    differentiable with respect to a master dict ``params``."""
+    differentiable with respect to a master dict ``params``.  An enc-dec
+    config encodes ``enc_frames`` first (the encoder without remat)."""
     model = build(params, cfg)
+    enc_out = model.encode(enc_frames) if cfg.is_encdec else None
     x = model.embed_input(tokens, prefix_embeds)
     x, _, aux = model.run_stack(
-        x, positions=_positions(0, x.shape[1], x.device), remat=True)
+        x, positions=_positions(0, x.shape[1], x.device), remat=True,
+        enc_out=enc_out)
     return model.norm_f(x), aux
 
 
-def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+                  enc_frames=None):
     """Teacher-forced logits for training. Returns (logits, aux_loss)."""
     model = build(params, cfg)
-    h, aux = forward_hidden(model, cfg, tokens, prefix_embeds)
+    h, aux = forward_hidden(model, cfg, tokens, prefix_embeds, enc_frames)
     return model.unembed(h), aux
 
 
@@ -484,7 +630,9 @@ def init_decode_caches(cfg: ModelConfig, batch: int, buf_len: int,
     """Stacked (L-leading) caches for decode: "ssm" for the ``ssm`` and
     ``hybrid`` families; "attn" for every family that attends: MLA's
     latent cache with ``cfg.use_mla``, else K/V in a ring buffer of the
-    window's size when ``long_context`` and the config has a window."""
+    window's size when ``long_context`` and the config has a window;
+    "cross" for ``encdec``, zero cross K/V of ``cfg.enc_seq`` slots
+    (a decode from them attends over zeros, as the reference's does)."""
     check_ported(cfg)
     caches = {}
     if cfg.use_mla:
@@ -500,20 +648,29 @@ def init_decode_caches(cfg: ModelConfig, batch: int, buf_len: int,
         caches["ssm"] = ssm_mod.init_ssm_cache(cfg, batch,
                                                layers=cfg.n_layers,
                                                device=device)
+    if cfg.is_encdec:
+        shape = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads,
+                 cfg.d_head)
+        caches["cross"] = attn_mod.CrossCache(*(
+            torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for _ in range(2)))
     return caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
-            buf_len: int | None = None):
+            enc_frames=None, buf_len: int | None = None):
     """Process a prompt, return (last-position logits [B, V], caches).
 
+    enc_frames: an enc-dec config's encoder input [B, enc_seq, d_model];
     buf_len: KV-buffer capacity for subsequent decode (>= prompt
     length); defaults to prompt length + 64.
     """
     model = build(params, cfg)
+    enc_out = model.encode(enc_frames) if cfg.is_encdec else None
     x = model.embed_input(tokens, prefix_embeds)
     S = x.shape[1]
-    x, news, _ = model.run_stack(x, positions=_positions(0, S, x.device))
+    x, news, _ = model.run_stack(x, positions=_positions(0, S, x.device),
+                                 enc_out=enc_out)
     logits = model.unembed(model.norm_f(x[:, -1:]))
     caches = _assemble_prefill_caches(cfg, news, S,
                                       buf_len if buf_len else S + 64)
@@ -526,8 +683,10 @@ def _assemble_prefill_caches(cfg: ModelConfig, news: list[dict], S: int,
     decode-ready stacked caches: the (k, v) [B, S, KV, Dh] (MLA: (ckv,
     k_rope) [B, S, kv_lora] and [B, S, qk_rope_dim]) into one linear
     cache of ``max(buf_len, S)`` slots, zero past the prompt; the SSM
-    caches stacked on a leading L axis."""
+    caches and the cross K/V stacked on a leading L axis."""
     caches = {"ssm": _stack_ssm(news)} if "ssm" in news[0] else {}
+    if "cross" in news[0]:
+        caches["cross"] = _stack_cross(news)
     if "attn" not in news[0]:
         return caches
     stacked = []

@@ -90,16 +90,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
     batch: tokens/labels [B, S] int32 tensors on the state's device,
     ev_hi/ev_lo the uint32 halves of this batch's bloom event id
-    (Python ints), optional prefix_embeds.  Microbatching (grad
-    accumulation) slices the batch dim.  The metrics are 0-d tensors
-    on the device (read them with ``float``).
+    (Python ints), optional prefix_embeds, and an enc-dec config's
+    enc_frames [B, enc_seq, d_model].  Microbatching (grad
+    accumulation) slices the batch dim of every tensor that has it.
+    The metrics are 0-d tensors on the device (read them with
+    ``float``).
     """
     T.check_ported(cfg)
 
     def loss_fn(params, batch):
-        if batch.get("enc_frames") is not None:
-            raise NotImplementedError(
-                "enc_frames: the enc-dec family is not ported yet")
         # the modules are built from the masters inside the
         # differentiated function, so the casts are in the graph
         model = T.build(params, cfg)
@@ -109,7 +108,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             # a chunk are freed before the next chunk is formed)
             hidden, aux = T.forward_hidden(
                 model, cfg, batch["tokens"],
-                prefix_embeds=batch.get("prefix_embeds"))
+                prefix_embeds=batch.get("prefix_embeds"),
+                enc_frames=batch.get("enc_frames"))
             if cfg.n_prefix:
                 hidden = hidden[:, cfg.n_prefix:]
             S = hidden.shape[1]
@@ -136,7 +136,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         else:
             logits, aux = T.forward_train(
                 model, cfg, batch["tokens"],
-                prefix_embeds=batch.get("prefix_embeds"))
+                prefix_embeds=batch.get("prefix_embeds"),
+                enc_frames=batch.get("enc_frames"))
             if cfg.n_prefix:  # vlm: loss over token region only
                 logits = logits[:, cfg.n_prefix:]
             loss = cross_entropy(logits, batch["labels"], cfg.vocab)

@@ -3,10 +3,10 @@ card: tick, merge-compare, one-vs-many, the hybrid sweep, and the
 all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
 sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
 (sharded registries, the mesh transport, socket sessions, the chaos
-sim, model serving and training, the MoE, SSM and hybrid families) on
-the card against the CPU.  Every test here carries the ``gpu`` marker and skips without
-a CUDA device
-(decided in a fixture, never at import time).
+sim, model serving and training, the MoE, SSM, hybrid and enc-dec
+families) on the card against the CPU.  Every test here carries the
+``gpu`` marker and skips without a CUDA device (decided in a fixture,
+never at import time).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -1581,9 +1581,16 @@ def test_cuda_serve_launcher_smoke_exits_zero(cuda):
 # launch.train)
 # ---------------------------------------------------------------------------
 
+def smoke_frames(cfg, batch: int, seed: int = 5):
+    """An enc-dec config's encoder input [batch, enc_seq, d_model]."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+
+
 def train_run(device, state, cfg, n_steps: int = 3, seq: int = 32):
     """``n_steps`` of the port's train step from ``state`` (copied to
-    ``device``) on the smoke data stream (``seq`` tokens a row)."""
+    ``device``) on the smoke data stream (``seq`` tokens a row; an
+    enc-dec config's batches with seeded frames)."""
     from repro_torch.checkpoint.manager import _leaves, _rebuild
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import OptConfig
@@ -1598,6 +1605,8 @@ def train_run(device, state, cfg, n_steps: int = 3, seq: int = 32):
     for s in range(n_steps):
         batch = data.batch(s, device=device)
         batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
+        if cfg.is_encdec:
+            batch["enc_frames"] = smoke_frames(cfg, 8, 100 + s).to(device)
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
     return _rebuild(state, lambda key, t: t.cpu()), metrics, dict(_leaves(state))
@@ -1993,5 +2002,70 @@ def test_cuda_ssm_train_step_at_chunk_128_matches_cpu(cuda, arch):
     assert torch.equal(got.clock_cells, want.clock_cells)
     for k in want.params:
         assert bool(got.params[k].isfinite().all()), k
+        np.testing.assert_allclose(got.params[k].numpy(), want.params[k].numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec family (repro_torch.models.transformer's Encoder, CrossCache)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_encdec_prefill_decode_match_cpu(cuda):
+    """Whisper's smoke config in float32 on the card and the CPU from the
+    same weights and frames: the encoder's output, forward_train logits,
+    prefill logits and its self and cross caches, 4 decode steps and the
+    caches after them within rtol 1e-4 / atol 1e-4; decode leaves the
+    cross cache as prefill wrote it."""
+    from repro_torch.models import transformer as T
+
+    cfg, params = moe_smoke("whisper_large_v3")
+    tok = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab, (2, 12)))
+    fr = smoke_frames(cfg, 2)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    runs = []
+    for dev in ("cpu", cuda):
+        model = T.build(params, cfg, dev)
+        enc = T.encode(model, cfg, fr)
+        logits, _ = T.forward_train(model, cfg, tok, enc_frames=fr)
+        pre, caches = T.prefill(model, cfg, tok[:, :8], enc_frames=fr,
+                                buf_len=16)
+        cross = caches["cross"].k.clone()
+        steps = [pre]
+        for t in range(8, 12):
+            lo, caches = T.decode_step(model, cfg, caches, tok[:, t], t)
+            steps.append(lo)
+        assert torch.equal(caches["cross"].k, cross)
+        runs.append((enc, logits, steps, caches))
+    (ec, lc, sc, cc), (eg, lg, sg, cg) = runs
+    torch.testing.assert_close(eg.cpu(), ec, **tol)
+    torch.testing.assert_close(lg.cpu(), lc, **tol)
+    for g, c in zip(sg, sc):
+        torch.testing.assert_close(g.cpu(), c, **tol)
+    assert sorted(cg) == sorted(cc) == ["attn", "cross"]
+    for key, name in (("cross", "k"), ("cross", "v"), ("attn", "k"),
+                      ("attn", "v")):
+        torch.testing.assert_close(getattr(cg[key], name).cpu(),
+                                   getattr(cc[key], name), **tol)
+
+
+@pytest.mark.gpu
+def test_cuda_encdec_train_step_matches_cpu(cuda):
+    """Two float32 steps of whisper's smoke config, frames in every
+    batch, on the card and the CPU from one state: one tick launch a
+    step, losses and grad norms within rtol 2e-4, clock cells identical,
+    params within rtol 2e-4 / atol 2e-5."""
+    cfg, state = smoke_train_state(arch="whisper_large_v3")
+    ops.reset_launches()
+    got, gm, _ = train_run(cuda, state, cfg, n_steps=2)
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    assert launched == {"bloom_tick": 2}, launched
+    want, wm, _ = train_run("cpu", state, cfg, n_steps=2)
+    for g, w in zip(gm, wm):
+        assert g["clock_sum"] == w["clock_sum"]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=2e-4)
+    assert torch.equal(got.clock_cells, want.clock_cells)
+    for k in want.params:
         np.testing.assert_allclose(got.params[k].numpy(), want.params[k].numpy(),
                                    rtol=2e-4, atol=2e-5, err_msg=k)

@@ -420,11 +420,31 @@ def test_layer_fn_and_run_stack_match_the_model():
 
 @pytest.mark.parametrize("arch", ["whisper_large_v3"])
 def test_unported_families_raise(arch):
-    _, cfg = smoke_pair(arch, dtype="float32")
-    p = TP.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.long)
+    """Both packages refuse an enc-dec config without ``enc_frames``:
+    ``forward_train``, ``prefill`` and ``ServingEngine.admit`` (whose
+    prefill passes none) raise in the reference (``AttributeError``,
+    its encoder reads ``None``) and in the port (``ValueError`` naming
+    ``enc_frames``)."""
+    from repro.runtime.clock_runtime import ClockConfig as JClockConfig
+    from repro.serving.engine import ServeConfig as JServe
+    from repro.serving.engine import ServingEngine as JEngine
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    jcfg, cfg = smoke_pair(arch, dtype="float32")
+    jp, p = weights(jcfg, cfg)
+    tok = np.zeros((1, 4), np.int32)
+    jeng = JEngine(jp, jcfg, JServe(max_seq=16), JClockConfig(m=64))
+    for call in (lambda: JT.forward_train(jp, jcfg, jnp.asarray(tok)),
+                 lambda: JT.prefill(jp, jcfg, jnp.asarray(tok)),
+                 lambda: jeng.admit(jnp.asarray(tok))):
+        with pytest.raises(AttributeError):
+            call()
+    eng = ServingEngine(p, cfg, ServeConfig(max_seq=16), ClockConfig(m=64),
+                        device="cpu")
+    tok = torch.from_numpy(tok)
     for call in (lambda: TT.forward_train(p, cfg, tok),
                  lambda: TT.prefill(p, cfg, tok),
-                 lambda: TT.init_decode_caches(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+                 lambda: eng.admit(tok)):
+        with pytest.raises(ValueError, match="enc_frames"):
             call()

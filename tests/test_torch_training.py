@@ -189,7 +189,8 @@ def test_cross_entropy_masks_out_of_range_labels():
 
 def run_both(jcfg, tcfg, n_steps, opt=dict(lr=1e-3, total_steps=10), **kw):
     """``n_steps`` of both packages' steps from one state on identical
-    batches (a vlm config's prefix embeddings drawn from a seed)."""
+    batches (a vlm config's prefix embeddings and an enc-dec config's
+    frames drawn from a seed)."""
     jst, tst = start(jcfg, tcfg, opt)
     jdata, tdata = streams(jcfg.vocab)
     jstep = jax.jit(JT.make_train_step(jcfg, JA.OptConfig(**opt),
@@ -203,6 +204,11 @@ def run_both(jcfg, tcfg, n_steps, opt=dict(lr=1e-3, total_steps=10), **kw):
                 (8, jcfg.n_prefix, jcfg.d_model)).astype(np.float32)
             jb["prefix_embeds"], tb["prefix_embeds"] = (jnp.asarray(pfx),
                                                         torch.from_numpy(pfx))
+        if jcfg.is_encdec:
+            fr = np.random.default_rng(100 + s).standard_normal(
+                (8, jcfg.enc_seq, jcfg.d_model)).astype(np.float32)
+            jb["enc_frames"], tb["enc_frames"] = (jnp.asarray(fr),
+                                                  torch.from_numpy(fr))
         jst, jm = jstep(jst, jb)
         tst, tm = tstep(tst, tb)
         metrics.append((jm, tm))
@@ -215,14 +221,15 @@ def run_both(jcfg, tcfg, n_steps, opt=dict(lr=1e-3, total_steps=10), **kw):
         ("stablelm_1_6b", 1), ("granite_20b", 1), ("pixtral_12b", 1),
         ("grok_1_314b", 1), ("deepseek_v2_236b", 1),
         ("deepseek_v2_236b", 3), ("mamba2_130m", 1), ("hymba_1_5b", 1),
-        ("hymba_1_5b", 3)))])
+        ("hymba_1_5b", 3), ("whisper_large_v3", 2)))])
 def test_train_steps_match_reference(arch, n_steps):
     """One and three steps at float32 compute under OptConfig(total_steps
     =10)'s warmup, for the dense and vlm smoke configs, both ``moe``
     ones (whose router aux enters the loss with ``aux_coef`` and carries
-    a gradient into the router) and the ``ssm`` and ``hybrid`` ones
+    a gradient into the router), the ``ssm`` and ``hybrid`` ones
     (the SSD at the smoke chunk, 16, where the reference's gradient is
-    finite): loss, aux and grad norm per step and
+    finite) and the ``encdec`` one (frames through the encoder, two
+    steps): loss, aux and grad norm per step and
     every param within rtol 2e-4 / atol 2e-5; clock cells, the step and
     lr identical."""
     jcfg, tcfg = smoke_pair(arch, dtype="float32")
@@ -386,12 +393,20 @@ def test_unstacked_layout_matches_reference():
 
 
 def test_families_not_yet_ported_raise():
-    """The enc-dec family raises ``NotImplementedError`` when a train
-    step is made for it (ROADMAP queue 1, item 6)."""
+    """Both packages refuse a train step of an enc-dec config whose
+    batch has no ``enc_frames``: the reference with an
+    ``AttributeError`` (its encoder reads ``None``), the port with a
+    ``ValueError`` naming ``enc_frames``."""
     for arch in ("whisper_large_v3",):
-        cfg = tconfigs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TT.make_train_step(cfg, TA.OptConfig(), TClockConfig(m=64))
+        jcfg, tcfg = smoke_pair(arch, dtype="float32")
+        jst, tst = start(jcfg, tcfg)
+        jdata, tdata = streams(jcfg.vocab)
+        jstep = JT.make_train_step(jcfg, JA.OptConfig(), JClockConfig(m=64))
+        with pytest.raises(AttributeError):
+            jstep(jst, jax_batch(jdata, 0))
+        tstep = TT.make_train_step(tcfg, TA.OptConfig(), TClockConfig(m=64))
+        with pytest.raises(ValueError, match="enc_frames"):
+            tstep(tst, torch_batch(tdata, 0))
 
 
 def test_grads_reach_the_masters_through_the_casts():
