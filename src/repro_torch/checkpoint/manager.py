@@ -24,9 +24,10 @@ Fault-tolerance behaviors:
     clock; callers gate on ``ClockRuntime.admit_restore``.
   - **GC**: keep the newest ``keep`` checkpoints.
 
-``restore`` places the leaves on one device; the reference's elastic
-reshard (``shardings``) needs the model mesh (ROADMAP.md queue 1, item
-5, part 3).
+``restore`` places the leaves on one device, or, given ``shardings``,
+on the model mesh as DTensors: the reference's elastic reshard, so a
+checkpoint written on any mesh (or none) restores onto any other.  A
+state of DTensors is saved by its full values, gathered on every rank.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import Moment
@@ -97,6 +100,8 @@ def _host_snapshot(flat: dict) -> dict:
     the streams synchronised once; CPU tensors are cloned."""
     out, cuda_devs = {}, set()
     for key, x in flat.items():
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         if isinstance(x, torch.Tensor):
             if x.is_cuda:
                 host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -117,6 +122,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_NP)
     return t.numpy()
+
+
+def _sharding_leaves(tree, prefix: tuple = ()):
+    """(key, sharding) of a tree of shardings shaped as the state: a
+    leaf is a ``sharding.NamedSharding`` or a ``(DeviceMesh,
+    placements)`` pair."""
+    if (isinstance(tree, (tuple, list)) and len(tree) == 2
+            and isinstance(tree[0], DeviceMesh)):
+        yield "/".join(str(p) for p in prefix), tuple(tree)
+        return
+    kids = _children(tree)
+    if kids is None:
+        yield "/".join(str(p) for p in prefix), (tree.mesh, tree.placements)
+        return
+    for k, child in kids:
+        yield from _sharding_leaves(child, prefix + (k,))
 
 
 def _to_tensor(a: np.ndarray, like, device) -> torch.Tensor:
@@ -237,11 +258,15 @@ class CheckpointManager:
         ``TrainState``, or any dict/list/``Moment`` tree of the same
         keys) the leaves come back in its structure as tensors on
         ``device`` (None = the card); without it, the stored flat dict
-        of numpy arrays, as the reference returns it."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): the elastic reshard needs the model "
-                "mesh (ROADMAP.md queue 1, item 5, part 3); pass device=")
+        of numpy arrays, as the reference returns it.  With
+        ``shardings`` (a tree of the target's structure whose leaves are
+        ``sharding.NamedSharding``s, e.g. ``launch.specs
+        .state_shardings``, or ``(DeviceMesh, placements)`` pairs) each
+        leaf comes back as a DTensor placed by its sharding, every rank
+        taking its shards of the stored value, on the mesh's device
+        type (``device`` is not read): the elastic reshard."""
+        if shardings is not None and target_structure is None:
+            raise ValueError("restore(shardings=...) needs target_structure")
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -257,7 +282,18 @@ class CheckpointManager:
         missing = [k for k in keys if k not in flat]
         if missing:
             raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
-        dev = resolve_device(device)
-        state = _rebuild(target_structure,
-                         lambda key, like: _to_tensor(flat[key], like, dev))
-        return state, manifest
+        if shardings is None:
+            dev = resolve_device(device)
+            state = _rebuild(target_structure,
+                             lambda key, like: _to_tensor(flat[key], like, dev))
+            return state, manifest
+        placed = dict(_sharding_leaves(shardings))
+
+        def _placed(key, like):
+            mesh, pl = placed[key]
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if mesh.device_type == "cuda" else torch.device("cpu"))
+            return distribute_tensor(_to_tensor(flat[key], like, dev), mesh,
+                                     pl, src_data_rank=None)
+
+        return _rebuild(target_structure, _placed), manifest

@@ -20,8 +20,10 @@ loop at step N to exercise the path.
 
 The JAX launcher also builds a one-device mesh and its sharding rules
 (``make_local_mesh``, ``DEFAULT_RULES``, ``use_mesh_rules``), which
-constrain nothing on one device; they wait for the model mesh
-(ROADMAP.md queue 1, item 5, part 3) and are left out here.
+constrain nothing on one device.  The port has them now (``launch.mesh``,
+``sharding``; ``launch.specs`` places a state on a mesh), but this
+launcher does not yet set up a process group or a mesh: that is the
+next slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 

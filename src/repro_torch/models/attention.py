@@ -21,19 +21,26 @@ The cache is written in place: ``cache_update`` stores the new token's
 K/V into the cache's buffers and returns a ``KVCache`` over the same
 buffers with ``length`` and ``pos`` advanced (the JAX package returns
 new arrays).  ``length`` and ``pos`` are host integers, so a decode step
-reads nothing back from the card.  Split-KV decode
-(``decode_attention_split_kv``) and the owner-writes slot update need
-the model mesh and wait for the model half of ``sharding.py``; with
-``decode_attn="split_kv"`` and no mesh, decode takes the reference's
-single-device path.
+reads nothing back from the card.
+
+Under the model mesh (``sharding.use_mesh_rules``) the block runs on
+DTensors: the tensors made inside it (positions' masks, the running max
+and sum) follow the mesh replicated, and the cache write, which has no
+DTensor strategy into a sharded slice, runs on replicated operands
+(``sharding.assign``), as GSPMD writes it.  The explicit-collective
+paths, split-KV decode (``decode_attention_split_kv``) and the
+owner-writes slot update (``_sharded_slot_update``), are still to be
+ported (``local_map`` with functional collectives); with
+``decode_attn="split_kv"`` decode takes the reference's path without
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rope
 
@@ -60,7 +67,7 @@ def attention_core(
     Dv = v.shape[-1]
     G = H // KV
     dev = q.device
-    qg = q.reshape(B, Sq, KV, G, Dh).to(acc_dtype).float()
+    qg = SH.reshape(q, B, Sq, KV, G, Dh).to(acc_dtype).float()
     # 1/sqrt(Dh) rounded to acc_dtype, as the reference rounds it
     scale = float(torch.tensor(1.0 / (Dh ** 0.5), dtype=acc_dtype))
 
@@ -69,37 +76,41 @@ def attention_core(
     chunk = min(chunk, Skv)
     pad = (-Skv) % chunk
     if pad:                   # the padded tail is masked off by kv_valid
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = SH.pad(k, (0, 0, 0, 0, 0, pad))
+        v = SH.pad(v, (0, 0, 0, 0, 0, pad))
         kv_valid = min(kv_valid, Skv)
     n_chunks = (Skv + pad) // chunk
 
     q_pos = q_offset + torch.arange(Sq, device=dev)
-    acc = torch.zeros((B, Sq, KV, G, Dv), dtype=acc_dtype, device=dev)
-    m_run = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32,
-                       device=dev)
-    l_run = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev)
+    # the running stats follow q's mesh (replicated) under a mesh
+    acc = SH.replicated(
+        torch.zeros((B, Sq, KV, G, Dv), dtype=acc_dtype, device=dev), q)
+    m_run = SH.replicated(torch.full((B, Sq, KV, G), NEG_INF,
+                                     dtype=torch.float32, device=dev), q)
+    l_run = SH.replicated(
+        torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev), q)
     for c in range(n_chunks):
         start = c * chunk
         kc = k[:, start:start + chunk].to(acc_dtype)
         vc = v[:, start:start + chunk].to(acc_dtype)
         kv_pos = start + torch.arange(chunk, device=dev)
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kc.float()) * scale
+        s = SH.einsum("bqkgd,bckd->bqkgc", qg, kc.float()) * scale
         mask = (kv_pos < kv_valid)[None, :]
         if causal:
             mask = mask & (kv_pos[None, :] <= q_pos[:, None])
         if window:
             mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
-        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        s = torch.where(SH.replicated(mask[None, :, None, None, :], s), s,
+                        NEG_INF)
         m_new = torch.maximum(m_run, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_run - m_new)
         l_run = l_run * corr + p.sum(-1)
-        acc = acc * corr.to(acc_dtype)[..., None] + torch.einsum(
+        acc = acc * corr.to(acc_dtype)[..., None] + SH.einsum(
             "bqkgc,bckd->bqkgd", p.to(acc_dtype), vc)
         m_run = m_new
     out = acc.float() / torch.clamp(l_run, min=1e-30)[..., None]
-    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+    return SH.reshape(out, B, Sq, H, Dv).to(q.dtype)
 
 
 @dataclasses.dataclass
@@ -154,10 +165,11 @@ def cache_update(cache: KVCache, k_new: torch.Tensor,
     place (see the module docstring)."""
     buf = cache.k.shape[-3]
     slot = cache.pos % buf if cache.ring else min(cache.pos, buf - 1)
-    cache.k[..., slot:slot + 1, :, :] = k_new
-    cache.v[..., slot:slot + 1, :, :] = v_new
-    return KVCache(k=cache.k, v=cache.v, length=min(cache.length + 1, buf),
-                   pos=cache.pos + 1, ring=cache.ring)
+    key = (..., slice(slot, slot + 1), slice(None), slice(None))
+    return KVCache(k=SH.assign(cache.k, key, k_new),
+                   v=SH.assign(cache.v, key, v_new),
+                   length=min(cache.length + 1, buf), pos=cache.pos + 1,
+                   ring=cache.ring)
 
 
 def attn_block(
@@ -184,7 +196,7 @@ def attn_block(
     q = x @ params["wq"].to(dt)
     if "bq" in params:
         q = q + params["bq"].to(dt)
-    q = q.reshape(B, Sq, H, Dh)
+    q = SH.reshape(q, B, Sq, H, Dh)
     kv_src = xa if xa is not None else x
     Skv = kv_src.shape[1]
     k = kv_src @ params["wk"].to(dt)
@@ -192,8 +204,8 @@ def attn_block(
     if "bk" in params:
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    k = k.reshape(B, Skv, KV, Dh)
-    v = v.reshape(B, Skv, KV, Dh)
+    k = SH.reshape(k, B, Skv, KV, Dh)
+    v = SH.reshape(v, B, Skv, KV, Dh)
 
     if cfg.pos == "rope" and xa is None:
         q = rope(q, positions, cfg, angles=angles)
@@ -215,5 +227,5 @@ def attn_block(
             q, k, v, causal=causal and xa is None, window=window,
             q_offset=positions[0] if causal else 0, kv_valid=Skv,
             chunk=cfg.attn_chunk, acc_dtype=acc)
-    out = out.reshape(B, Sq, H * Dh) @ params["wo"].to(dt)
+    out = SH.reshape(out, B, Sq, H * Dh) @ params["wo"].to(dt)
     return out, new_cache

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["sub", "norm", "rope", "mlp", "embed_tokens", "unembed"]
@@ -79,8 +80,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     cos, sin = (angles if angles is not None
                 else _rope_angles(positions, rot, cfg.rope_theta))
-    cos = cos[..., None, :]        # broadcast over heads
-    sin = sin[..., None, :]
+    # the angles follow x's mesh (replicated) under a mesh
+    cos = SH.replicated(cos, x)[..., None, :]    # broadcast over heads
+    sin = SH.replicated(sin, x)[..., None, :]
     x1, x2 = x_rot.chunk(2, dim=-1)
     r1 = x1 * cos - x2 * sin       # float32, as the reference promotes
     r2 = x2 * cos + x1 * sin

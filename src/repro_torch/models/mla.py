@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.models.attention import NEG_INF, attention_core
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rope
@@ -68,8 +69,8 @@ def _project_q(params, cfg: ModelConfig, x, positions, angles=None):
     dt = cfg.compute_dtype
     B, S, _ = x.shape
     cq = _rms(x @ params["w_dq"].to(dt), params["q_norm"])
-    q = (cq @ params["w_uq"].to(dt)).view(
-        B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = SH.reshape(cq @ params["w_uq"].to(dt),
+                   B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     q_rope = rope(q_rope, positions, cfg, dim=cfg.qk_rope_dim, angles=angles)
     return q_nope, q_rope
@@ -103,44 +104,44 @@ def mla_block(
 
     q_nope, q_rope = _project_q(params, cfg, x, positions, angles)
     ckv, k_rope = _project_kv_latent(params, cfg, x, positions, angles)
-    w_uk = params["w_uk"].to(dt).reshape(L, H, cfg.qk_nope_dim)
-    w_uv = params["w_uv"].to(dt).reshape(L, H, cfg.v_head_dim)
+    w_uk = SH.reshape(params["w_uk"].to(dt), L, H, cfg.qk_nope_dim)
+    w_uv = SH.reshape(params["w_uv"].to(dt), L, H, cfg.v_head_dim)
 
     if cache is None:
         # ---- train/prefill: decompress and run standard attention ----
-        k_nope = torch.einsum("bsl,lhd->bshd", ckv, w_uk)
-        v = torch.einsum("bsl,lhd->bshd", ckv, w_uv)
+        k_nope = SH.einsum("bsl,lhd->bshd", ckv, w_uk)
+        v = SH.einsum("bsl,lhd->bshd", ckv, w_uv)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             B, S, H, cfg.qk_rope_dim)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = attention_core(q, k, v, causal=True, window=0,
                              q_offset=positions[0], kv_valid=S,
                              chunk=cfg.attn_chunk)
-        out = out.reshape(B, S, H * cfg.v_head_dim) @ params["wo"].to(dt)
+        out = SH.reshape(out, B, S, H * cfg.v_head_dim) @ params["wo"].to(dt)
         return out, (ckv, k_rope)
 
     # ---- decode: absorbed matmuls against the latent cache ----
     buf = cache.ckv.shape[-2]
     slot = min(cache.pos, buf - 1)
-    cache.ckv[..., slot:slot + 1, :] = ckv
-    cache.krope[..., slot:slot + 1, :] = k_rope
-    new_cache = MLACache(ckv=cache.ckv, krope=cache.krope,
+    key = (..., slice(slot, slot + 1), slice(None))
+    new_cache = MLACache(ckv=SH.assign(cache.ckv, key, ckv),
+                         krope=SH.assign(cache.krope, key, k_rope),
                          length=min(cache.length + 1, buf), pos=cache.pos + 1)
     # absorb W_uk into q: q_lat [B, 1, H, kv_lora]
-    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)
+    q_lat = SH.einsum("bshd,lhd->bshl", q_nope, w_uk)
     # 1 / sqrt(qk) in float32, as the reference computes it
     scale = float(np.float32(1.0) / np.sqrt(np.float32(
         cfg.qk_nope_dim + cfg.qk_rope_dim)))
     ckv_f = new_cache.ckv.float()
-    s_lat = torch.einsum("bshl,bTl->bshT", q_lat.float(), ckv_f)
-    s_rope = torch.einsum("bshd,bTd->bshT", q_rope.float(),
+    s_lat = SH.einsum("bshl,bTl->bshT", q_lat.float(), ckv_f)
+    s_rope = SH.einsum("bshd,bTd->bshT", q_rope.float(),
                           new_cache.krope.float())
     s = (s_lat + s_rope) * scale
     valid = torch.arange(buf, device=x.device) < new_cache.length
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    s = torch.where(SH.replicated(valid[None, None, None, :], s), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     # attend over latents, then decompress once per head (absorbed W_uv)
-    ctx_lat = torch.einsum("bshT,bTl->bshl", p, ckv_f)
-    ctx = torch.einsum("bshl,lhd->bshd", ctx_lat.to(dt), w_uv)
-    out = ctx.reshape(B, S, H * cfg.v_head_dim) @ params["wo"].to(dt)
+    ctx_lat = SH.einsum("bshT,bTl->bshl", p, ckv_f)
+    ctx = SH.einsum("bshl,lhd->bshd", ctx_lat.to(dt), w_uv)
+    out = SH.reshape(ctx, B, S, H * cfg.v_head_dim) @ params["wo"].to(dt)
     return out, new_cache

@@ -27,16 +27,21 @@ compute, in the reference's order:
   sums in float32 and uses atomics there).  A recomputed forward (remat)
   routes and sums exactly as the first.
 
-The reference's ``moe_impl = "alltoall"`` path (``shard_map`` with an
-``all_to_all`` over the model axis) needs the model mesh, which the port
-does not have yet (ROADMAP.md queue 1, item 7): every call takes the
-gather path, as the reference does without a mesh.
+Under the model mesh (``sharding.use_mesh_rules``) the gather path runs
+on DTensors, as the reference's runs under ``pjit``: the expert weights
+stay sharded and the token bookkeeping runs replicated
+(``_moe_gather``).  The reference's ``moe_impl = "alltoall"`` path
+(``shard_map`` with an ``all_to_all`` over the model axis) is still to
+be ported (``local_map`` with functional collectives; ROADMAP.md queue
+1): every call takes the gather path, as the reference does without a
+mesh.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, sub
 
@@ -143,24 +148,30 @@ def _capacity(cfg: ModelConfig, T: int, E_phys: int) -> int:
 
 
 def _moe_gather(params: dict, cfg: ModelConfig, x2d: torch.Tensor):
-    """The sort-gather-combine formulation over the global token view."""
+    """The sort-gather-combine formulation over the global token view.
+    Under a mesh the routing, the dispatch and the combine (sort,
+    ``searchsorted``, index copies and gathers: ops without a DTensor
+    sharding strategy) run on replicated operands, this rank's full
+    copy, and the expert matmuls on the sharded expert weights."""
     T = x2d.shape[0]
     E_phys = cfg.n_experts * cfg.moe_replicas
     C = _capacity(cfg, T, E_phys)
     xe, (tok, dest, keep, gate), aux = _route_and_bucket(
-        cfg, x2d, params["router"], E_phys, C)
-    ye = _expert_mlp(cfg, xe.view(E_phys, C, -1),
+        cfg, SH.to_local(x2d, "moe"), SH.to_local(params["router"], "moe"),
+        E_phys, C)
+    ye = _expert_mlp(cfg, SH.replicated(xe, x2d).view(E_phys, C, -1),
                      params["w_gate"], params["w_up"], params["w_down"])
-    y = _combine(x2d.shape, x2d.dtype, ye.view(E_phys * C, -1),
+    y = _combine(x2d.shape, x2d.dtype,
+                 SH.to_local(ye, "moe").view(E_phys * C, -1),
                  tok, dest, keep, gate)
-    return y, aux
+    return SH.replicated(y, x2d), SH.replicated(aux, x2d)
 
 
 def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor):
     """MoE FFN over [B, S, D]. Returns (y, aux_loss). Adds shared experts."""
     B, S, D = x.shape
-    y2d, aux = _moe_gather(params, cfg, x.reshape(B * S, D))
-    y = y2d.view(B, S, D)
+    y2d, aux = _moe_gather(params, cfg, SH.reshape(x, B * S, D))
+    y = SH.reshape(y2d, B, S, D)
     if cfg.n_shared_experts:
         y = y + mlp(sub(params, "shared"), cfg, x)
     return y, aux

@@ -4,7 +4,9 @@
 init kind), entry for entry the JAX package's.  ``init_params``
 materializes it from an explicit ``torch.Generator``: the same init
 kinds, not the same values (those come across with
-``convert.params_from_jax``).
+``convert.params_from_jax``).  ``abstract_params`` gives the table as
+meta tensors (the reference's ``ShapeDtypeStruct``s): shapes and
+dtypes, no storage, for the dry run.
 
 Per-layer entries are stacked along a leading "layers" axis when
 ``cfg.scan_layers``, and named ``layers_{i}/...`` otherwise.
@@ -20,7 +22,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ParamInfo", "param_table", "init_params", "torch_dtype"]
+__all__ = ["ParamInfo", "param_table", "init_params", "abstract_params",
+           "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,4 +242,12 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     ``device`` (None = the card).  One seed gives the same weights."""
     dev = resolve_device(device)
     return {path: _init_leaf(generator, info).to(dev)
+            for path, info in param_table(cfg).items()}
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``{path: meta tensor}`` of ``param_table(cfg)``: each leaf's shape
+    and dtype, without storage."""
+    return {path: torch.empty(info.shape, dtype=torch_dtype(info.dtype),
+                              device="meta")
             for path, info in param_table(cfg).items()}

@@ -35,6 +35,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ssm_block", "SSMCache", "init_ssm_cache"]
@@ -90,7 +91,7 @@ def _causal_conv(params, cfg: ModelConfig, xBC, conv_state=None):
     width = w.shape[0]
     S = xBC.shape[1]
     if conv_state is None:
-        full = F.pad(xBC, (0, 0, width - 1, 0))
+        full = SH.pad(xBC, (0, 0, width - 1, 0))
     else:
         full = torch.cat([conv_state, xBC], dim=1)
     new_state = full[:, -(width - 1):] if width > 1 else None
@@ -126,37 +127,38 @@ def _ssd_chunked(cfg: ModelConfig, xh, dtv, A, Bm, Cm, init_state=None):
     Q = min(cfg.ssm_chunk, S)
     pad = (-S) % Q
     if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dtv = F.pad(dtv, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
+        xh = SH.pad(xh, (0, 0, 0, 0, 0, pad))
+        dtv = SH.pad(dtv, (0, 0, 0, pad))
+        Bm = SH.pad(Bm, (0, 0, 0, pad))
+        Cm = SH.pad(Cm, (0, 0, 0, pad))
     Sp = S + pad
     nc = Sp // Q
 
-    xc = xh.reshape(Bb, nc, Q, H, Pd).float()
-    dtc = dtv.reshape(Bb, nc, Q, H).float()
-    Bc = Bm.reshape(Bb, nc, Q, N).float()
-    Cc = Cm.reshape(Bb, nc, Q, N).float()
+    xc = SH.reshape(xh, Bb, nc, Q, H, Pd).float()
+    dtc = SH.reshape(dtv, Bb, nc, Q, H).float()
+    Bc = SH.reshape(Bm, Bb, nc, Q, N).float()
+    Cc = SH.reshape(Cm, Bb, nc, Q, N).float()
 
     dA = dtc * A                                   # [B,nc,Q,H] (negative)
-    cum = torch.cumsum(dA, dim=2)                  # within-chunk cumulative
+    cum = SH.cumsum(dA, 2)                         # within-chunk cumulative
     chunk_sum = cum[:, :, -1, :]                   # [B,nc,H]
 
     # intra-chunk: L[i,j] = exp(cum_i - cum_j) for j<=i
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,nc,Qi,Qj,H]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
-    L = _intra_decay(diff, causal[None, None, :, :, None])
+    L = _intra_decay(diff, SH.replicated(causal[None, None, :, :, None], diff))
     # scores CB[i,j] = C_i . B_j  (single group)
-    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    CB = SH.einsum("bcin,bcjn->bcij", Cc, Bc)
     xdt = xc * dtc[..., None]                      # dt-weighted inputs
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", CB[..., None] * L, xdt)
+    y_intra = SH.einsum("bcijh,bcjhp->bcihp", CB[..., None] * L, xdt)
 
     # chunk states: sum_j exp(chunk_sum - cum_j) * xdt_j (x) B_j
     decay_out = torch.exp(chunk_sum[:, :, None, :] - cum)  # [B,nc,Q,H]
-    states = torch.einsum("bcjhp,bcjn->bchpn", xdt * decay_out[..., None], Bc)
+    states = SH.einsum("bcjhp,bcjn->bchpn", xdt * decay_out[..., None], Bc)
 
     # inter-chunk recurrence (the reference's lax.scan)
-    st = (torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=xh.device)
+    st = (SH.replicated(torch.zeros((Bb, H, Pd, N), dtype=torch.float32,
+                                    device=xh.device), states)
           if init_state is None else init_state.float())
     prev = []
     for c in range(nc):
@@ -166,10 +168,10 @@ def _ssd_chunked(cfg: ModelConfig, xh, dtv, A, Bm, Cm, init_state=None):
 
     # inter-chunk output: C_i . (decay_in_i * state_prev)
     decay_in = torch.exp(cum)                      # [B,nc,Q,H]
-    y_inter = (torch.einsum("bcin,bchpn->bcihp", Cc, prev_states)
+    y_inter = (SH.einsum("bcin,bchpn->bcihp", Cc, prev_states)
                * decay_in[..., None])
 
-    y = (y_intra + y_inter).reshape(Bb, Sp, H, Pd)[:, :S]
+    y = SH.reshape(y_intra + y_inter, Bb, Sp, H, Pd)[:, :S]
     return y, st
 
 
@@ -197,29 +199,28 @@ def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         xBC_pre = xBC
         xBC, _ = _causal_conv(params, cfg, xBC)
         xs, Bm, Cm = xBC.split([di, N, N], dim=-1)
-        xh = xs.reshape(B, S, H, Pd)
+        xh = SH.reshape(xs, B, S, H, Pd)
         y, final = _ssd_chunked(cfg, xh, dtv, A, Bm, Cm)
         y = y + d_skip[None, None, :, None] * xh.float()
-        y = y.reshape(B, S, di).to(dt)
+        y = SH.reshape(y, B, S, di).to(dt)
         out = _gated_norm(params, cfg, y, z) @ params["out_proj"].to(dt)
         conv = (xBC_pre[:, S - w1:] if S >= w1
-                else F.pad(xBC_pre, (0, 0, w1 - S, 0)))
+                else SH.pad(xBC_pre, (0, 0, w1 - S, 0)))
         return out, SSMCache(conv=conv.to(dt), state=final)
 
     # ---- decode: O(1) recurrent update (S == 1) ----
     xBC_c, new_conv = _causal_conv(params, cfg, xBC, cache.conv)
     xs, Bm, Cm = xBC_c.split([di, N, N], dim=-1)
-    xh = xs.reshape(B, H, Pd).float()                             # [B,H,P]
+    xh = SH.reshape(xs, B, H, Pd).float()                             # [B,H,P]
     dt1 = dtv[:, 0]                                               # [B,H]
     Bm1 = Bm[:, 0].float()                                        # [B,N]
     Cm1 = Cm[:, 0].float()
     dA = torch.exp(dt1 * A)                                       # [B,H]
     upd = (dt1[:, :, None] * xh)[..., None] * Bm1[:, None, None, :]
     state = cache.state * dA[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", Cm1, state)
+    y = SH.einsum("bn,bhpn->bhp", Cm1, state)
     y = y + d_skip[None, :, None] * xh
-    y = y.reshape(B, 1, di).to(dt)
+    y = SH.reshape(y, B, 1, di).to(dt)
     out = _gated_norm(params, cfg, y, z) @ params["out_proj"].to(dt)
-    cache.conv.copy_(new_conv)
-    cache.state.copy_(state)
-    return out, cache
+    conv = SH.assign(cache.conv, ..., new_conv)
+    return out, SSMCache(conv=conv, state=SH.assign(cache.state, ..., state))

@@ -11,9 +11,17 @@ compute dtype once, when they are built: the reference casts under
 ``jit``, and eagerly that would cast every float32 master on every
 decode step.  Callers that run many steps build once (``build``) and
 pass the model; the values are the same either way.  The layer loop
-is a Python loop over the layers (the reference's ``lax.scan``), and
-the reference's ``shard`` constraints are no-ops on one device and are
-left out.
+is a Python loop over the layers (the reference's ``lax.scan``).
+
+Under the model mesh (``sharding.use_mesh_rules``, params placed as
+DTensors by ``launch.specs``) the same code runs on DTensors: ``shard``
+marks the activations at the reference's eight sites (a no-op without a
+mesh), the tensors made inside the forward (positions' RoPE angles, the
+zero ``aux``, a plain token batch) follow the mesh replicated, and a
+decode step's cache writes run on replicated operands
+(``sharding.assign``), so the stacked caches are restacked from the
+layers' results (``_restacked``) where the plain path writes them in
+place.
 
 Training differentiates through the build: given the float32 masters
 as a dict (tensors that require grad), ``forward_hidden`` and
@@ -63,8 +71,10 @@ import functools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import sharding as SH
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
@@ -287,11 +297,11 @@ def _cross_from_cache(params: dict, cfg: ModelConfig, x: torch.Tensor,
     q = x @ params["wq"].to(dt)
     if "bq" in params:
         q = q + params["bq"].to(dt)
-    q = q.reshape(B, Sq, H, Dh)
+    q = SH.reshape(q, B, Sq, H, Dh)
     out = attn_mod.attention_core(
         q, ck, cv, causal=False, window=0, q_offset=0,
         kv_valid=ck.shape[1], chunk=cfg.attn_chunk)
-    return out.reshape(B, Sq, H * Dh) @ params["wo"].to(dt)
+    return SH.reshape(out, B, Sq, H * Dh) @ params["wo"].to(dt)
 
 
 def _needs_frames(cfg: ModelConfig) -> ValueError:
@@ -337,8 +347,10 @@ class Encoder(nn.Module):
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         """frames [B, Se, D] -> the encoder's output [B, Se, D]."""
-        x = frames.to(device=self.pos.device, dtype=self.cfg.compute_dtype)
+        x = SH.replicated(frames, self.pos).to(device=self.pos.device,
+                                              dtype=self.cfg.compute_dtype)
         x = x + self.pos[: x.shape[1]]
+        x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
         positions = torch.arange(x.shape[1], device=x.device)
         for layer in self.layers:
             x = layer(x, positions=positions)
@@ -394,7 +406,7 @@ class DecoderLayer(nn.Module):
         without a router."""
         cache = cache or {}
         new = {}
-        h = self.norm1(x)
+        h = SH.shard(self.norm1(x), ("act_batch", "act_seq", "act_embed"))
         if self.attn is not None:
             a, new["attn"] = self.attn(h, positions=positions,
                                        cache=cache.get("attn"), angles=angles)
@@ -419,13 +431,17 @@ class DecoderLayer(nn.Module):
                 c, new["cross"] = self.cross(hc, positions=positions,
                                              xa=enc_out)
             x = x + c
+        x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
         if self.norm2 is None:
             return x, new, None
         h = self.norm2(x)
         if self.moe is None:
-            return x + self.mlp(h), new, None
-        y, aux = self.moe(h)
-        return x + y, new, aux
+            h = SH.shard(h, ("act_batch", "act_seq", "act_embed"))
+            x, aux = x + self.mlp(h), None
+        else:
+            y, aux = self.moe(h)
+            x = x + y
+        return SH.shard(x, ("act_batch", "act_seq", "act_embed")), new, aux
 
 
 class Transformer(nn.Module):
@@ -458,10 +474,11 @@ class Transformer(nn.Module):
 
     def embed_input(self, tokens, prefix_embeds=None) -> torch.Tensor:
         """tokens [B, St] (+ prefix embeds [B, Pfx, D]) -> [B, S, D]."""
-        x = self.embed.tokens[tokens.to(self.device)]
+        table = _one_use(self.embed.tokens)
+        x = table[SH.replicated(tokens, table).to(self.device)]
         if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype),
-                           x], dim=1)
+            x = torch.cat([SH.replicated(prefix_embeds, x).to(
+                device=x.device, dtype=x.dtype), x], dim=1)
         if self.cfg.pos == "learned":
             x = x + self.embed.pos[: x.shape[1]]
         return x
@@ -490,6 +507,8 @@ class Transformer(nn.Module):
                                    cfg.qk_rope_dim)
         elif cfg.attends and cfg.pos == "rope":
             angles = L.rope_angles(positions, cfg, cfg.d_head)
+        if angles is not None:   # replicated under a mesh
+            angles = tuple(SH.replicated(a, x) for a in angles)
         remat = remat and caches is None and torch.is_grad_enabled()
         news, aux = [], None
         for i, layer in enumerate(self.layers):
@@ -501,24 +520,33 @@ class Transformer(nn.Module):
             if a is not None:
                 aux = a if aux is None else aux + a
             news.append(new)
-        aux = _zero_aux(x.device) if aux is None else aux
+        aux = _zero_aux(x) if aux is None else aux
         if caches is None:
             return x, news, aux
         caches = dict(caches)
         c = caches.get("attn")
         if isinstance(c, mla_mod.MLACache):
+            ckv, krope = _restacked(c.ckv, news, "attn", "ckv"), \
+                _restacked(c.krope, news, "attn", "krope")
             caches["attn"] = mla_mod.MLACache(
-                ckv=c.ckv, krope=c.krope,
+                ckv=ckv, krope=krope,
                 length=min(c.length + 1, c.ckv.shape[-2]), pos=c.pos + 1)
         elif c is not None:
             caches["attn"] = attn_mod.KVCache(
-                k=c.k, v=c.v, length=min(c.length + 1, c.k.shape[-3]),
+                k=_restacked(c.k, news, "attn", "k"),
+                v=_restacked(c.v, news, "attn", "v"),
+                length=min(c.length + 1, c.k.shape[-3]),
                 pos=c.pos + 1, ring=c.ring)
+        c = caches.get("ssm")
+        if c is not None:
+            caches["ssm"] = ssm_mod.SSMCache(
+                conv=_restacked(c.conv, news, "ssm", "conv"),
+                state=_restacked(c.state, news, "ssm", "state"))
         return x, caches, aux
 
     def unembed(self, h) -> torch.Tensor:
         """Logits of final-normed hidden states ``h``."""
-        return L.unembed({"embed/tokens": self.embed.tokens,
+        return L.unembed({"embed/tokens": _one_use(self.embed.tokens),
                           **self.head.weights}, self.cfg, h)
 
 
@@ -530,8 +558,30 @@ def build(params, cfg: ModelConfig, device=None) -> Transformer:
     return Transformer(params, cfg, device)
 
 
-def _zero_aux(device) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.float32, device=device)
+def _one_use(w: torch.Tensor) -> torch.Tensor:
+    """``w`` for one of its uses: a DTensor's gradient from this use is
+    placed as ``w`` is, so that the gradients of the tied table's two
+    uses (lookup and unembed) add in one placement (some DTensor
+    releases cannot add a sharded one to a partial one)."""
+    if not isinstance(w, DTensor):
+        return w
+    return SH.redistribute(w, w.placements)
+
+
+def _zero_aux(like: torch.Tensor) -> torch.Tensor:
+    """A float32 zero on ``like``'s device (replicated under a mesh)."""
+    return SH.replicated(
+        torch.zeros((), dtype=torch.float32, device=like.device), like)
+
+
+def _restacked(buf: torch.Tensor, news: list[dict], kind: str,
+               field: str) -> torch.Tensor:
+    """A stacked decode cache after the step: a plain buffer was written
+    in place by every layer; a DTensor's layers were written out of
+    place (``sharding.assign``) and are stacked anew."""
+    if not isinstance(buf, DTensor):
+        return buf
+    return torch.stack([getattr(n[kind], field) for n in news])
 
 
 def layer_fn(params: dict, cfg: ModelConfig, x, *, positions, window: int,
@@ -545,7 +595,7 @@ def layer_fn(params: dict, cfg: ModelConfig, x, *, positions, window: int,
     layer = DecoderLayer(params, cfg, window, x.device)
     x, new, aux = layer(x, positions=positions, cache=cache, enc_out=enc_out)
     return (x, {k: v if mode != "train" else None for k, v in new.items()},
-            _zero_aux(x.device) if aux is None else aux)
+            _zero_aux(x) if aux is None else aux)
 
 
 def _stack_ssm(news: list[dict]) -> ssm_mod.SSMCache:
@@ -611,6 +661,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     model = build(params, cfg)
     enc_out = model.encode(enc_frames) if cfg.is_encdec else None
     x = model.embed_input(tokens, prefix_embeds)
+    x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
     x, _, aux = model.run_stack(
         x, positions=_positions(0, x.shape[1], x.device), remat=True,
         enc_out=enc_out)
@@ -622,7 +673,8 @@ def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     """Teacher-forced logits for training. Returns (logits, aux_loss)."""
     model = build(params, cfg)
     h, aux = forward_hidden(model, cfg, tokens, prefix_embeds, enc_frames)
-    return model.unembed(h), aux
+    logits = SH.shard(model.unembed(h), ("act_batch", "act_seq", "act_vocab"))
+    return logits, aux
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, buf_len: int,
@@ -668,6 +720,7 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     model = build(params, cfg)
     enc_out = model.encode(enc_frames) if cfg.is_encdec else None
     x = model.embed_input(tokens, prefix_embeds)
+    x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
     S = x.shape[1]
     x, news, _ = model.run_stack(x, positions=_positions(0, S, x.device),
                                  enc_out=enc_out)
@@ -692,6 +745,13 @@ def _assemble_prefill_caches(cfg: ModelConfig, news: list[dict], S: int,
     stacked = []
     for j in range(2):
         x0 = news[0]["attn"][j]
+        if isinstance(x0, DTensor):
+            # no in-place slice write into a DTensor: stacked, then
+            # padded with zeros past the prompt
+            stk = torch.stack([n["attn"][j] for n in news])
+            stacked.append(SH.pad(stk, (0, 0) * (stk.ndim - 3)
+                                  + (0, max(buf_len, S) - S)))
+            continue
         buf = x0.new_zeros((cfg.n_layers, x0.shape[0], max(buf_len, S))
                            + x0.shape[2:])
         for i, n in enumerate(news):
@@ -712,7 +772,8 @@ def decode_step(params, cfg: ModelConfig, caches: dict, token, pos):
     in place (``models.attention``, ``models.ssm``)."""
     model = build(params, cfg)
     pos = int(pos)
-    x = model.embed.tokens[token.to(model.device)[:, None]]
+    table = model.embed.tokens
+    x = table[SH.replicated(token, table).to(model.device)[:, None]]
     if cfg.pos == "learned":
         x = x + model.embed.pos[min(max(pos, 0), cfg.max_seq - 1)]
     x, caches, _ = model.run_stack(

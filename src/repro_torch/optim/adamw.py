@@ -15,6 +15,16 @@ it in place wherever the reference's expression allows: the same
 operations in the same order, so the same values, with at most three
 full-size float32 copies of a leaf alive at a time (a stacked expert
 leaf of DeepSeek-V2 holds 1.26 B elements, 5 GB in float32).
+
+Under the model mesh the masters, gradients and moments are DTensors.
+The update is the same expressions on them; each new leaf is placed as
+its old one was (the reference's ``out_shardings``).  A quantized
+moment's codes and scales are placed by their own shapes, with the
+reference's fallback to replication where a dim does not divide
+(``launch.specs.state_shardings``), so codes and scales of one moment
+may differ in placement; quantizing and dequantizing run on both with
+the last dim gathered, so that a block of 128 never straddles two
+ranks, and the result is placed back.
 """
 from __future__ import annotations
 
@@ -23,6 +33,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.sharding import placed_as
 
 __all__ = ["OptConfig", "Moment", "init_opt_state", "adamw_update",
            "cosine_lr", "global_norm"]
@@ -78,6 +91,20 @@ def _dequantize(codes: torch.Tensor, scale: torch.Tensor, d: int):
     return x.reshape(codes.shape)[..., :d]
 
 
+def _rows(t: DTensor) -> tuple:
+    """``t``'s placements with its last dim gathered."""
+    last = t.ndim - 1
+    return tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                 else p for p in t.placements)
+
+
+def _from_rows(local: torch.Tensor, mesh, pl: tuple, shape) -> DTensor:
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=stride)
+
+
 @dataclasses.dataclass
 class Moment:
     """One quantized moment tensor."""
@@ -87,11 +114,29 @@ class Moment:
     d: int
 
     def value(self) -> torch.Tensor:
-        return _dequantize(self.codes, self.scale, self.d)
+        if not isinstance(self.codes, DTensor):
+            return _dequantize(self.codes, self.scale, self.d)
+        mesh, pl = self.codes.device_mesh, _rows(self.codes)
+        x = _dequantize(self.codes.redistribute(mesh, pl).to_local(),
+                        self.scale.redistribute(mesh, pl).to_local(), self.d)
+        return _from_rows(x, mesh, pl, self.codes.shape[:-1] + (self.d,))
 
     @classmethod
-    def of(cls, x: torch.Tensor) -> "Moment":
-        codes, scale = _quantize(x)
+    def of(cls, x: torch.Tensor, like: "Moment" = None) -> "Moment":
+        """``x`` quantized; a DTensor's codes and scales are placed as
+        ``like``'s (default: as ``x`` with its last dim gathered)."""
+        if not isinstance(x, DTensor):
+            codes, scale = _quantize(x)
+            return cls(codes, scale, x.shape[-1])
+        mesh = x.device_mesh
+        pl = _rows(like.codes if like is not None else x)
+        codes, scale = _quantize(x.redistribute(mesh, pl).to_local())
+        lead = x.shape[:-1]
+        codes = _from_rows(codes, mesh, pl, lead + (codes.shape[-1],))
+        scale = _from_rows(scale, mesh, pl, lead + (scale.shape[-1],))
+        if like is not None:
+            codes, scale = placed_as(codes, like.codes), \
+                placed_as(scale, like.scale)
         return cls(codes, scale, x.shape[-1])
 
 
@@ -117,7 +162,9 @@ def _as_value(x):
 
 
 def _like(old, new_val: torch.Tensor):
-    return Moment.of(new_val) if isinstance(old, Moment) else new_val
+    if isinstance(old, Moment):
+        return Moment.of(new_val, old)
+    return placed_as(new_val, old)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -166,7 +213,7 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
         p32 = p.to(torch.float32, copy=True)
         if p.ndim >= 2:  # decay matrices only (norms/biases exempt)
             upd.add_(p32 * cfg.weight_decay)
-        new_params[k] = p32.sub_(upd.mul_(lr)).to(p.dtype)
+        new_params[k] = placed_as(p32.sub_(upd.mul_(lr)).to(p.dtype), p)
         del upd, p32
 
     new_state = {"m": new_m, "v": new_v, "step": step}

@@ -16,13 +16,24 @@ chunks, and the tick through ``core.clock.tick``, which launches the
 tick kernel (B = 1, k probes) for a clock on the card.  The step
 returns a new ``TrainState``; nothing is compiled (no ``jit``, no
 ``torch.compile``).
+
+Under the model mesh (``sharding.use_mesh_rules``, masters placed by
+``launch.specs.state_shardings``) the step is the reference's SPMD
+step on DTensors: the gradients, which arrive ``Partial`` or placed as
+the backward left them, are reduced to their master's placement, the
+optimizer keeps every leaf's placement, and the clock cells and the
+step stay replicated: each rank ticks its own replica, the local
+tensor, through the tick kernel (the reference's replicated
+``clock_cells``).  The metrics come back as full values on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import sharding as SH
 from repro_torch.core import clock as bc
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -65,7 +76,13 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     those positions out, which gives the same loss and a zero gradient
     there."""
     idx = labels.long().clamp(0, logits.shape[-1] - 1)
-    return torch.gather(logits, -1, idx[..., None])[..., 0]
+    g = torch.gather(logits, -1, idx[..., None])
+    if isinstance(g, DTensor):
+        # a gather over a vocab-sharded dim is a masked partial sum;
+        # reduced here, before the select drops the dim its mask covers
+        g = SH.redistribute(g, [Replicate() if p.is_partial() else p
+                                for p in g.placements])
+    return g[..., 0]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
@@ -115,13 +132,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             S = hidden.shape[1]
             C = min(cfg.ce_chunk, S)
             pad = (-S) % C
-            labels = batch["labels"]
+            labels = SH.replicated(batch["labels"], hidden)
             if pad:
-                hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
-                labels = torch.nn.functional.pad(labels, (0, pad),
-                                                 value=-1)  # masked out
-            tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-            cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+                hidden = SH.pad(hidden, (0, 0, 0, pad))
+                labels = SH.pad(labels, (0, pad), value=-1)  # masked out
+            tot = SH.replicated(torch.zeros((), dtype=torch.float32,
+                                            device=hidden.device), hidden)
+            cnt = SH.replicated(torch.zeros((), dtype=torch.int32,
+                                            device=hidden.device), hidden)
             for i in range((S + pad) // C):
                 h = hidden[:, i * C:(i + 1) * C]
                 lb = labels[:, i * C:(i + 1) * C]
@@ -140,7 +158,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                 enc_frames=batch.get("enc_frames"))
             if cfg.n_prefix:  # vlm: loss over token region only
                 logits = logits[:, cfg.n_prefix:]
-            loss = cross_entropy(logits, batch["labels"], cfg.vocab)
+            loss = cross_entropy(logits, SH.replicated(batch["labels"], logits),
+                                 cfg.vocab)
         return loss + aux_coef * aux, loss, aux
 
     def grad_fn(params, batch):
@@ -149,7 +168,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         tot, loss, aux = loss_fn(leaves, batch)
         grads = torch.autograd.grad(tot, list(leaves.values()))
-        return dict(zip(leaves, grads)), loss.detach(), aux.detach()
+        # under a mesh: reduced to the master's placement
+        return ({k: SH.placed_as(g, leaves[k]) for k, g in zip(leaves, grads)},
+                loss.detach(), aux.detach())
 
     def compute_grads(params, batch):
         if num_microbatches == 1:
@@ -159,11 +180,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             raise ValueError(f"batch {B} does not split into "
                              f"{num_microbatches} microbatches")
         mb = B // num_microbatches
-        g = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        g = {k: torch.zeros_like(p, dtype=torch.float32)
              for k, p in params.items()}
-        dev = next(iter(params.values())).device
-        l = torch.zeros((), dtype=torch.float32, device=dev)
-        a = torch.zeros((), dtype=torch.float32, device=dev)
+        p0 = next(iter(params.values()))
+        l = SH.replicated(torch.zeros((), dtype=torch.float32,
+                                      device=p0.device), p0)
+        a = SH.replicated(torch.zeros((), dtype=torch.float32,
+                                      device=p0.device), p0)
         for i in range(num_microbatches):
             sub_batch = {k: v[i * mb:(i + 1) * mb]
                          if isinstance(v, torch.Tensor) and v.ndim >= 1
@@ -178,17 +201,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         grads, loss, aux = compute_grads(state.params, batch)
         params, opt, om = adamw_update(state.params, grads, state.opt, opt_cfg)
         del grads
-        # the clock tick: this step's batch event enters causal history
+        # the clock tick: this step's batch event enters causal history;
+        # under a mesh each rank ticks its replica (the local tensor)
+        cells = state.clock_cells
+        local = cells.to_local() if isinstance(cells, DTensor) else cells
         clock = bc.BloomClock(
-            state.clock_cells,
-            torch.zeros((), dtype=torch.int32, device=state.clock_cells.device),
+            local, torch.zeros((), dtype=torch.int32, device=local.device),
             clock_cfg.k)
-        clock = bc.tick(clock, batch["ev_hi"], batch["ev_lo"])
+        clock = bc.tick(clock, SH.to_local(batch["ev_hi"]),
+                        SH.to_local(batch["ev_lo"]))
         new_state = TrainState(params=params, opt=opt,
-                               clock_cells=clock.cells + clock.base,
+                               clock_cells=SH.replicated(
+                                   clock.cells + clock.base, cells),
                                step=state.step + 1)
         metrics = {"loss": loss, "aux": aux, **om,
                    "clock_sum": clock.cells.sum().to(torch.float32)}
-        return new_state, metrics
+        return new_state, {k: SH.to_local(v) for k, v in metrics.items()}
 
     return train_step

@@ -4,7 +4,8 @@ all-pairs tri, rect-u8, rect-i32-stats and mxu kernels (mxu on both
 sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
 (sharded registries, the mesh transport, socket sessions, the chaos
 sim, model serving and training, the MoE, SSM, hybrid and enc-dec
-families) on the card against the CPU.  Every test here carries the
+families) on the card against the CPU; the model mesh on NCCL groups
+(one rank, and 2 x 2 over four cards) against the plain port.  Every test here carries the
 ``gpu`` marker and skips without a CUDA device (decided in a fixture,
 never at import time).
 
@@ -2069,3 +2070,54 @@ def test_cuda_encdec_train_step_matches_cpu(cuda):
     for k in want.params:
         np.testing.assert_allclose(got.params[k].numpy(), want.params[k].numpy(),
                                    rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the model mesh (DTensor) on NCCL groups, each in its own processes
+# ---------------------------------------------------------------------------
+
+#: the smoke configs of the one-rank NCCL mesh: dense, MoE with MLA, SSM
+MESH_ARCHS = ["qwen1_5_0_5b", "deepseek_v2_236b", "mamba2_130m"]
+
+
+@pytest.mark.gpu
+def test_cuda_one_rank_nccl_mesh_matches_plain(cuda, tmp_path):
+    """A one-rank NCCL group in a subprocess and the (1, 1) mesh on the
+    card: prefill, four greedy decode steps and one train step of three
+    smoke configs with DTensor parameters bit-identical to the plain
+    port on the same card (``test_torch_model_mesh_ranks``'s worker; no
+    op differs)."""
+    import test_torch_model_mesh_ranks as R
+
+    job = R.Job(str(tmp_path / "one.json"), 1, mode="one", backend="nccl",
+                mesh=[1, 1], archs=MESH_ARCHS)
+    res = job.result()
+    for arch in MESH_ARCHS:
+        differ = {k: v for k, v in res[arch].items() if v != 0.0}
+        assert differ == R.REWRITTEN.get(arch, {}), (arch, differ)
+
+
+@pytest.mark.gpu
+def test_cuda_four_card_nccl_2x2_mesh_within_tolerance(cuda, tmp_path):
+    """Four ranks, one card each, a 2x2 (data, model) NCCL mesh: the
+    forward of the dense and the MoE smoke configs within the bfloat16
+    tolerance of the plain port on each card, one train step's loss and
+    grad norm within 2e-2, its params within the AdamW bound and its
+    moments within ``MOMENT_RTOL``; ``adamw_update`` alone on sharded
+    float32 and int8 moments within ``ADAMW_RTOL``
+    (``test_torch_model_mesh_ranks.check_four_rank``); the dense run's
+    checkpoint round trip.  Skips with fewer than four cards."""
+    import test_torch_model_mesh_ranks as R
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA devices, has {torch.cuda.device_count()}")
+    for arch in R.FOUR_RANK_ARCHS:
+        npz = str(tmp_path / f"{arch}.npz")
+        R.port_inputs(arch, npz)
+        ckpt = str(tmp_path / "ckpt") if arch == R.FOUR_RANK_ARCHS[0] else ""
+        res = R.Job(str(tmp_path / f"{arch}.json"), 4, mode="four",
+                    backend="nccl", mesh=[2, 2], archs=[arch], npz=npz,
+                    ckpt=ckpt).result()
+        R.check_four_rank(arch, res)
+        if ckpt:
+            assert res["round_trip"] == [True, True]
