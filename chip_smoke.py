@@ -11,7 +11,9 @@ sim it is held to), its shards of s <= the card count on distinct cards.
 ``python3 chip_smoke.py --model-only`` builds them and runs phase 10
 alone, ``--train-only`` phase 11 alone, ``--moe-only`` phase 12 alone,
 ``--ssm-only`` phase 13 alone, ``--encdec-only`` phase 14 alone,
-``--mesh-only`` phase 15 alone.
+``--mesh-only`` phase 15 alone, ``--examples-only`` phase 16 alone
+(with, after it, ``examples/torch_train_100m.py`` at its ~100M default,
+timed).
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -189,7 +191,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     ``launch.train``'s batch 8 and seq 128, 4 steps (grok with its
     expert width cut to 16,384: ``MOE_TRAIN_CUTS``): step ms, tokens/s,
     loss and aux a step, peak memory, one step under the profiler, one
-    tick a step; (c) both configs at the full widths and depth 1 on the
+    tick a step; (c) with ``--moe-only`` only (the full run cuts it
+    for its time; the ``gpu`` cases hold ``moe_ffn``, ``mla_block`` and
+    the engine card vs CPU at the smoke configs), both configs at the
+    full widths and depth 1 on the
     card and the CPU (``model_run`` with 4 tokens, routes logged by
     forward hooks): clocks, registry rows and masks identical, the share
     of tokens whose experts differ printed, logits and greedy tokens
@@ -244,18 +249,40 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     that DTensor rewrites is named and held to the bfloat16 tolerance),
     one tick a train step with the launch counts reset just before and
     read just after; the DTensor decode and train steps beside the
-    plain ones, one DTensor decode step under the profiler; the group is
-    torn down after;
-16. one JSON line of kernel records (the three serving kernels also
+    plain ones, one DTensor decode step under the profiler; then the
+    explicit collectives on the same mesh: (a) Qwen1.5-0.5B's full
+    config with ``decode_attn="split_kv"`` (owner-writes cache update,
+    split-KV decode: a ``local_map`` with functional all-reduces) serves
+    the same prompts, greedy tokens identical to the plain path, logits
+    within the bfloat16 tolerance (the one-shot split softmax rounds
+    otherwise than the chunked one), one split-KV attention a layer and
+    a step counted and one step's collectives under ``CommDebugMode``,
+    its decode step beside the DTensor and plain ones; (b) DeepSeek-V2
+    at full widths and depth 1 with ``moe_impl="alltoall"`` (160
+    physical experts over a model axis of one) serves them against the
+    plain gather path from the same weights: on one rank each shard's
+    capacity is the global one and both all-to-alls are identities, so
+    the logits are bit-identical (an op that differs is named and held
+    to the bfloat16 tolerance), one all-to-all path a layer and a
+    forward counted; the group is torn down after;
+16. the examples (``[examples]`` lines): the four
+    ``examples/torch_*.py`` (``torch_train_100m.py`` at ``--small``) as
+    child processes on the card, beside the same four with ``--device
+    cpu``, all side by side: each exits 0, and its deterministic lines
+    agree with its CPU run (quickstart's every line but the all-pairs
+    engine's name, fp within 5e-2; serving's statuses and verdicts; the
+    async rounds' verdicts and the readmission; training's restore line
+    and final clock sum); each card run's kernel launches;
+17. one JSON line of kernel records (the three serving kernels also
     carry their launches on the serving path, the four training
     kernels theirs on the training path, tick, merge_compare and i32
     one-vs-many theirs on the MoE and the SSM phases, tick its ticks on
-    the enc-dec path and on the mesh path), the card line, then the
-    verdict line.
+    the enc-dec path and on the mesh path, each kernel its launches in
+    the examples' card runs), the card line, then the verdict line.
 
 In the full run the launchers' child processes of 4c (c), 10, 11, 12
-and 13 run side by side after phase 10 (``CHILDREN_BATCHED``); a phase
-run alone starts its own.
+and 13 and the examples of 16 run side by side after phase 10
+(``CHILDREN_BATCHED``); a phase run alone starts its own.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
 resolves (``card_blocks``): the committed table's ``cuda`` entries under
@@ -4473,8 +4500,8 @@ def moe_cpu_check(dev, arch: str) -> dict:
 def moe_phase(dev, rate: float) -> dict:
     """Phase 12: (a) serving each config at ``MOE_SERVE_LAYERS`` layers,
     and through the launcher's smoke in a child process, (b) training,
-    (c) card against CPU.  Returns the phase's launches (serving and
-    training summed)."""
+    (c) card against CPU (only when the phase runs alone).  Returns the
+    phase's launches (serving and training summed)."""
     import torch
 
     launches = dict.fromkeys(MODEL_KERNELS, 0)
@@ -4538,7 +4565,9 @@ def moe_phase(dev, rate: float) -> dict:
             launches[kname] += n
         del tr
         torch.cuda.empty_cache()
-    for arch in MOE_ARCHS:
+    # the card-vs-CPU checks run when the phase runs alone (the full run
+    # leaves them to the gpu cases at the smoke configs, for its time)
+    for arch in MOE_ARCHS if not CHILDREN_BATCHED else ():
         small = moe_cpu_check(dev, arch)
         print(f"[moe] {arch} card and CPU at the full widths, depth 1: "
               f"clocks, registry rows and adopt_many masks identical; logits "
@@ -5227,13 +5256,33 @@ def mesh_group():
     return make_local_mesh(1, 1)
 
 
-def mesh_serve(params, cfg, prompts, mesh=None, timed_step: bool = False):
+@contextlib.contextmanager
+def counted(module, name: str):
+    """While active, ``module.name`` counts its calls (``.n`` of the
+    yielded object)."""
+    fn = getattr(module, name)
+    box = type("Calls", (), {"n": 0})()
+
+    def wrapper(*args, **kwargs):
+        box.n += 1
+        return fn(*args, **kwargs)
+    setattr(module, name, wrapper)
+    try:
+        yield box
+    finally:
+        setattr(module, name, fn)
+
+
+def mesh_serve(params, cfg, prompts, mesh=None, timed_step: bool = False,
+               comm_step: bool = False):
     """Prefill and ``MODEL_GEN`` greedy decode steps of the model built
     from ``params`` (DTensors under ``mesh``, plain without): each step's
     logits as float32 on the host, the greedy tokens, each decode step's
-    host-clock ms to a synchronise, and with ``timed_step`` one more
-    decode step under the profiler."""
+    host-clock ms to a synchronise, with ``timed_step`` one more decode
+    step under the profiler, and with ``comm_step`` the collectives of
+    one more decode step (``CommDebugMode``'s counts)."""
     import torch
+    from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch import sharding as SH
     from repro_torch.models import transformer as T
 
@@ -5260,8 +5309,14 @@ def mesh_serve(params, cfg, prompts, mesh=None, timed_step: bool = False):
         prof = (profiled(lambda: T.decode_step(
             model, cfg, caches, tok, MODEL_PROMPT + MODEL_GEN))
             if timed_step else None)
+        comm = None
+        if comm_step:
+            with CommDebugMode() as mode:
+                T.decode_step(model, cfg, caches, tok,
+                              MODEL_PROMPT + MODEL_GEN)
+            comm = {str(k): n for k, n in mode.get_comm_counts().items()}
     return {"logits": out, "tokens": torch.stack(toks), "ms": ms,
-            "profile": prof}
+            "profile": prof, "comm": comm}
 
 
 def mesh_train(dev, state, cfg, opt_cfg, clock_cfg, data, mesh=None) -> dict:
@@ -5338,7 +5393,9 @@ def mesh_phase(dev, rate: float) -> dict:
             same_tensor(g, w, f"logits of step {i}", held)
         serve_ms = (float(np.median(dt["ms"][1:])),
                     float(np.median(plain["ms"][1:])))
+        split = mesh_split_kv(dparams, cfg, prompts, mesh, plain)
         del params, dparams
+        moe = mesh_alltoall(dev, mesh)
 
         args = launch.parse_args([])
         cfg, opt_cfg, clock_cfg, data = launch.build(args)
@@ -5391,20 +5448,299 @@ def mesh_phase(dev, rate: float) -> dict:
           f"ms, plain {train_ms[1]} ms; one DTensor decode step under the "
           f"profiler: wall {prof['wall_ms']} ms, kernels {prof['kernel_ms']} "
           f"ms ({prof['device_events']} device events), idle share "
-          f"{prof['idle_share']}; launches {json.dumps(launches)}; the phase "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{prof['idle_share']}; launches {json.dumps(launches)}")
+    print(f"[mesh] (a) {MODEL_ARCH} with decode_attn=\"split_kv\" on the "
+          f"DTensor parameters: greedy tokens of prefill + {MODEL_GEN} decode "
+          f"steps identical to the plain path; {split['calls']} split-KV "
+          f"attentions ({MODEL_GEN} steps x {split['layers']} layers); "
+          f"logits bit-identical but {json.dumps(split['held'])}, each within "
+          f"the bfloat16 tolerance; one decode step's collectives "
+          f"{json.dumps(split['comm'])}; decode step (median of steps "
+          f"2-{MODEL_GEN}): split-KV DTensor {split['ms']} ms, DTensor "
+          f"{serve_ms[0]} ms, plain {serve_ms[1]} ms")
+    print(f"[mesh] (b) {moe['arch']} at full widths, depth 1, "
+          f"moe_impl=\"alltoall\" ({moe['experts']} physical experts over a "
+          f"model axis of 1) on DTensor parameters against the plain gather "
+          f"path: greedy tokens of prefill + {MODEL_GEN} decode steps "
+          f"identical; logits bit-identical but {json.dumps(moe['held'])}; "
+          f"{moe['calls']} all-to-all paths (prefill + {MODEL_GEN} steps x "
+          f"{moe['layers']} layer); one decode step's collectives "
+          f"{json.dumps(moe['comm'])}; decode step (median of steps "
+          f"2-{MODEL_GEN}): alltoall DTensor {moe['ms']} ms, gather plain "
+          f"{moe['plain_ms']} ms; peak {moe['peak_gb']} GB")
+    print(f"[mesh] the phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def mesh_split_kv(dparams, cfg, prompts, mesh, plain: dict) -> dict:
+    """Phase 15 (a): the DTensor parameters serve ``prompts`` with
+    ``decode_attn="split_kv"``; greedy tokens identical to ``plain``'s
+    run, logits within the bfloat16 tolerance."""
+    import dataclasses
+    from repro_torch.models import attention as A
+
+    split_cfg = dataclasses.replace(cfg, decode_attn="split_kv")
+    with counted(A, "decode_attention_split_kv") as calls:
+        run = mesh_serve(dparams, split_cfg, prompts, mesh, comm_step=True)
+    n = calls.n
+    check(n == (MODEL_GEN + 1) * cfg.n_layers,
+          f"[mesh] {n} split-KV attentions in {MODEL_GEN + 1} decode steps")
+    check_equal(run["tokens"].numpy(), plain["tokens"].numpy(),
+                "[mesh] greedy tokens, split-KV vs plain")
+    held: list = []
+    for i, (g, w) in enumerate(zip(run["logits"], plain["logits"])):
+        same_tensor(g, w, f"split-KV logits of step {i}", held)
+    check(run["comm"].get("c10d_functional.all_reduce", 0)
+          >= 3 * cfg.n_layers, f"[mesh] split-KV collectives {run['comm']}")
+    return {"calls": n - cfg.n_layers, "layers": cfg.n_layers, "held": held,
+            "comm": run["comm"], "ms": float(np.median(run["ms"][1:]))}
+
+
+def mesh_alltoall(dev, mesh) -> dict:
+    """Phase 15 (b): DeepSeek-V2 at full widths and depth 1 served on
+    the mesh with ``moe_impl="alltoall"`` against the plain gather path
+    from the same weights: greedy tokens identical, logits bit-identical
+    (a difference is named and held to the bfloat16 tolerance)."""
+    import dataclasses
+    import torch
+    from repro_torch import sharding as SH
+    from repro_torch.launch import specs as S
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import init_params
+
+    arch = MOE_ARCHS[1]
+    cfg = moe_cfg(arch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(dev).manual_seed(SEED), cfg, dev)
+    prompts = model_prompts(cfg.vocab)
+    mesh_serve(params, cfg, prompts)              # cuBLAS set-up
+    plain = mesh_serve(params, cfg, prompts)
+    dparams = S.place(params, S.params_shardings(mesh, SH.DEFAULT_RULES, cfg))
+    a2a = dataclasses.replace(cfg, moe_impl="alltoall")
+    with counted(M, "_moe_alltoall") as calls:
+        run = mesh_serve(dparams, a2a, prompts, mesh, comm_step=True)
+    del params, dparams
+    n = calls.n
+    check(n == (MODEL_GEN + 2) * cfg.n_layers,
+          f"[mesh] {n} all-to-all paths in prefill + {MODEL_GEN + 1} steps")
+    check(run["comm"].get("c10d_functional.all_to_all_single", 0)
+          == 2 * cfg.n_layers, f"[mesh] alltoall collectives {run['comm']}")
+    check_equal(run["tokens"].numpy(), plain["tokens"].numpy(),
+                "[mesh] greedy tokens, alltoall vs gather")
+    held: list = []
+    for i, (g, w) in enumerate(zip(run["logits"], plain["logits"])):
+        same_tensor(g, w, f"alltoall logits of step {i}", held)
+    return {"arch": arch, "experts": cfg.n_experts * cfg.moe_replicas,
+            "layers": cfg.n_layers, "calls": n - cfg.n_layers, "held": held,
+            "comm": run["comm"], "ms": float(np.median(run["ms"][1:])),
+            "plain_ms": float(np.median(plain["ms"][1:])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the examples
+# ---------------------------------------------------------------------------
+
+#: the examples and their arguments in this phase
+EXAMPLES = {"quickstart": [], "serve_sessions": [], "async_pods": [],
+            "train_100m": ["--small"]}
+#: the kernels each example's card run must launch ("matrix_*": one of
+#: the all-pairs engines, the one ``CausalEngine.pairs`` picks)
+EXAMPLE_KERNELS = {
+    "quickstart": ("bloom_tick", "bloom_merge_compare", "one_vs_many_i32",
+                   "matrix_*"),
+    "serve_sessions": ("bloom_tick", "bloom_merge_compare"),
+    "async_pods": ("bloom_tick", "one_vs_many_packed"),
+    "train_100m": ("bloom_tick",)}
+#: host threads of an example's child (the children run side by side)
+EXAMPLE_THREADS = 2
+#: runs an example (argv[1:]: its path and arguments) in this child on
+#: ``EXAMPLE_THREADS`` host threads and prints the kernels it launched,
+#: as ``[launches] {...}``
+_EXAMPLE_RUN = f"""
+import json, runpy, sys
+import torch
+torch.set_num_threads({EXAMPLE_THREADS})
+sys.argv = sys.argv[1:]
+from repro_torch.kernels import ops
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("[launches] " + json.dumps(dict(ops.LAUNCHES)))
+"""
+#: the same for ``torch_train_100m.py``, each train step timed to a
+#: synchronise of the card, printed as ``[timing] {...}``
+_TRAIN_TIMED = """
+import json, runpy, sys, time
+import torch
+sys.argv = sys.argv[1:]
+from repro_torch.kernels import ops
+from repro_torch.runtime import training
+ms, losses = [], []
+make = training.make_train_step
+
+def timed_make(*args, **kwargs):
+    step = make(*args, **kwargs)
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[1]["loss"]))
+        return out
+    return timed
+
+training.make_train_step = timed_make
+t0 = time.perf_counter()
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("[timing] " + json.dumps({"wall_s": time.perf_counter() - t0,
+                               "step_ms": ms, "losses": losses,
+                               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                               "launches": dict(ops.LAUNCHES)}))
+"""
+_NUM = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?")
+
+
+def same_line(a: str, b: str) -> bool:
+    """Equal but for floats within ``FP_RTOL`` (integers exact)."""
+    if _NUM.sub("#", a) != _NUM.sub("#", b):
+        return False
+    for x, y in zip(_NUM.findall(a), _NUM.findall(b)):
+        if "." in x or "e" in x:
+            if abs(float(x) - float(y)) > FP_RTOL * max(abs(float(x)),
+                                                        abs(float(y))):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def example_specs(outs: dict) -> list:
+    """(argv, what, report) child specs of every example on the card and
+    on the CPU; each report keeps (output, wall) in ``outs[(name,
+    device)]``."""
+    specs = []
+    for name, args in EXAMPLES.items():
+        for device in ("cuda", "cpu"):
+            path = os.path.join("examples", f"torch_{name}.py")
+            argv = [sys.executable, "-c", _EXAMPLE_RUN, path, *args,
+                    *(["--device", "cpu"] if device == "cpu" else [])]
+
+            def report(out, wall, note, key=(name, device)):
+                outs[key] = (out.splitlines(), wall)
+            specs.append((argv, f"{path} {' '.join(args)} on {device}",
+                          report))
+    return specs
+
+
+def _lines(lines: list, prefix: str) -> list:
+    return [ln for ln in lines if ln.startswith(prefix)]
+
+
+def check_examples(outs: dict) -> dict:
+    """Each example's card run against its CPU run (the deterministic
+    lines); prints a line for each; returns the card runs' launches
+    summed by kernel."""
+    total: dict = {}
+    for name, args in EXAMPLES.items():
+        (card, wall), (cpu, cpu_wall) = outs[(name, "cuda")], outs[(name, "cpu")]
+        launches = json.loads(_lines(card, "[launches] ")[-1][11:])
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        card = [ln for ln in card if not ln.startswith("[launches]")]
+        cpu = [ln for ln in cpu if not ln.startswith("[launches]")]
+        if name == "quickstart":
+            engines = [re.search(r"engine=(\w+)", "\n".join(x)).group(1)
+                       for x in (card, cpu)]
+            mask = [[re.sub(r"engine=\w+", "engine=*", ln) for ln in x]
+                    for x in (card, cpu)]
+            check(len(card) == len(cpu) and all(
+                same_line(a, b) for a, b in zip(*mask)),
+                f"[examples] quickstart, card vs CPU:\n{card}\n{cpu}")
+            agree = f"every line (all-pairs engine {engines[0]} / {engines[1]})"
+        elif name == "serve_sessions":
+            pair = [_lines(x, "[serve] migrate") for x in (card, cpu)]
+            check(len(pair[0]) == 2 and all(
+                same_line(a, b) for a, b in zip(*pair)),
+                f"[examples] serve_sessions, card vs CPU: {pair}")
+            check("ACCEPT" in pair[0][0] and "REFUSE" in pair[0][1],
+                  f"[examples] serve_sessions verdicts {pair[0]}")
+            agree = "the migration statuses and verdicts"
+        elif name == "async_pods":
+            pair = [[ln[ln.index("{"):] for ln in _lines(x, "[round ")]
+                    + _lines(x, "[recovery]") for x in (card, cpu)]
+            check(len(pair[0]) == 9 and pair[0] == pair[1]
+                  and pair[0][-1] == "[recovery] pod3 readmitted: True",
+                  f"[examples] async_pods, card vs CPU: {pair}")
+            agree = "every round's verdicts and the readmission"
+        else:
+            pair = [_lines(x, "[example] restore") + x[-1:]
+                    for x in (card, cpu)]
+            clocks = [re.search(r"clock sum (\d+)", p[-1]) for p in pair]
+            check(len(pair[0]) == 2 and pair[0][0] == pair[1][0]
+                  and clocks[0] and clocks[1]
+                  and clocks[0].group(1) == clocks[1].group(1),
+                  f"[examples] train_100m, card vs CPU: {pair}")
+            agree = "the restore line and the final clock sum"
+        for k in EXAMPLE_KERNELS[name]:
+            check(launches.get(k, 0) > 0 or (k == "matrix_*" and any(
+                n for kk, n in launches.items() if kk.startswith("matrix_"))),
+                f"[examples] {name} launched no {k} on the card: {launches}")
+        print(f"[examples] {' '.join([f'examples/torch_{name}.py', *args])}: exit 0 "
+              f"on the card in {wall:.1f} s and on the CPU in {cpu_wall:.1f} "
+              f"s; {agree} agree; card launches {json.dumps(launches)}; "
+              f"card output {json.dumps(card)}")
+    return total
+
+
+def train_100m_full() -> dict:
+    """``examples/torch_train_100m.py`` at its ~100M default on the card
+    (a child), every train step timed."""
+    (out, wall), = run_children([([sys.executable, "-c", _TRAIN_TIMED,
+                                   os.path.join("examples",
+                                                "torch_train_100m.py")],
+                                  "examples/torch_train_100m.py")])
+    lines = out.splitlines()
+    t = json.loads(_lines(lines, "[timing] ")[-1][9:])
+    ms = t["step_ms"]
+    check(len(_lines(lines, "[example] restore step=50 lineage=descendant "
+                     "admitted=True")) == 1, f"train_100m:\n{out[-3000:]}")
+    return {"wall_s": wall, "lines": [ln for ln in lines
+                                      if ln.startswith("[example]")],
+            "steps": len(ms), "median_step_ms": float(np.median(ms[1:])),
+            "tokens_per_s": 8 * 256 / (float(np.median(ms[1:])) / 1e3),
+            "loss_first": t["losses"][0], "loss_last": t["losses"][-1],
+            "peak_gb": t["peak_gb"], "launches": t["launches"]}
+
+
+def examples_phase(dev, rate: float) -> dict:
+    """Phase 16 alone: the examples on the card and the CPU side by side
+    (``example_specs``, ``check_examples``), then ``torch_train_100m.py``
+    at its ~100M default, timed.  Returns the examples' card launches."""
+    outs: dict = {}
+    run_launchers(example_specs(outs))
+    launches = check_examples(outs)
+    full = train_100m_full()
+    print(f"[examples] examples/torch_train_100m.py (~100M default, 300 "
+          f"steps, batch 8 x seq 256, a checkpoint every 50, preemption at "
+          f"75 and a restore from 50): wall {full['wall_s']:.1f} s, "
+          f"{full['steps']} steps, median step {full['median_step_ms']} ms, "
+          f"{full['tokens_per_s']} tokens/s, loss {full['loss_first']} -> "
+          f"{full['loss_last']}, peak {full['peak_gb']} GB, launches "
+          f"{json.dumps(full['launches'])}; {json.dumps(full['lines'])}")
     return launches
 
 
 def main() -> int:
     args = sys.argv[1:]
     phases = {"model": model_phase, "train": train_phase, "moe": moe_phase,
-              "ssm": ssm_phase, "encdec": encdec_phase, "mesh": mesh_phase}
+              "ssm": ssm_phase, "encdec": encdec_phase, "mesh": mesh_phase,
+              "examples": examples_phase}
     if args not in ([], ["--shard-only"],
                     *([f"--{name}-only"] for name in phases)):
         print("usage: chip_smoke.py [--shard-only | --model-only | "
               "--train-only | --moe-only | --ssm-only | --encdec-only | "
-              "--mesh-only]",
+              "--mesh-only | --examples-only]",
               file=sys.stderr)
         return 2
     shard_only = args == ["--shard-only"]
@@ -5604,11 +5940,13 @@ def main() -> int:
     model_launches = model_phase(dev, rate)
     torch.cuda.empty_cache()
     lap("model")
+    example_outs: dict = {}
     with tempfile.TemporaryDirectory() as d:
         run_launchers([serve_launcher("model"), train_launcher(d),
                        *(serve_launcher("moe", a) for a in MOE_ARCHS),
                        *(serve_launcher("ssm", a) for a in SSM_ARCHS),
-                       chaos_launcher()])
+                       chaos_launcher(), *example_specs(example_outs)])
+    example_launches = check_examples(example_outs)
     lap("launchers")
     train_launches = train_phase(dev, rate)
     lap("train")
@@ -5651,6 +5989,8 @@ def main() -> int:
             records[-1]["encdec_launches"] = encdec_launches[kname]
         if mesh_launches.get(kname):
             records[-1]["mesh_launches"] = mesh_launches[kname]
+        if example_launches.get(kname):
+            records[-1]["examples_launches"] = example_launches[kname]
         print(f"[time] {kname}: kernel {t['ms']} ms (wrapper call "
               f"{t['call_ms']} ms), plain {t['plain_ms']} ms (call "
               f"{t['plain_call_ms']} ms), library {t['library_ms']} ms"

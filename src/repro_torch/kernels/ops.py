@@ -59,7 +59,14 @@ __all__ = [
     "rect_u8_flags",
     "rect_i32_stats",
     "mxu_viol",
+    "classify_vs_many",
+    "classify_vs_many_packed",
+    "classify_vs_many_packed_sharded",
+    "overlay_wide_classify",
+    "compare_matrix",
+    "compare_matrix_packed",
     "compare_matrix_packed_sharded",
+    "pad_to",
 ]
 
 LANE = 128  # the reference's lane grain; fixes its m-tile widths
@@ -111,6 +118,17 @@ def reset_launches() -> None:
 def _note_dispatch(op: str, engine: str, **blocks) -> None:
     LAST_DISPATCH.clear()
     LAST_DISPATCH.update({"op": op, "engine": engine, **blocks})
+
+
+def pad_to(x: torch.Tensor, mult: int, axis: int, value=0) -> torch.Tensor:
+    """``x`` padded with ``value`` at the end of ``axis`` up to a
+    multiple of ``mult`` (``x`` itself where it already is one)."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_full(shape, value)], dim=axis)
 
 
 def pick_block(padded: int, want: int, lane: int = LANE) -> int:
@@ -955,17 +973,6 @@ def _compare_matrix_packed_sharded(cells: tuple, base: tuple, *, mesh,
     return _matrix_dict(le, ge, row_sums, row_sums, m)
 
 
-def compare_matrix_packed_sharded(*args, **kwargs) -> dict:
-    """DEPRECATED, as in the reference: use ``repro_torch.causal
-    .CausalEngine.pairs`` on a sharded ``PackedSlab``.  Delegates to
-    ``_compare_matrix_packed_sharded``, so its results are the same."""
-    warnings.warn(
-        "repro_torch.kernels.ops.compare_matrix_packed_sharded is "
-        "deprecated; use the repro_torch.causal.CausalEngine front-door "
-        "(engine.pairs) instead", DeprecationWarning, stacklevel=2)
-    return _compare_matrix_packed_sharded(*args, **kwargs)
-
-
 def _shift_pack(x: torch.Tensor, lo: int) -> torch.Tensor:
     return (x.to(torch.int32) - lo).to(torch.uint8)
 
@@ -1039,3 +1046,38 @@ def _compare_matrix(rows: torch.Tensor, cols: torch.Tensor, *,
         "row_sums": row_sums,
         "col_sums": col_sums,
     }
+
+
+# ---------------------------------------------------------------------------
+# deprecated pre-front-door entry points
+# ---------------------------------------------------------------------------
+
+def _shim(name: str, impl):
+    """Thin ``DeprecationWarning`` shim, as in the reference: delegates
+    to the same private function the ``repro_torch.causal.CausalEngine``
+    front door calls, so its results are the front door's bit for bit.
+    The warning is attributed to the caller's module (stacklevel=2)."""
+    def wrapper(*args, **kwargs):
+        warnings.warn(
+            f"repro_torch.kernels.ops.{name} is deprecated; use the "
+            "repro_torch.causal.CausalEngine front-door "
+            "(engine.classify / engine.pairs) instead",
+            DeprecationWarning, stacklevel=2)
+        return impl(*args, **kwargs)
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = ("DEPRECATED — use "
+                       "``repro_torch.causal.CausalEngine``.\n\n"
+                       + (impl.__doc__ or ""))
+    return wrapper
+
+
+compare_matrix = _shim("compare_matrix", _compare_matrix)
+compare_matrix_packed = _shim("compare_matrix_packed", _compare_matrix_packed)
+compare_matrix_packed_sharded = _shim(
+    "compare_matrix_packed_sharded", _compare_matrix_packed_sharded)
+classify_vs_many = _shim("classify_vs_many", _classify_vs_many)
+classify_vs_many_packed = _shim(
+    "classify_vs_many_packed", _classify_vs_many_packed)
+classify_vs_many_packed_sharded = _shim(
+    "classify_vs_many_packed_sharded", _classify_vs_many_packed_sharded)
+overlay_wide_classify = _shim("overlay_wide_classify", _overlay_wide_classify)

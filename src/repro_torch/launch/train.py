@@ -18,12 +18,11 @@ ancestor within the fp gate, the same clock, or a descendant; a forked
 checkpoint is refused.  ``--inject-failure N`` kills and restarts the
 loop at step N to exercise the path.
 
-The JAX launcher also builds a one-device mesh and its sharding rules
-(``make_local_mesh``, ``DEFAULT_RULES``, ``use_mesh_rules``), which
-constrain nothing on one device.  The port has them now (``launch.mesh``,
-``sharding``; ``launch.specs`` places a state on a mesh), but this
-launcher does not yet set up a process group or a mesh: that is the
-next slice (ROADMAP.md queue 1).
+The JAX launcher imports ``make_local_mesh``, ``DEFAULT_RULES`` and
+``use_mesh_rules`` and calls none of them: it trains without a mesh.
+So does this one; it sets up no process group.  A state is placed on a
+mesh through ``launch.specs`` and stepped under ``sharding
+.use_mesh_rules`` by the caller (``tests/test_torch_model_mesh_ranks.py``).
 """
 from __future__ import annotations
 

@@ -30,16 +30,23 @@ compute, in the reference's order:
 Under the model mesh (``sharding.use_mesh_rules``) the gather path runs
 on DTensors, as the reference's runs under ``pjit``: the expert weights
 stay sharded and the token bookkeeping runs replicated
-(``_moe_gather``).  The reference's ``moe_impl = "alltoall"`` path
-(``shard_map`` with an ``all_to_all`` over the model axis) is still to
-be ported (``local_map`` with functional collectives; ROADMAP.md queue
-1): every call takes the gather path, as the reference does without a
-mesh.
+(``_moe_gather``).  With ``moe_impl = "alltoall"`` and a mesh that
+divides the experts and the tokens, ``_moe_alltoall`` takes the
+reference's expert-parallel ``shard_map`` path as a ``local_map``:
+tokens are sharded over the dp axes and the model axis, each rank
+routes only its own tokens, and two functional all-to-alls over the
+model axis (differentiable) move each expert's buckets to the rank
+that holds the expert and the results back.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed._functional_collectives as fc
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
@@ -167,10 +174,92 @@ def _moe_gather(params: dict, cfg: ModelConfig, x2d: torch.Tensor):
     return SH.replicated(y, x2d), SH.replicated(aux, x2d)
 
 
-def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor):
-    """MoE FFN over [B, S, D]. Returns (y, aux_loss). Adds shared experts."""
+def _moe_alltoall(params: dict, cfg: ModelConfig, x2d: torch.Tensor,
+                  mesh, dp_axes, ep_axis: str):
+    """The expert-parallel path with explicit all-to-alls, a
+    ``local_map`` over ``mesh``.
+
+    Tokens are sharded over dp_axes + (ep_axis,): every rank routes only
+    its own token shard at its own capacity C_loc, then an all-to-all
+    over ep_axis moves the expert buckets to their owners (the expert
+    leaves sharded over ep_axis, the router replicated), each rank runs
+    its E_loc experts over the buckets of every peer, and a second
+    all-to-all brings the results back for the combine.  The gradients
+    of the router and the experts are the sums over the token shards
+    that used them (``Partial`` where they are replicated).  ``x2d``
+    is a DTensor on ``mesh``.  Returns (y placed as ``x2d``, the
+    load-balance loss averaged over the token shards)."""
+    sizes = SH.axis_sizes(mesh)
+    ep = sizes[ep_axis]
+    E_phys = cfg.n_experts * cfg.moe_replicas
+    if E_phys % ep:
+        raise ValueError(f"{E_phys} physical experts over {ep_axis} of {ep}: "
+                         "pick moe_replicas so that it divides them")
+    E_loc = E_phys // ep
+    token_axes = tuple(dp_axes) + (ep_axis,)
+    tok_pl = SH.placements(mesh, SH.P(token_axes, None))
+    aux_pl = SH.placements(mesh, SH.P(token_axes))
+    router_pl = SH.placements(mesh, SH.P(None, None))
+    exp_pl = SH.placements(mesh, SH.P(ep_axis, None, None))
+
+    def summed(pl):
+        return tuple(Partial() if q.is_replicate() and n > 1 else q
+                     for q, n in zip(pl, mesh.shape))
+
+    group = mesh.get_group(ep_axis)
+
+    def local(x_loc, router, w_gate, w_up, w_down):
+        T_loc, D = x_loc.shape
+        C_loc = _capacity(cfg, T_loc, E_phys)
+        xe, (tok, dest, keep, gate), aux = _route_and_bucket(
+            cfg, x_loc, router, E_phys, C_loc)
+        # [ep, E_loc * C_loc, D]: block j to peer j; each rank receives
+        # its experts' buckets from every peer, [ep (peers), E_loc, C_loc]
+        xe = fc.all_to_all_single_autograd(xe.contiguous(), None, None, group)
+        xe = (xe.view(ep, E_loc, C_loc, D).transpose(0, 1)
+              .reshape(E_loc, ep * C_loc, D))
+        ye = _expert_mlp(cfg, xe, w_gate, w_up, w_down)
+        ye = (ye.view(E_loc, ep, C_loc, D).transpose(0, 1)
+              .reshape(ep * E_loc * C_loc, D))
+        ye = fc.all_to_all_single_autograd(ye, None, None, group)
+        y = _combine(x_loc.shape, x_loc.dtype, ye, tok, dest, keep, gate)
+        return y, aux[None]
+
+    # plain expert leaves are taken as the same value on every rank
+    leaves = [SH.replicated(params[k], x2d)
+              for k in ("router", "w_gate", "w_up", "w_down")]
+    y, aux = local_map(
+        local, out_placements=(tok_pl, aux_pl),
+        in_placements=(tok_pl, router_pl, exp_pl, exp_pl, exp_pl),
+        in_grad_placements=(tok_pl, summed(router_pl), *[summed(exp_pl)] * 3),
+        device_mesh=mesh, redistribute_inputs=True)(x2d, *leaves)
+    # gathered before the mean: a mean over a sharded dim is a partial
+    # average, which some DTensor releases cannot add to a partial sum
+    aux = SH.redistribute(aux, [Replicate()] * mesh.ndim).mean()
+    return SH.redistribute(y, x2d.placements), aux
+
+
+def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+            mesh=None, dp_axes=None, ep_axis: str = "model"):
+    """MoE FFN over [B, S, D]. Returns (y, aux_loss). Adds shared
+    experts.  ``mesh``: the model mesh (``sharding.current_mesh()``);
+    with ``cfg.moe_impl == "alltoall"`` and a mesh whose ``ep_axis``
+    divides the physical experts and whose dp axes and ``ep_axis``
+    divide the tokens, the all-to-all path runs, else the gather path,
+    as in the reference."""
     B, S, D = x.shape
-    y2d, aux = _moe_gather(params, cfg, SH.reshape(x, B * S, D))
+    x2d = SH.reshape(x, B * S, D)
+    sizes = {} if mesh is None else SH.axis_sizes(mesh)
+    use_a2a = (cfg.moe_impl == "alltoall" and mesh is not None
+               and ep_axis in sizes
+               and (cfg.n_experts * cfg.moe_replicas) % sizes[ep_axis] == 0
+               and (B * S) % (sizes[ep_axis] * max(1, math.prod(
+                   sizes[a] for a in (dp_axes or ())))) == 0)
+    if use_a2a:
+        y2d, aux = _moe_alltoall(params, cfg, x2d, mesh, dp_axes or (),
+                                 ep_axis)
+    else:
+        y2d, aux = _moe_gather(params, cfg, x2d)
     y = SH.reshape(y2d, B, S, D)
     if cfg.n_shared_experts:
         y = y + mlp(sub(params, "shared"), cfg, x)

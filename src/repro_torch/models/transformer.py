@@ -21,7 +21,13 @@ zero ``aux``, a plain token batch) follow the mesh replicated, and a
 decode step's cache writes run on replicated operands
 (``sharding.assign``), so the stacked caches are restacked from the
 layers' results (``_restacked``) where the plain path writes them in
-place.
+place.  The reference's explicit collectives run where its config asks
+for them: with ``decode_attn="split_kv"`` the owner of a slot writes it
+in place (nothing is restacked) and decode attention combines partial
+stats across the seq shards (``models.attention``); with ``moe_impl =
+"alltoall"`` the MoE layer passes the mesh and its dp axes to
+``moe_ffn``, which exchanges expert buckets with all-to-alls
+(``models.moe``).
 
 Training differentiates through the build: given the float32 masters
 as a dict (tensors that require grad), ``forward_hidden`` and
@@ -67,6 +73,7 @@ held in float32, the rest in the compute dtype.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 
 import torch
@@ -165,14 +172,19 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, cfg: ModelConfig):
-    """``fn`` under ``cfg.remat_policy`` (see the module docstring)."""
+    """``fn`` under ``cfg.remat_policy`` (see the module docstring).  The
+    forward and its recompute both run in the context of this call, so
+    that a recompute on an autograd worker thread (the card's backward)
+    sees the same mesh rules (``sharding.use_mesh_rules``)."""
     if cfg.remat_policy == "full":
         return fn
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+    ctx = contextvars.copy_context()
+    return functools.partial(ckpt.checkpoint, functools.partial(ctx.run, fn),
+                             use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +267,11 @@ class MoE(Weights):
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor):
-        return moe_mod.moe_ffn(self.weights, self.cfg, x)
+        mesh = SH.current_mesh()
+        dp = ("pod", "data") if mesh and "pod" in SH.axis_sizes(mesh) \
+            else ("data",)
+        return moe_mod.moe_ffn(self.weights, self.cfg, x, mesh=mesh,
+                               dp_axes=dp)
 
 
 class SSM(Weights):
@@ -510,10 +526,11 @@ class Transformer(nn.Module):
         if angles is not None:   # replicated under a mesh
             angles = tuple(SH.replicated(a, x) for a in angles)
         remat = remat and caches is None and torch.is_grad_enabled()
-        news, aux = [], None
+        news, ins, aux = [], [], None
         for i, layer in enumerate(self.layers):
             cache = ({k: c.layer(i) for k, c in caches.items()}
                      if caches is not None else None)
+            ins.append(cache)
             call = _remat(layer, cfg) if remat else layer
             x, new, a = call(x, positions=positions, cache=cache,
                              angles=angles, enc_out=enc_out)
@@ -526,22 +543,22 @@ class Transformer(nn.Module):
         caches = dict(caches)
         c = caches.get("attn")
         if isinstance(c, mla_mod.MLACache):
-            ckv, krope = _restacked(c.ckv, news, "attn", "ckv"), \
-                _restacked(c.krope, news, "attn", "krope")
+            ckv, krope = _restacked(c.ckv, news, ins, "attn", "ckv"), \
+                _restacked(c.krope, news, ins, "attn", "krope")
             caches["attn"] = mla_mod.MLACache(
                 ckv=ckv, krope=krope,
                 length=min(c.length + 1, c.ckv.shape[-2]), pos=c.pos + 1)
         elif c is not None:
             caches["attn"] = attn_mod.KVCache(
-                k=_restacked(c.k, news, "attn", "k"),
-                v=_restacked(c.v, news, "attn", "v"),
+                k=_restacked(c.k, news, ins, "attn", "k"),
+                v=_restacked(c.v, news, ins, "attn", "v"),
                 length=min(c.length + 1, c.k.shape[-3]),
                 pos=c.pos + 1, ring=c.ring)
         c = caches.get("ssm")
         if c is not None:
             caches["ssm"] = ssm_mod.SSMCache(
-                conv=_restacked(c.conv, news, "ssm", "conv"),
-                state=_restacked(c.state, news, "ssm", "state"))
+                conv=_restacked(c.conv, news, ins, "ssm", "conv"),
+                state=_restacked(c.state, news, ins, "ssm", "state"))
         return x, caches, aux
 
     def unembed(self, h) -> torch.Tensor:
@@ -574,12 +591,16 @@ def _zero_aux(like: torch.Tensor) -> torch.Tensor:
         torch.zeros((), dtype=torch.float32, device=like.device), like)
 
 
-def _restacked(buf: torch.Tensor, news: list[dict], kind: str,
-               field: str) -> torch.Tensor:
+def _restacked(buf: torch.Tensor, news: list[dict], ins: list[dict],
+               kind: str, field: str) -> torch.Tensor:
     """A stacked decode cache after the step: a plain buffer was written
-    in place by every layer; a DTensor's layers were written out of
-    place (``sharding.assign``) and are stacked anew."""
-    if not isinstance(buf, DTensor):
+    in place by every layer, and so was a DTensor whose layers each
+    returned the view they were given (the owner-writes update); other
+    DTensor layers were written out of place (``sharding.assign``) and
+    are stacked anew."""
+    if not isinstance(buf, DTensor) or all(
+            getattr(n[kind], field) is getattr(c[kind], field)
+            for n, c in zip(news, ins)):
         return buf
     return torch.stack([getattr(n[kind], field) for n in news])
 

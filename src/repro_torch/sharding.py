@@ -46,7 +46,7 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["DEFAULT_RULES", "FALLBACKS", "FLEET_AXIS", "NamedSharding", "P",
            "PartitionSpec", "arrive", "assign", "axis_sizes", "cumsum",
@@ -373,7 +373,9 @@ def einsum(equation: str, *operands) -> torch.Tensor:
     that shards an output letter of some operand shards that letter in
     every operand that has it (a local chunk where one holds it whole),
     every other dim of the mesh is gathered, and each rank runs the
-    einsum on its local tensors.  DTensor's own einsum flattens groups
+    einsum on its local tensors; the gradient of an operand without such
+    a letter is ``Partial`` on that mesh dim (each rank's sum over its
+    shard of the letter).  DTensor's own einsum flattens groups
     of dims into views that may hold a sharded dim inside, which it
     splits chunk by chunk (a strided shard) or refuses; the local
     einsum needs no view of a DTensor, and its backward is the local
@@ -402,7 +404,11 @@ def einsum(equation: str, *operands) -> torch.Tensor:
         if any(isinstance(p, Shard) and p != q
                for p, q in zip(o.placements, pl)):
             FALLBACKS["einsum"] += 1
-        local.append(o.redistribute(mesh, pl).to_local())
+        # an operand without the letter a mesh dim shards meets only
+        # this rank's part of it: its gradient is a partial sum there
+        grad = tuple(Partial() if i in plan and plan[i] not in sub else p
+                     for i, p in enumerate(pl))
+        local.append(o.redistribute(mesh, pl).to_local(grad_placements=grad))
     y = torch.einsum(equation, *local)
     out_pl = tuple(Shard(out.index(plan[i])) if i in plan else Replicate()
                    for i in range(mesh.ndim))

@@ -5,7 +5,8 @@ sides of its dispatch point ``ops.MXU_T_MAX``); the paths above them
 (sharded registries, the mesh transport, socket sessions, the chaos
 sim, model serving and training, the MoE, SSM, hybrid and enc-dec
 families) on the card against the CPU; the model mesh on NCCL groups
-(one rank, and 2 x 2 over four cards) against the plain port.  Every test here carries the
+(one rank, and 2 x 2 over four cards, with and without the explicit
+collectives) against the plain port.  Every test here carries the
 ``gpu`` marker and skips without a CUDA device (decided in a fixture,
 never at import time).
 
@@ -2121,3 +2122,24 @@ def test_cuda_four_card_nccl_2x2_mesh_within_tolerance(cuda, tmp_path):
         R.check_four_rank(arch, res)
         if ckpt:
             assert res["round_trip"] == [True, True]
+
+
+@pytest.mark.gpu
+def test_cuda_four_card_nccl_2x2_explicit_collectives(cuda, tmp_path):
+    """Four ranks, one card each, a 2x2 (data, model) NCCL mesh: the
+    explicit collectives on real shards against the plain port on each
+    card (``test_torch_explicit_collectives.check_port``): split-KV
+    decode against ``attention_core`` and in Qwen's smoke decode
+    (greedy tokens identical), the owner-writes update bit-identical
+    with no collective, ``_moe_alltoall``'s forward within the reference
+    test's tolerance of the gather path, and one DeepSeek-V2 smoke train
+    step on the all-to-all path within the four-rank tolerances.  Skips
+    with fewer than four cards."""
+    import test_torch_explicit_collectives as X
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA devices, has {torch.cuda.device_count()}")
+    npz = str(tmp_path / "grok.npz")
+    X.port_moe_inputs(npz)
+    X.check_port(X.Ranks(str(tmp_path / "out.json"), backend="nccl",
+                         npz=npz).result())

@@ -432,6 +432,8 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
+    files.append(ROOT / "scripts" / "dryrun_collectives.py")
     assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):
