@@ -33,7 +33,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``gossip`` rounds — once on the card with the launch counts reset
    just before and read just after, once on the CPU (plain versions);
    verdicts, clocks, registry rows and wire bytes must be identical,
-   fp within tolerance; then ``run_gossip_sim`` on both devices must
+   fp within tolerance; the card registry's ``classify`` result must
+   answer the reference's six result-dict keys, in its order, each its
+   field on the card; then ``run_gossip_sim`` on both devices must
    report fn == 0 and the same verdict counts;
 4b. the mesh-sharded registry (``[shard]`` lines): the main path's
    65,536 peers over 1, 2, 4 and 8 row shards (``make_fleet_mesh``,
@@ -42,7 +44,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    with its launches counted, one loopback gossip round), their times;
    one round over ``MeshCollectiveTransport`` at 4 shards, held to the
    same loopback round; ``fleet_health`` at 2,048 slots over 4 shards
-   under the ring and the replicated strategy, and the CPU ring; the bare
+   under the ring and the replicated strategy (its all-pairs, masked with
+   the registry's card mask, bit-identical to the same call uploading
+   the host mask), and the CPU ring; the bare
    sharded all-pairs op at 16,384 x 1,024 over 1, 2, 4 and 8 shards
    under both strategies (the ring's launches, results identical to the
    unsharded tri, device ms); 4,096 peers over 4 shards on the card and
@@ -79,10 +83,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    admits 4,088 tiny head sessions and 65,540 tail sessions (4 of them
    wide), promotes the head with Zipf churn and head sweeps, classifies
    through the fused hybrid kernel, then folds once to m=512 under an
-   ``AdaptivePolicy`` and replays the fold from its audit trail — once
-   on the card with the launch counts reset just before and read just
-   after, once on the CPU; fn == 0, measured hot fp == 0, tail rows
-   bit-identical to a flat packed slab, and the two runs agree; then
+   ``AdaptivePolicy`` and replays the fold from its audit trail — on
+   the card with the launch counts reset just before and read just
+   after; fn == 0, measured hot fp == 0, tail rows bit-identical to a
+   flat packed slab (the engine card vs CPU, fold included, is the
+   ``gpu`` case ``test_cuda_hybrid_engine_matches_cpu``); then
    ``HybridEngine.pairs`` at 16,384 sessions on the card (exact hot-hot
    block) and at 2,048 on the card and the CPU, which must agree;
 7. the autotuner (``repro_torch.kernels.autotune``): (a) for every
@@ -1163,6 +1168,30 @@ def drive(device: str, n_peers: int = N_PEERS, m: int = M,
     return out
 
 
+CLASSIFY_KEYS = ("q_le_p", "p_le_q", "sum_q", "sum_p", "fp_q_before_p",
+                 "fp_p_before_q")
+
+
+def classify_keys_check(rt, reg) -> dict:
+    """The main path's classify on the card through the reference's
+    result-dict protocol: its six keys in its order, each the field of
+    its name (the same tensor, on the card), a foreign key refused."""
+    res = reg.engine.classify(rt.clock, reg._slab())
+    keys = list(res.keys())
+    check(keys == list(CLASSIFY_KEYS), f"ClassifyResult keys {keys}")
+    for k, v in res.items():
+        check(v is getattr(res, k) and v is res[k] and v.is_cuda,
+              f"ClassifyResult[{k!r}] is not its field on the card")
+    try:
+        res["a_le_b"]
+    except KeyError:
+        pass
+    else:
+        check(False, "ClassifyResult answered a foreign key")
+    return {"keys": keys, "engine": res.engine,
+            "peers": int(res["q_le_p"].shape[0])}
+
+
 def profile_round(rt, reg) -> dict:
     """One more loopback gossip round on the card under ``torch.profiler``
     and the port's own span tracer: wall time, device busy time (summed
@@ -1481,6 +1510,12 @@ def shard_health_check() -> dict:
             got = fleet_health(reg)
             launches = {k: ops.LAUNCHES[k] for k in ENGINE_KERNELS}
             gp = reg.all_pairs().to_host()
+            up = reg.engine.pairs(reg._slab(), alive=reg._alive_host).to_host()
+        for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums",
+                    "col_sums"):
+            check_equal(gp[key], up[key], f"sharded all_pairs masked on the "
+                                          f"card against the upload {key} "
+                                          f"({name})")
         kernels = HEALTH_KERNELS + (("matrix_rect_u8",) if name == "ring"
                                     else ())
         for kname in kernels:
@@ -1703,8 +1738,8 @@ def shard_phase(sim: dict) -> None:
           f"and slab identical to the unsharded loopback round; digests the "
           f"slab's sums: {json.dumps(mt)}")
     print(f"[shard] fleet_health at {N_SLOTS_CPU} slots over 4 shards under "
-          f"ring and replicated bit-identical to unsharded, the CPU ring's "
-          f"statuses and flags identical: "
+          f"ring and replicated bit-identical to unsharded and to the host "
+          f"mask's upload, the CPU ring's statuses and flags identical: "
           f"{json.dumps(shard_health_check())}")
     ring = ring_op_check()
     u = ring.pop("unsharded")
@@ -2535,25 +2570,8 @@ def drive_hybrid(device: str) -> dict:
         check_equal(last[key][H:], getattr(flat, key),
                     f"hybrid tail {key} vs flat packed slab")
     out["m"], out["resizes"] = eng.m, eng.resizes
-    out["tail_u8"] = host(slab.cells_u8)
-    out["tail_base"] = host(slab.base)
     out["eng"] = eng
     return out
-
-
-def compare_hybrid(gpu: dict, cpu: dict) -> None:
-    check(len(gpu["views"]) == len(cpu["views"]), "hybrid classify counts")
-    for r, (g, c) in enumerate(zip(gpu["views"], cpu["views"])):
-        for key in ("sids", "sum_q", "engine"):
-            check(g[key] == c[key], f"hybrid view {r}: {key}")
-        for key in ("hot", "q_le_p", "p_le_q", "sum_p"):
-            check_equal(g[key], c[key], f"hybrid view {r} {key}")
-        for key in ("fp_q_before_p", "fp_p_before_q"):
-            check_fp(g[key], c[key], f"hybrid view {r} {key}")
-    check(gpu["m"] == cpu["m"] and gpu["resizes"] == cpu["resizes"],
-          "hybrid post-resize geometry")
-    check_equal(gpu["tail_u8"], cpu["tail_u8"], "hybrid tail rows")
-    check_equal(gpu["tail_base"], cpu["tail_base"], "hybrid tail bases")
 
 
 def hybrid_pairs(device: str, n: int, n_head: int) -> dict:
@@ -5822,6 +5840,8 @@ def main() -> int:
     compare_runs(gpu, cpu)
     print("[main] card and CPU runs agree: statuses, clocks, slab rows, "
           "wire bytes identical; fp within tolerance")
+    print(f"[main] classify result by the reference's keys: "
+          f"{json.dumps(classify_keys_check(gpu['rt'], gpu['reg']))}")
     lap("main")
     sim = sim_check()
     print(f"[sim] fn=0 on both devices, same counts: {json.dumps(sim)}")
@@ -5863,15 +5883,6 @@ def main() -> int:
           f"classify under the profiler: "
           f"{json.dumps(profiled(hyb['eng'].classify))}")
     del hyb["eng"]
-    with card_blocks():
-        hyb_cpu = drive_hybrid("cpu")
-    del hyb_cpu["eng"]
-    print(f"[hybrid] cpu: checks {json.dumps(hyb_cpu['acc'])}, times "
-          f"{json.dumps(hyb_cpu['times'])}")
-    compare_hybrid(hyb, hyb_cpu)
-    print("[hybrid] card and CPU runs agree: sid order, hot and tail flags, "
-          "sums, post-resize m and tail rows identical; fp within tolerance")
-    del hyb_cpu
     n_big, head_big = HYB_PAIRS[0]
     big = hybrid_pairs("cuda", n_big, head_big)
     for kname in HEALTH_KERNELS:

@@ -38,6 +38,7 @@ from repro_torch.causal.results import (
     ComparisonMatrix,
 )
 from repro_torch.core import clock as bc
+from repro_torch.device import indexed_device
 from repro_torch.kernels import autotune, ops, pack
 from repro_torch.obs.observer import resolve
 
@@ -105,6 +106,19 @@ def _dispatch_label(fallback: str) -> tuple[str, tuple | None]:
     return d.get("engine", fallback), blocks
 
 
+def _check_alive_dev(alive_dev, cap: int, device: torch.device) -> None:
+    """``alive_dev`` must be a [cap] bool tensor on ``device``, where the
+    results live: a mask elsewhere is refused, never copied."""
+    if not isinstance(alive_dev, torch.Tensor) or alive_dev.dtype != torch.bool \
+            or tuple(alive_dev.shape) != (cap,):
+        raise ValueError(f"alive_dev must be a [{cap}] bool tensor, got "
+                         f"{getattr(alive_dev, 'dtype', type(alive_dev))} "
+                         f"{tuple(getattr(alive_dev, 'shape', ()))}")
+    if alive_dev.device != indexed_device(device):
+        raise ValueError(f"alive_dev is on {alive_dev.device}; the slab's "
+                         f"results live on {device}")
+
+
 def _as_cells(clocks, device=None) -> torch.Tensor:
     """int32 logical cells from a BloomClock (any batch shape) or array."""
     if isinstance(clocks, bc.BloomClock):
@@ -137,10 +151,13 @@ class CausalEngine:
             obs.metrics.counter("autotune_cache", outcome="miss").inc(misses)
 
     def classify(self, query, peers, *, bn: int | None = None,
-                 bm: int | None = None) -> ClassifyResult:
+                 bm: int | None = None,
+                 interpret: bool | None = None) -> ClassifyResult:
         """Classify one query clock against N peers in one kernel call
         (one a row shard on a sharded slab), plus one for promoted rows.
-        The query moves to the peers' device (every shard's)."""
+        The query moves to the peers' device (every shard's).
+        ``interpret``: the reference's Pallas mode, accepted and without
+        effect: the peers' device picks the kernel or its plain version."""
         obs = self.obs
         if not obs:
             return self._classify(query, peers, bn=bn, bm=bm)
@@ -216,9 +233,11 @@ class CausalEngine:
     # verb 2: all-pairs compare
     # ------------------------------------------------------------------
     def pairs(self, clocks, cols=None, *, alive: np.ndarray | None = None,
+              alive_dev: torch.Tensor | None = None,
               engine: str | None = None, bi: int | None = None,
               bj: int | None = None, bm: int | None = None,
-              uniform_base: bool | None = None) -> ComparisonMatrix:
+              uniform_base: bool | None = None,
+              interpret: bool | None = None) -> ComparisonMatrix:
         """All-pairs partial order + Eq. 3 fp over a batch of clocks.
 
         ``clocks``: a ``PackedSlab`` (symmetric; ``alive`` masks slots,
@@ -229,10 +248,16 @@ class CausalEngine:
 
         ``alive``: host bool mask over slab slots; dead slots cost no
         compute and report all-False flags, zero fp and zero sums.
+        ``alive_dev``: the same mask as a bool tensor already on the
+        slab's device (``PackedSlab.device``; a sharded registry passes
+        its own), which a sharded slab masks with in place of uploading
+        ``alive``; it changes no result.  ``interpret``: the reference's
+        Pallas mode, accepted and without effect: the slab's device
+        picks the kernels or their plain versions.
         """
         obs = self.obs
-        kw = dict(alive=alive, engine=engine, bi=bi, bj=bj, bm=bm,
-                  uniform_base=uniform_base)
+        kw = dict(alive=alive, alive_dev=alive_dev, engine=engine, bi=bi,
+                  bj=bj, bm=bm, uniform_base=uniform_base)
         if not obs:
             return self._pairs(clocks, cols, **kw)
         packed = isinstance(clocks, PackedSlab)
@@ -244,8 +269,9 @@ class CausalEngine:
                                   tune0)
         return res
 
-    def _pairs(self, clocks, cols=None, *, alive=None, engine=None, bi=None,
-               bj=None, bm=None, uniform_base=None) -> ComparisonMatrix:
+    def _pairs(self, clocks, cols=None, *, alive=None, alive_dev=None,
+               engine=None, bi=None, bj=None, bm=None,
+               uniform_base=None) -> ComparisonMatrix:
         pol = self.policy
         engine = engine if engine is not None else pol.engine
         bi = bi if bi is not None else pol.bi
@@ -261,9 +287,9 @@ class CausalEngine:
             if cols is not None:
                 raise ValueError(
                     "PackedSlab pairs are symmetric; cols is not supported")
-            return self._pairs_slab(clocks, alive, engine, bi, bj, bm,
-                                    uniform_base)
-        if alive is not None:
+            return self._pairs_slab(clocks, alive, alive_dev, engine, bi,
+                                    bj, bm, uniform_base)
+        if alive is not None or alive_dev is not None:
             raise ValueError("alive masking needs a PackedSlab input")
         rows = _as_cells(clocks)
         if engine is None and not pol.pack:
@@ -275,10 +301,12 @@ class CausalEngine:
         return ComparisonMatrix.from_dict(out, engine=eng, blocks=blocks)
 
     # ---- packed-slab assembly (compaction, promoted rims, masking) ----
-    def _pairs_slab(self, slab: PackedSlab, alive, engine, bi, bj, bm,
-                    uniform_base) -> ComparisonMatrix:
+    def _pairs_slab(self, slab: PackedSlab, alive, alive_dev, engine, bi,
+                    bj, bm, uniform_base) -> ComparisonMatrix:
         cap = slab.capacity
         dev = slab.device
+        if alive_dev is not None:
+            _check_alive_dev(alive_dev, cap, dev)
         alive = (np.ones(cap, bool) if alive is None
                  else np.asarray(alive, bool))
         aidx = np.flatnonzero(alive)
@@ -308,9 +336,10 @@ class CausalEngine:
                 # the device
                 bulk = self._device_wide_overlay(slab, bulk, aidx, **kw)
                 eng += "+wide_rim"
+            if alive_dev is None:
+                alive_dev = torch.as_tensor(alive, device=dev)
             return ComparisonMatrix.from_dict(
-                _mask_dead_pairs(bulk, torch.as_tensor(alive, device=dev)),
-                engine=eng, blocks=blocks)
+                _mask_dead_pairs(bulk, alive_dev), engine=eng, blocks=blocks)
         if aidx.size == cap and slab.packed:
             out = ops._compare_matrix_packed(slab.cells_u8, slab.base,
                                              uniform_base=uniform_base, **kw)

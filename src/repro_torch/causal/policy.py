@@ -45,6 +45,9 @@ class CausalPolicy:
                    equal bm.
     autotune       consult the measured engine/block table
                    (``kernels.autotune``); False = built-in defaults.
+    interpret      the reference's Pallas interpret mode, kept for its
+                   callers and without effect: a tensor's device picks
+                   the CUDA kernel or its plain version.
     observer       ``repro_torch.obs.Observer`` riding the policy (None =
                    null sinks).  Observers hash by identity, so the
                    policy stays hashable.
@@ -60,6 +63,7 @@ class CausalPolicy:
     bm: Optional[int] = None
     bn: Optional[int] = None
     autotune: bool = True
+    interpret: Optional[bool] = None
     observer: Any = None
 
     def __post_init__(self):

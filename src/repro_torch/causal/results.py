@@ -4,8 +4,9 @@ partial order plus an Eq. 3 false-positive rate.
 Plain dataclasses over tensors (or numpy arrays after ``to_host``);
 accessors never re-derive flags, so values stay those the kernels
 produced, and every consumer applies the Eq. 3 gate through
-``.confident(threshold)``.  ``ComparisonMatrix`` also answers the
-reference's result-dict keys (``res["a_le_b"]``, ``.items()``).
+``.confident(threshold)``.  ``ComparisonMatrix`` and ``ClassifyResult``
+also answer the reference's result-dict keys (``res["a_le_b"]``,
+``res["q_le_p"]``, ``.keys()``, ``.items()``), in the reference's order.
 """
 from __future__ import annotations
 
@@ -28,6 +29,24 @@ def _where(cond, a, b):
 
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+class _MappingMixin:
+    """The reference's result-dict protocol over ``_KEYS``, a map from
+    each result-dict key to its field; any other key is a ``KeyError``."""
+
+    _KEYS: dict = {}
+
+    def __getitem__(self, key):
+        if key not in self._KEYS:
+            raise KeyError(key)
+        return getattr(self, self._KEYS[key])
+
+    def keys(self):
+        return iter(self._KEYS)
+
+    def items(self):
+        return ((k, self[k]) for k in self._KEYS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +81,7 @@ class Comparison:
 
 
 @dataclasses.dataclass(frozen=True)
-class ComparisonMatrix:
+class ComparisonMatrix(_MappingMixin):
     """All-pairs comparison: [N, M] flag/fp matrices + per-row/col sums.
 
     ``conc`` is carried, not derived: dead slots report all-False across
@@ -93,17 +112,6 @@ class ComparisonMatrix:
         return dataclasses.replace(
             self, **{f: _host(getattr(self, f)) for f in self._KEYS.values()})
 
-    def __getitem__(self, key):
-        if key not in self._KEYS:
-            raise KeyError(key)
-        return getattr(self, self._KEYS[key])
-
-    def keys(self):
-        return iter(self._KEYS)
-
-    def items(self):
-        return ((k, self[k]) for k in self._KEYS)
-
     def before(self):
         return self.le
 
@@ -122,7 +130,7 @@ class ComparisonMatrix:
 
 
 @dataclasses.dataclass(frozen=True)
-class ClassifyResult:
+class ClassifyResult(_MappingMixin):
     """One-vs-many classification of a query clock against N peers."""
 
     q_le_p: torch.Tensor       # bool[N]: query ≼ peer (peer is ahead)
@@ -136,6 +144,7 @@ class ClassifyResult:
 
     _FIELDS = ("q_le_p", "p_le_q", "sum_q", "sum_p", "fp_q_before_p",
                "fp_p_before_q")
+    _KEYS = dict(zip(_FIELDS, _FIELDS))     # result-dict keys are fields
 
     @classmethod
     def from_dict(cls, d: dict, *, engine: str | None = None,

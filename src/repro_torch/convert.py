@@ -171,7 +171,7 @@ def hybrid_from_state(state: dict, *, device=None, policy=None,
     that both classify identically.
 
     ``state`` keys: ``cfg`` (a dict of ``HybridConfig`` fields; keys the
-    port has no field for, such as ``interpret``, are ignored), ``m``,
+    port has no field for are ignored), ``m``,
     ``probes`` [V, k] int64 chain probes, ``local_cells`` [m] int64,
     ``sessions`` {sid: dict of ``v``, ``events`` ((hi, lo), ...),
     ``access``, ``hot``, ``slot``, ``promoted_window``} in the engine's

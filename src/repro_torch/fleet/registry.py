@@ -586,10 +586,13 @@ class ClockRegistry:
         One ``engine.pairs`` call over the packed slab: dead slots are
         compacted away (they cost no compute) and promoted rows are
         patched in through the exact int32 rim; a sharded slab runs the
-        same on a replica gathered onto ``device``.  ``**kw`` carries
-        per-call dispatch overrides (engine, block shapes).
+        same on a replica gathered onto ``device``, masking dead slots
+        with the registry's own ``alive`` on ``device`` (no upload).
+        ``**kw`` carries per-call dispatch overrides (engine, block
+        shapes, interpret).
         """
-        return self.engine.pairs(self._slab(), alive=self._alive_host, **kw)
+        return self.engine.pairs(self._slab(), alive=self._alive_host,
+                                 alive_dev=self.alive, **kw)
 
     # ---- batched merge ----
     def union(self, mask: np.ndarray, local: bc.BloomClock) -> bc.BloomClock:

@@ -104,6 +104,7 @@ class HybridConfig:
     max_migrations_per_window: int = 8
     window: int = 256             # touches per migration window
     fp_budget: Optional[float] = None  # attach an AdaptivePolicy when set
+    interpret: Optional[bool] = None   # the reference's; without effect
 
 
 @dataclasses.dataclass
@@ -171,7 +172,8 @@ class HybridEngine:
         self.m = cfg.m
         self.k = cfg.k
         self.device = resolve_device(device)
-        self.engine = CausalEngine(policy or CausalPolicy())
+        self.engine = CausalEngine(policy or CausalPolicy(
+            interpret=cfg.interpret))
         self.obs = resolve(observer)
         self.audit = audit if audit is not None else NULL_AUDIT
         # local event chain: probe indices per event (k per row).  Probes

@@ -159,11 +159,23 @@ def backend_of(device) -> str:
     return "cuda" if torch.device(device).type == "cuda" else "cpu"
 
 
+def _check_backend(backend) -> str:
+    """``backend`` ("cuda" or "cpu"); a bool there is the reference's
+    positional ``interpret``, which names no backend of this table."""
+    if isinstance(backend, bool):
+        raise TypeError("backend is 'cuda' or 'cpu' (backend_of); the "
+                        "reference's interpret flag goes by keyword, "
+                        "interpret=, and changes nothing here")
+    return backend
+
+
 def key_for(op: str, N: int, M: int, m: int, backend: str,
-            shards: int = 1) -> str:
+            shards: int = 1, *, interpret: bool | None = None) -> str:
     """Table key.  The shard count is explicit, so a d-shard tune can
-    never alias the 1-shard entry of the same global shape."""
-    return (f"{op}|{backend}|N{_bucket(N)}|M{_bucket(M)}"
+    never alias the 1-shard entry of the same global shape.
+    ``interpret`` (the reference's) is without effect: keys name the
+    device, ``cuda`` or ``cpu``."""
+    return (f"{op}|{_check_backend(backend)}|N{_bucket(N)}|M{_bucket(M)}"
             f"|m{_bucket(m)}|s{shards}")
 
 
@@ -177,8 +189,9 @@ SEARCH_STATS = {"candidates": 0, "pruned": 0, "measured": 0}
 
 
 def lookup(op: str, N: int, M: int, m: int, backend: str,
-           shards: int = 1) -> dict | None:
-    """Best known config for this op/shape/shard band, or None."""
+           shards: int = 1, *, interpret: bool | None = None) -> dict | None:
+    """Best known config for this op/shape/shard band, or None
+    (``interpret``, the reference's, is without effect)."""
     cfg = load_table().get(key_for(op, N, M, m, backend, shards))
     CACHE_STATS["hit" if cfg is not None else "miss"] += 1
     return cfg
@@ -251,6 +264,7 @@ def _fits(spec: tp.CompareSpec, backend: str) -> bool:
     """The spec is one the kernels take, and its shared memory (the
     Python copy, which ``chip_smoke.py`` holds to the libraries) is
     within the backend's budget."""
+    _check_backend(backend)
     try:
         tp.validate(spec)
     except ValueError:
@@ -283,12 +297,15 @@ def hopper_time(spec: tp.CompareSpec, regs: int, ctas: int, nbytes: float,
 
 def predict_cost(engine: str, N: int, M: int, m: int, bi: int, bj: int,
                  bm: int, backend: str, n_thresholds: int = 0,
-                 regs: int | None = None) -> float:
+                 regs: int | None = None, *,
+                 interpret: bool | None = None) -> float:
     """Predicted seconds for one all-pairs sweep with this candidate.
 
     Infinite when the spec is refused or its shared memory does not fit
     (the model and the wrappers refuse the same combos).  On ``cuda``
-    the registers are read from the built instance unless given."""
+    the registers are read from the built instance unless given.
+    ``interpret`` (the reference's) is without effect: ``backend``
+    names the device modelled."""
     spec = _matrix_spec(engine, bi, bj, bm, n_thresholds)
     if not _fits(spec, backend):
         return math.inf
@@ -351,9 +368,11 @@ def predict_one_vs_many_cost(N: int, m: int, bn: int, bm: int, backend: str,
 
 
 def predict_hybrid_cost(N: int, H: int, m: int, bn: int, bm: int,
-                        backend: str, regs: int | None = None) -> float:
+                        backend: str, regs: int | None = None, *,
+                        interpret: bool | None = None) -> float:
     """Predicted seconds for one fused hot+tail hybrid classify.  ``N``
-    is the TOTAL row count, ``H`` of which are hot."""
+    is the TOTAL row count, ``H`` of which are hot.  ``interpret`` (the
+    reference's) is without effect."""
     spec = _rows_spec("hybrid", m, bn, bm)
     if not _fits(spec, backend):
         return math.inf
@@ -383,7 +402,8 @@ def predict_sharded_cost(strategy: str, N: int, m: int, shards: int,
                          backend: str, *, parallel: int | None = None,
                          bi: int | None = None, bj: int | None = None,
                          bm: int = 512, uniform_base: bool = True,
-                         regs: dict | None = None) -> float:
+                         regs: dict | None = None,
+                         interpret: bool | None = None) -> float:
     """Predicted seconds for one sharded all-pairs sweep of N rows over
     ``shards`` row shards, ``parallel`` of them on distinct devices
     (default: all, at least 1).
@@ -401,7 +421,8 @@ def predict_sharded_cost(strategy: str, N: int, m: int, shards: int,
     bytes gathered onto the first card, then the one-card tri.  Both
     finalise on the first card alike, which the model leaves out.  On
     the CPU it is the reference's model of forced host devices, which
-    run in turn: the ring pays its steps and buys no parallelism."""
+    run in turn: the ring pays its steps and buys no parallelism.
+    ``interpret`` (the reference's) is without effect."""
     if shards == 1:
         strategy = "replicated"          # a 1-wide ring is the plain sweep
     if strategy not in ("ring", "replicated"):
@@ -573,14 +594,18 @@ def _matrix_candidates(N: int, m: int, span: int) -> list:
 
 
 def autotune_matrix(N: int, m: int, *, span: int = 30, device=None,
-                    verbose: bool = False, explain: dict | None = None,
+                    interpret: bool | None = None, verbose: bool = False,
+                    explain: dict | None = None,
                     regs: dict | None = None) -> dict:
     """Race matrix engines x block shapes at a symmetric [N, m] slab;
     return the best config.  The model ranks the full grid first and
     only the top half is measured.  ``explain={}`` receives the
     predicted ranking, the survivors, the measured times, the default's
     time and the winner's rank.  ``regs`` maps an engine to registers a
-    thread (default: read from the card)."""
+    thread (default: read from the card).  ``interpret`` (the
+    reference's) is without effect: ``device`` decides where the
+    candidates run, the kernels on the card, their plain versions on
+    the CPU."""
     from repro_torch.kernels import ops
     dev = resolve_device(device)
     backend = backend_of(dev)
@@ -611,7 +636,9 @@ def autotune_matrix(N: int, m: int, *, span: int = 30, device=None,
 
 
 def autotune_matrix_sharded(N: int, m: int, shards: int, *, span: int = 30,
-                            device=None, mesh=None, verbose: bool = False,
+                            device=None, mesh=None,
+                            interpret: bool | None = None,
+                            verbose: bool = False,
                             explain: dict | None = None) -> dict:
     """Race "ring" against "replicated" for the sharded symmetric
     all-pairs at [N, m] over ``shards`` row shards; returns
@@ -624,7 +651,8 @@ def autotune_matrix_sharded(N: int, m: int, shards: int, *, span: int = 30,
     share a card is refused, as the reference refuses fewer devices than
     shards: its entry would be read on distinct cards.  Blocks are the
     ``matrix`` entry's where it names tri (the ring's diagonal runs tri
-    at them), else the built-in ones."""
+    at them), else the built-in ones.  ``interpret`` (the reference's)
+    is without effect."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_fleet_mesh
     from repro_torch.sharding import split_rows
@@ -682,9 +710,11 @@ def _rows_default(m: int) -> tuple:
 
 
 def autotune_one_vs_many(N: int, m: int, *, span: int = 30, device=None,
+                         interpret: bool | None = None,
                          verbose: bool = False, explain: dict | None = None,
                          regs: int | None = None) -> dict:
-    """Race (bn, bm) for the packed one-vs-many classify at [N, m]."""
+    """Race (bn, bm) for the packed one-vs-many classify at [N, m]
+    (``interpret``, the reference's, is without effect)."""
     from repro_torch.kernels import ops
     dev = resolve_device(device)
     backend = backend_of(dev)
@@ -707,7 +737,8 @@ def autotune_one_vs_many(N: int, m: int, *, span: int = 30, device=None,
 
 
 def autotune_hybrid(N: int, m: int, *, hot: int | None = None,
-                    span: int = 30, device=None, verbose: bool = False,
+                    span: int = 30, device=None,
+                    interpret: bool | None = None, verbose: bool = False,
                     explain: dict | None = None,
                     regs: int | None = None) -> dict:
     """Race block shapes for the fused hot+tail hybrid classify.
@@ -715,7 +746,8 @@ def autotune_hybrid(N: int, m: int, *, hot: int | None = None,
     ``N`` is the TOTAL row count; ``hot`` (default N // 8) of those are
     exact hot rows, the rest the packed tail.  Winners land under
     ``key_for("hybrid", N, hot, m, ...)`` — the hot count rides in the
-    M slot — matching the ``ops._hybrid_blocks`` lookup."""
+    M slot — matching the ``ops._hybrid_blocks`` lookup.  ``interpret``
+    (the reference's) is without effect."""
     from repro_torch.kernels import ops
     dev = resolve_device(device)
     backend = backend_of(dev)
@@ -762,8 +794,8 @@ def parse_size(text: str) -> tuple:
 
 
 def autotune_shapes(shapes, *, shard_counts=(), device=None,
-                    verbose: bool = False, observer=None,
-                    explains: dict | None = None) -> dict:
+                    interpret: bool | None = None, verbose: bool = False,
+                    observer=None, explains: dict | None = None) -> dict:
     """Sweep shapes (and shard counts); returns {table_key: cfg}.
 
     A shape is ``(N, m)`` (matrix, one-vs-many and hybrid, hot N // 8,
@@ -774,7 +806,8 @@ def autotune_shapes(shapes, *, shard_counts=(), device=None,
     ``observer`` (a ``repro_torch.obs.Observer``) gets one
     ``autotune.sweep`` span per (op, shape) with the search counters as
     attributes and ``autotune.{candidates,pruned,measured}`` counters;
-    the running tallies live in ``SEARCH_STATS``."""
+    the running tallies live in ``SEARCH_STATS``.  ``interpret`` (the
+    reference's) is without effect: ``device`` decides."""
     from repro_torch.obs import resolve
     obs = resolve(observer)
     dev = resolve_device(device)

@@ -205,17 +205,25 @@ def tick_probes(cells: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def tick(cells: torch.Tensor, ev_hi, ev_lo, *, k: int = 4) -> torch.Tensor:
-    """Batched bloom tick: cells [B, m], events [B, E], k probes each."""
+def tick(cells: torch.Tensor, ev_hi, ev_lo, *, k: int = 4, bb: int = 8,
+         bm: int = 512, interpret: bool | None = None) -> torch.Tensor:
+    """Batched bloom tick: cells [B, m], events [B, E], k probes each.
+    ``bb``, ``bm``, ``interpret``: the reference's Pallas blocks and
+    mode, accepted and without effect: integer cells have no order to
+    set, and the cells' device picks the kernel or its plain version."""
     B, m = cells.shape
     idx = bloom_indices(ev_hi, ev_lo, k, m, device=cells.device)
     probes = idx.reshape(B, -1).to(torch.int32).contiguous()
     return tick_probes(cells, probes)
 
 
-def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bm: int = 512) -> dict:
+def merge_compare(a: torch.Tensor, b: torch.Tensor, *, bb: int = 8,
+                  bm: int = 512, interpret: bool | None = None) -> dict:
     """Fused receive path over [B, m] int32 logical rows: merged cells,
-    dominance flags, sums and Eq. 3 fp both ways, in one pass."""
+    dominance flags, sums and Eq. 3 fp both ways, in one pass.  ``bm``
+    sets the float32 order of the sums; ``bb`` and ``interpret``, the
+    reference's row block and Pallas mode, are accepted and without
+    effect: the rows' device picks the kernel or its plain version."""
     B, m = a.shape
     bm = tile_width(m, bm)
     if not a.is_cuda:

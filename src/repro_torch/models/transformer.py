@@ -74,6 +74,7 @@ held in float32, the rest in the compute dtype.
 from __future__ import annotations
 
 import contextvars
+import dataclasses
 import functools
 
 import torch
@@ -516,55 +517,61 @@ class Transformer(nn.Module):
         router).  ``remat``: run each layer under ``cfg.remat_policy``
         when grad is enabled (the train mode).  ``enc_out``: the
         encoder's output, for an enc-dec stack without caches."""
-        cfg = self.cfg
-        angles = None
-        if cfg.use_mla:      # MLA rotates qk_rope_dim lanes, whatever pos
-            angles = L.rope_angles(positions, cfg, cfg.qk_rope_dim,
-                                   cfg.qk_rope_dim)
-        elif cfg.attends and cfg.pos == "rope":
-            angles = L.rope_angles(positions, cfg, cfg.d_head)
-        if angles is not None:   # replicated under a mesh
-            angles = tuple(SH.replicated(a, x) for a in angles)
-        remat = remat and caches is None and torch.is_grad_enabled()
-        news, ins, aux = [], [], None
-        for i, layer in enumerate(self.layers):
-            cache = ({k: c.layer(i) for k, c in caches.items()}
-                     if caches is not None else None)
-            ins.append(cache)
-            call = _remat(layer, cfg) if remat else layer
-            x, new, a = call(x, positions=positions, cache=cache,
-                             angles=angles, enc_out=enc_out)
-            if a is not None:
-                aux = a if aux is None else aux + a
-            news.append(new)
-        aux = _zero_aux(x) if aux is None else aux
-        if caches is None:
-            return x, news, aux
-        caches = dict(caches)
-        c = caches.get("attn")
-        if isinstance(c, mla_mod.MLACache):
-            ckv, krope = _restacked(c.ckv, news, ins, "attn", "ckv"), \
-                _restacked(c.krope, news, ins, "attn", "krope")
-            caches["attn"] = mla_mod.MLACache(
-                ckv=ckv, krope=krope,
-                length=min(c.length + 1, c.ckv.shape[-2]), pos=c.pos + 1)
-        elif c is not None:
-            caches["attn"] = attn_mod.KVCache(
-                k=_restacked(c.k, news, ins, "attn", "k"),
-                v=_restacked(c.v, news, ins, "attn", "v"),
-                length=min(c.length + 1, c.k.shape[-3]),
-                pos=c.pos + 1, ring=c.ring)
-        c = caches.get("ssm")
-        if c is not None:
-            caches["ssm"] = ssm_mod.SSMCache(
-                conv=_restacked(c.conv, news, ins, "ssm", "conv"),
-                state=_restacked(c.state, news, ins, "ssm", "state"))
-        return x, caches, aux
+        return _run_layers(self.layers, self.cfg, x, positions=positions,
+                           caches=caches, remat=remat, enc_out=enc_out)
 
     def unembed(self, h) -> torch.Tensor:
         """Logits of final-normed hidden states ``h``."""
         return L.unembed({"embed/tokens": _one_use(self.embed.tokens),
                           **self.head.weights}, self.cfg, h)
+
+
+def _run_layers(layers, cfg: ModelConfig, x, *, positions, caches=None,
+                remat: bool = False, enc_out=None):
+    """``layers`` (``DecoderLayer``s) in turn: ``Transformer.run_stack``."""
+    angles = None
+    if cfg.use_mla:      # MLA rotates qk_rope_dim lanes, whatever pos
+        angles = L.rope_angles(positions, cfg, cfg.qk_rope_dim,
+                               cfg.qk_rope_dim)
+    elif cfg.attends and cfg.pos == "rope":
+        angles = L.rope_angles(positions, cfg, cfg.d_head)
+    if angles is not None:   # replicated under a mesh
+        angles = tuple(SH.replicated(a, x) for a in angles)
+    remat = remat and caches is None and torch.is_grad_enabled()
+    news, ins, aux = [], [], None
+    for i, layer in enumerate(layers):
+        cache = ({k: c.layer(i) for k, c in caches.items()}
+                 if caches is not None else None)
+        ins.append(cache)
+        call = _remat(layer, cfg) if remat else layer
+        x, new, a = call(x, positions=positions, cache=cache,
+                         angles=angles, enc_out=enc_out)
+        if a is not None:
+            aux = a if aux is None else aux + a
+        news.append(new)
+    aux = _zero_aux(x) if aux is None else aux
+    if caches is None:
+        return x, news, aux
+    caches = dict(caches)
+    c = caches.get("attn")
+    if isinstance(c, mla_mod.MLACache):
+        ckv, krope = _restacked(c.ckv, news, ins, "attn", "ckv"), \
+            _restacked(c.krope, news, ins, "attn", "krope")
+        caches["attn"] = mla_mod.MLACache(
+            ckv=ckv, krope=krope,
+            length=min(c.length + 1, c.ckv.shape[-2]), pos=c.pos + 1)
+    elif c is not None:
+        caches["attn"] = attn_mod.KVCache(
+            k=_restacked(c.k, news, ins, "attn", "k"),
+            v=_restacked(c.v, news, ins, "attn", "v"),
+            length=min(c.length + 1, c.k.shape[-3]),
+            pos=c.pos + 1, ring=c.ring)
+    c = caches.get("ssm")
+    if c is not None:
+        caches["ssm"] = ssm_mod.SSMCache(
+            conv=_restacked(c.conv, news, ins, "ssm", "conv"),
+            state=_restacked(c.state, news, ins, "ssm", "state"))
+    return x, caches, aux
 
 
 def build(params, cfg: ModelConfig, device=None) -> Transformer:
@@ -647,16 +654,77 @@ def _stack_layers(news: list[dict]) -> dict:
     return out
 
 
+def _first_layers(cache, n: int):
+    """A stacked cache's first ``n`` layers: views of its buffers."""
+    return dataclasses.replace(cache, **{
+        f: v[:n] for f, v in vars(cache).items() if isinstance(v, torch.Tensor)})
+
+
+def _cache_depth(cache) -> int:
+    return next(v.shape[0] for v in vars(cache).values()
+                if isinstance(v, torch.Tensor))
+
+
+def _named_stack(params, cfg: ModelConfig, x, caches, prefix: str,
+                 windows, n_layers):
+    """``run_stack``'s layers for a call with ``prefix``, ``windows`` or
+    ``n_layers``, and its caches cut to their depth.  A stacked layout
+    runs every row of ``prefix/...`` (the reference's ``lax.scan``, whose
+    windows and caches must then have as many); an unstacked one the
+    first ``n_layers`` of ``prefix_{i}/...``."""
+    if isinstance(params, Transformer):
+        raise ValueError(
+            "run_stack(prefix=, windows=, n_layers=) builds its layers from "
+            "a flat param dict: a Transformer holds only the 'layers' stack "
+            "at layer_windows(cfg)")
+    if isinstance(x, DTensor) or any(isinstance(v, DTensor)
+                                     for v in params.values()):
+        raise ValueError(
+            "run_stack(prefix=, windows=, n_layers=) runs on plain tensors; "
+            "under the model mesh only the default stack runs")
+    n = cfg.n_layers if n_layers is None else n_layers
+    windows = [int(w) for w in (windows if windows is not None
+                                else layer_windows(cfg) if prefix == "layers"
+                                else [0] * n)]
+    if cfg.scan_layers:
+        n = next(iter(L.sub(params, prefix).values())).shape[0]
+    depths = [len(windows)] + [_cache_depth(c) for c in (caches or {}).values()]
+    if any(d != n if cfg.scan_layers else d < n for d in depths):
+        raise ValueError(f"{n} layers of {prefix!r}, but windows and caches "
+                         f"of depths {depths}")
+    layers = [DecoderLayer(lp, cfg, w, x.device) for lp, w in
+              zip(_layer_dicts(params, cfg, prefix, n), windows)]
+    if caches is not None:
+        caches = {k: _first_layers(c, n) for k, c in caches.items()}
+    return layers, caches
+
+
 def run_stack(params, cfg: ModelConfig, x, *, positions, mode: str,
-              caches=None, enc_out=None):
+              caches=None, enc_out=None, prefix: str = "layers",
+              windows=None, n_layers: int | None = None):
     """The layer stack.  Returns (x, stacked caches, aux): prefill's
     {"attn": (k, v) (MLA: (ckv, k_rope)), "ssm": SSMCache, "cross":
     CrossCache} (as the family has them) stacked on a leading L axis,
     decode's advanced caches, None in train.  ``enc_out``: the
-    encoder's output (enc-dec, without caches)."""
-    model = build(params, cfg, x.device)
-    x, new, aux = model.run_stack(x, positions=positions, caches=caches,
-                                  remat=mode == "train", enc_out=enc_out)
+    encoder's output (enc-dec, without caches).
+
+    ``prefix``, ``windows``, ``n_layers`` are the reference's: the stack
+    ``prefix/...`` (stacked) or ``prefix_{i}/...``, one attention window
+    a layer (0 = global; ``layer_windows(cfg)`` for "layers", else
+    zeros) and the unstacked depth (``cfg.n_layers``; a stacked layout
+    runs every row of its stack, as the reference's scan does).  A call
+    with any of them builds its layers from a flat dict of plain
+    tensors; the default call runs ``build``'s ``Transformer``."""
+    if prefix == "layers" and windows is None and n_layers is None:
+        x, new, aux = build(params, cfg, x.device).run_stack(
+            x, positions=positions, caches=caches, remat=mode == "train",
+            enc_out=enc_out)
+    else:
+        layers, caches = _named_stack(params, cfg, x, caches, prefix,
+                                      windows, n_layers)
+        x, new, aux = _run_layers(layers, cfg, x, positions=positions,
+                                  caches=caches, remat=mode == "train",
+                                  enc_out=enc_out)
     if mode == "train":
         return x, None, aux
     if caches is not None:

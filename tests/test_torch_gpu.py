@@ -2143,3 +2143,111 @@ def test_cuda_four_card_nccl_2x2_explicit_collectives(cuda, tmp_path):
     X.port_moe_inputs(npz)
     X.check_port(X.Ranks(str(tmp_path / "out.json"), backend="nccl",
                          npz=npz).result())
+
+
+# ---------------------------------------------------------------------------
+# the reference's keywords on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(bb=16), dict(bm=128), dict(interpret=True),
+                                dict(bb=4, bm=64, interpret=False)])
+def test_cuda_tick_block_keywords_launch_and_change_nothing(cuda, kw):
+    """``ops.tick``'s ``bb``, ``bm`` and ``interpret`` on card cells: one
+    launch of the kernel, cells identical to the call without them and
+    to the plain version."""
+    rng = np.random.default_rng(9)
+    cells = torch.as_tensor(rng.integers(0, 100, (300, 1000)),
+                            dtype=torch.int32, device=cuda)
+    hi, lo = (rng.integers(0, 2 ** 32, (300, 5), dtype=np.uint64).astype(np.int64)
+              for _ in range(2))
+    want = ops.tick(cells, hi, lo, k=4)
+    n0 = ops.LAUNCHES["bloom_tick"]
+    got = ops.tick(cells, hi, lo, k=4, **kw)
+    assert ops.LAUNCHES["bloom_tick"] == n0 + 1 and got.is_cuda
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), ops.tick(cells.cpu(), hi, lo, k=4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(bb=32), dict(interpret=True),
+                                dict(bb=4, interpret=False)])
+def test_cuda_merge_compare_block_keywords_launch_and_change_nothing(cuda, kw):
+    """``ops.merge_compare``'s ``bb`` and ``interpret`` on card rows: one
+    launch and nothing else on the card, every leaf identical to the call
+    without them (fp bits included), and to the plain version (fp within
+    tolerance)."""
+    rng = np.random.default_rng(10)
+    a = rng.integers(0, 40, (300, 1000))
+    b = a + rng.integers(0, 2, a.shape) * (rng.random((300, 1)) < 0.5)
+    ta = torch.as_tensor(as_i32(a), device=cuda)
+    tb = torch.as_tensor(as_i32(b), device=cuda)
+    want = ops.merge_compare(ta, tb)
+    got = one_launch(lambda: ops.merge_compare(ta, tb, **kw),
+                     "bloom_merge_compare")
+    for key, w in want.items():
+        assert torch.equal(got[key], w), key
+    plain = ops.merge_compare(ta.cpu(), tb.cpu())
+    for key in ("merged", "a_le_b", "b_le_a", "sum_a", "sum_b"):
+        assert torch.equal(got[key].cpu(), plain[key]), key
+    for key in ("fp_a_before_b", "fp_b_before_a"):
+        assert_fp_close(got[key], plain[key])
+
+
+@pytest.mark.gpu
+def test_cuda_classify_result_answers_the_reference_keys(cuda):
+    """A card ``ClassifyResult`` indexed by the reference's six keys, in
+    its order, each the field on the card; ``interpret=True`` launches
+    the same kernel with the same result; the CPU at the same blocks
+    gives the same flags and sums, fp within tolerance."""
+    from repro_torch.causal import CausalEngine, PackedSlab
+
+    keys = ["q_le_p", "p_le_q", "sum_q", "sum_p", "fp_q_before_p",
+            "fp_p_before_q"]
+    q, peers = query_and_peers(300, 1024, 11)
+    u8, base, _ = pack.pack_rows(torch.as_tensor(peers, device=cuda))
+    eng = CausalEngine()
+    res = eng.classify(torch.as_tensor(q, device=cuda), PackedSlab(u8, base),
+                       bn=8, bm=512)
+    assert list(res.keys()) == keys
+    for k, v in res.items():
+        assert v is getattr(res, k) and v is res[k] and v.is_cuda, k
+    with pytest.raises(KeyError):
+        res["a_le_b"]
+    n0 = ops.LAUNCHES["one_vs_many_packed"]
+    again = eng.classify(torch.as_tensor(q, device=cuda), PackedSlab(u8, base),
+                         bn=8, bm=512, interpret=True)
+    assert ops.LAUNCHES["one_vs_many_packed"] == n0 + 1
+    for k in keys:
+        assert torch.equal(again[k], res[k]), k
+    cpu = eng.classify(torch.as_tensor(q), PackedSlab(u8.cpu(), base.cpu()),
+                       bn=8, bm=512)
+    for k in ("q_le_p", "p_le_q", "sum_q", "sum_p"):
+        assert torch.equal(res[k].cpu(), cpu[k]), k
+    for k in ("fp_q_before_p", "fp_p_before_q"):
+        assert_fp_close(res[k], cpu[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_sharded_all_pairs_alive_dev_matches_cpu(cuda, shards):
+    """``all_pairs`` over s shards of the card masks dead slots with the
+    registry's own mask on the card (``alive_dev``): bit-identical to the
+    ``alive=`` call, which uploads the host mask; against the same
+    registry over s shards of the CPU, flags and row sums identical and
+    fp within tolerance.  A mask on another device is refused."""
+    _, reg = sharded_fleet(cuda, shards)
+    _, creg = sharded_fleet("cpu", shards)
+    assert reg.alive.is_cuda and (~reg._alive_host).sum() > 0
+    got = reg.all_pairs().to_host()
+    plain = reg.engine.pairs(reg._slab(), alive=reg._alive_host).to_host()
+    assert got.engine == plain.engine == "ring_full+wide_rim"
+    for key in ("a_le_b", "b_le_a", "concurrent", "fp", "row_sums", "col_sums"):
+        np.testing.assert_array_equal(got[key], plain[key], err_msg=key)
+    cpu = creg.all_pairs().to_host()
+    for key in ("a_le_b", "b_le_a", "concurrent", "row_sums"):
+        np.testing.assert_array_equal(got[key], cpu[key], err_msg=key)
+    assert_fp_close(torch.as_tensor(got.fp), torch.as_tensor(cpu.fp))
+    with pytest.raises(ValueError, match="alive_dev"):
+        reg.engine.pairs(reg._slab(), alive=reg._alive_host,
+                         alive_dev=reg.alive.cpu())

@@ -566,8 +566,38 @@ def test_hybrid_from_state_classifies_like_the_reference():
 
 
 def test_engine_runs_on_the_card_by_default(monkeypatch):
+    """Without a device the engine takes the card, and the reference's
+    ``interpret=True`` does not send it to the plain versions."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         thyb.HybridEngine(thyb.HybridConfig(m=64))
-    with pytest.raises(TypeError):
-        thyb.HybridConfig(interpret=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        thyb.HybridEngine(thyb.HybridConfig(m=64, interpret=True))
+
+
+def test_hybrid_config_interpret_changes_nothing_and_crosses_convert():
+    """The reference's ``HybridConfig(interpret=True)``: the port's engine
+    classifies bit for bit as it does without it, and
+    ``hybrid_from_state`` carries the field across."""
+    views = []
+    for interpret in (None, True):
+        t = thyb.HybridEngine(thyb.HybridConfig(**_cfg(), interpret=interpret),
+                              device=CPU)
+        t.advance_local(40)
+        for i in range(12):
+            t.admit(f"s{i}", v=3 * i, events=[_priv(200 + i)])
+        for sid in ("s1", "s2", "s1", "s2", "s5"):
+            t.touch(sid)
+        assert t.engine.policy.interpret is interpret
+        views.append(t.classify())
+    for key in ("sids", "hot", "q_le_p", "p_le_q", "fp_q_before_p",
+                "fp_p_before_q", "sum_p", "sum_q", "engine"):
+        np.testing.assert_array_equal(getattr(views[1], key),
+                                      getattr(views[0], key), err_msg=key)
+    j = jhyb.HybridEngine(jhyb.HybridConfig(**_cfg(m=512), interpret=True),
+                          policy=jcausal.CausalPolicy(autotune=False))
+    j.advance_local(8)
+    j.admit("s", v=3, events=[_priv(1)])
+    t = convert.hybrid_from_state(_state_of(j), device=CPU)
+    assert t.cfg.interpret is True and t.engine.policy.interpret is True
+    assert_views_equal(j.classify(), t.classify())

@@ -1,11 +1,22 @@
 """The port's public surface against the reference's, without importing
-JAX: every name in a reference module's ``__all__`` (read by ``ast``)
-is in the ``__all__`` of the port's module at the same path, and
-defined there, or stands in ``KEPT`` with the reason it has no meaning
-on the card; and the deprecated shims of ``kernels/ops.py`` warn
-``DeprecationWarning`` and give the front door's results bit for bit.
+JAX, from the ``ast`` of both packages:
+
+- every name in a reference module's ``__all__`` is in the ``__all__``
+  of the port's module at the same path, and defined there;
+- every public function and class of a ported reference module is in
+  the port's module: a function with every parameter name the
+  reference's has, a class with every public method (those it takes
+  from bases defined in its module too) and its parameter names, every
+  dataclass field and every class attribute;
+
+but what stands, with its reason, in ``KEPT_MODULES``, ``KEPT`` (names),
+``KEPT_KEYWORDS`` (parameters) or ``KEPT_MEMBERS`` (class members); each
+kept entry must name something the reference has and the port lacks.
+The deprecated shims of ``kernels/ops.py`` warn ``DeprecationWarning``
+and give the front door's results bit for bit.
 """
 import ast
+import functools
 import importlib
 import pathlib
 import warnings
@@ -58,6 +69,36 @@ KEPT = {
                                        "over TPU devices; the port's fleet "
                                        "mesh keeps one tensor a row shard "
                                        "(FleetMesh, shard_rows, split_rows)",
+    ("launch/dryrun.py", "collective_bytes"): "sums collective bytes from "
+                                              "XLA's HLO text; the port has "
+                                              "no HLO, and its dry run sums "
+                                              "the functional collectives' "
+                                              "output bytes",
+}
+_GENERATOR = ("draws from a torch.Generator, which the port's entry point "
+              "takes in its place, so parity runs on carried-over weights")
+#: parameters of ported functions and methods the port does not take, and
+#: why: (module, function or "Class.method", parameter) -> reason
+KEPT_KEYWORDS = {
+    ("models/params.py", "init_params", "key"): "a JAX PRNG key; " + _GENERATOR,
+    ("runtime/training.py", "init_train_state", "key"): "a JAX PRNG key; "
+                                                        + _GENERATOR,
+}
+_PYTREE = ("a JAX pytree hook (jit, vmap, device_put); the port's results "
+           "and states are plain dataclasses of tensors")
+#: public members of ported classes the port does not have, and why:
+#: (module, class, member) -> reason
+KEPT_MEMBERS = {
+    (rel, cls, hook): _PYTREE
+    for rel, cls in (("causal/results.py", "Comparison"),
+                     ("causal/results.py", "ComparisonMatrix"),
+                     ("causal/results.py", "ClassifyResult"),
+                     ("core/clock.py", "BloomClock"),
+                     ("core/history.py", "History"),
+                     ("core/vector_clock.py", "VectorClock"),
+                     ("optim/adamw.py", "Moment"),
+                     ("runtime/training.py", "TrainState"))
+    for hook in ("tree_flatten", "tree_unflatten")
 }
 
 
@@ -75,6 +116,65 @@ def all_names(path: pathlib.Path):
 def reference_modules() -> list:
     return sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")
                   if all_names(p) is not None)
+
+
+def _params(fn: ast.FunctionDef) -> list:
+    """Parameter names, with "*" and "**" for ``*args`` and ``**kw``."""
+    a = fn.args
+    return ([x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+            + ["*"] * bool(a.vararg) + ["**"] * bool(a.kwarg))
+
+
+def _public(name: str) -> bool:
+    return not name.startswith("_") or (name.startswith("__")
+                                        and name.endswith("__"))
+
+
+def _members(cls: ast.ClassDef, classes: dict) -> dict:
+    """A class's public members, its same-module bases' first: a method's
+    parameter list, "field" (annotated: a dataclass or NamedTuple field)
+    or "attr"."""
+    out = {}
+    for base in cls.bases:
+        if getattr(base, "id", None) in classes:
+            out.update(_members(classes[base.id], classes))
+    for node in cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if _public(node.name):
+                out[node.name] = _params(node)
+        elif isinstance(node, ast.AnnAssign):
+            if not node.target.id.startswith("_"):
+                out[node.target.id] = "field"
+        elif isinstance(node, ast.Assign):
+            out.update({t.id: "attr" for t in node.targets
+                        if isinstance(t, ast.Name) and not t.id.startswith("_")})
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def surface(path: pathlib.Path) -> dict:
+    """A module's public functions (name -> parameter list) and classes
+    (name -> ``_members``), or {} without the module."""
+    if not path.exists():
+        return {}
+    body = ast.parse(path.read_text()).body
+    classes = {n.name: n for n in body if isinstance(n, ast.ClassDef)}
+    out = {}
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = _members(node, classes)
+    return {k: v for k, v in out.items() if not k.startswith("_")}
+
+
+def ported_modules() -> list:
+    return sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")
+                  if str(p.relative_to(REF)) not in KEPT_MODULES)
+
+
+SURFACE_CASES = [(rel, name) for rel in ported_modules()
+                 for name in surface(REF / rel)]
 
 
 @pytest.mark.parametrize("rel", reference_modules())
@@ -95,9 +195,55 @@ def test_reference_public_names_are_in_the_port(rel):
         [n for n in have if not hasattr(mod, n)]
 
 
+def _missing_params(rel: str, where: str, want: list, have: list) -> list:
+    """Reference parameters the port lacks, but those kept."""
+    return [p for p in want
+            if p not in have and (rel, where, p) not in KEPT_KEYWORDS]
+
+
+@pytest.mark.parametrize("rel,name", SURFACE_CASES)
+def test_reference_signatures_and_members_are_in_the_port(rel, name):
+    want, have = surface(REF / rel)[name], surface(PORT / rel).get(name)
+    if (rel, name) in KEPT:
+        assert have is None, (rel, name)
+        return
+    assert type(have) is type(want), (rel, name, have)
+    if isinstance(want, list):
+        assert not _missing_params(rel, name, want, have), \
+            (rel, name, _missing_params(rel, name, want, have))
+        return
+    for member, sig in want.items():
+        if (rel, name, member) in KEPT_MEMBERS:
+            continue
+        got = have.get(member)
+        assert got is not None, (rel, name, member)
+        if sig == "field":
+            assert got == "field", (rel, name, member, got)
+        elif isinstance(sig, list):
+            where = f"{name}.{member}"
+            assert isinstance(got, list), (rel, where, got)
+            assert not _missing_params(rel, where, sig, got), \
+                (rel, where, _missing_params(rel, where, sig, got))
+
+
 def test_kept_differences_name_reference_names():
+    """Each kept entry names what the reference has and the port lacks."""
     for rel, name in KEPT:
-        assert name in all_names(REF / rel), (rel, name)
+        assert (name in (all_names(REF / rel) or [])
+                or name in surface(REF / rel)), (rel, name)
+        assert name not in surface(PORT / rel), (rel, name)
+    for rel, where, param in KEPT_KEYWORDS:
+        name, _, method = where.partition(".")
+        want, have = surface(REF / rel)[name], surface(PORT / rel)[name]
+        if method:
+            want, have = want[method], have[method]
+        assert param in want and param not in have, (rel, where, param)
+    for rel, cls, member in KEPT_MEMBERS:
+        assert member in surface(REF / rel)[cls], (rel, cls, member)
+        assert member not in surface(PORT / rel)[cls], (rel, cls, member)
+    assert all(isinstance(r, str) and r for r in
+               (*KEPT_MODULES.values(), *KEPT.values(),
+                *KEPT_KEYWORDS.values(), *KEPT_MEMBERS.values()))
 
 
 def _slab(n=12, m=200, seed=0):
