@@ -149,8 +149,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     model's decode step (host clock to a synchronise, median over steps
     2-16) beside its bound (the compute-dtype weights' bytes over the
     memory rate), one decode step under the profiler (idle share, device
-    events), peak memory; ``python -m repro_torch.launch.serve`` in a
-    child process must exit 0; (b) the full widths at 2 layers on the
+    events), peak memory, one more decode step's transient memory
+    against the dry run's on a meta copy (``[dryrun-mem]``);
+    ``python -m repro_torch.launch.serve`` in a child process must exit
+    0; (b) the full widths at 2 layers on the
     card and the CPU from the same weights and prompts: clocks,
     registry rows and ``adopt_many`` masks identical, logits within
     ``LOGIT_ATOL + LOGIT_RTOL |x|``, greedy tokens identical outside
@@ -167,8 +169,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     k x the steps taken; the step (host clock to a synchronise, median
     of the timed steps after the first) beside its least times (6 N D
     FLOPs at the bfloat16 rate, AdamW's bytes at the memory rate),
-    tokens/s, one step under the profiler, peak memory, one
-    checkpoint's host snapshot and write; ``python -m
+    tokens/s, one step under the profiler, peak memory, the last timed
+    step's transient memory against the dry run's (``[dryrun-mem]``),
+    one checkpoint's host snapshot and write; ``python -m
     repro_torch.launch.train --steps 2`` in a child process must exit 0
     having run its steps (``TRAIN_CHILD_ARGS``); (b) the full widths at 2
     layers, batch 2, seq 32, 2 steps on the card and the CPU from one
@@ -230,8 +233,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     points (the engine passes no frames, as the reference's does not):
     encode ms, prefill ms, the bare decode step beside its bound (the
     decoder's weights but the cross K/V projections, the cross K/V, the
-    self K/V), tok/s, one decode step under the profiler, peak memory;
-    (b) ``make_train_step`` at the full config, seq 128, lr 3e-3,
+    self K/V), tok/s, one decode step under the profiler, peak memory,
+    one more prefill's transient memory against the dry run's
+    (``[dryrun-mem]``); (b) ``make_train_step`` at the full config, seq
+    128, lr 3e-3,
     float32 AdamW, 4 steps, at the largest batch of 8, 4, 2, 1 whose
     first step stays under 76 GB (the encoder keeps its activations, as
     the reference's does): every loss and grad norm finite, one tick a
@@ -288,6 +293,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 In the full run the launchers' child processes of 4c (c), 10, 11, 12
 and 13 and the examples of 16 run side by side after phase 10
 (``CHILDREN_BATCHED``); a phase run alone starts its own.
+
+The ``[dryrun-mem]`` lines of phases 10, 11 and 14 hold the dry run's
+memory estimate of a step (``launch.dryrun._traced`` on a meta copy of
+its inputs: the peak less the argument bytes) against the card's
+caching allocator (``max_memory_allocated`` above the step's start)
+within ``DRYRUN_MEM_RTOL``/``DRYRUN_MEM_ATOL``, beside the card's
+``total_memory``.
 
 Every card-vs-CPU comparison gives the CPU run the blocks the card
 resolves (``card_blocks``): the committed table's ``cuda`` entries under
@@ -3463,6 +3475,84 @@ def time_serve(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the dry run's memory estimate against the card (phases 10, 11, 14)
+# ---------------------------------------------------------------------------
+
+#: a step's predicted transient (``launch.dryrun._traced``'s peak less
+#: its argument bytes, on a meta copy of the step's inputs) against the
+#: card's measured one: within max(DRYRUN_MEM_RTOL x measured,
+#: DRYRUN_MEM_ATOL) bytes
+DRYRUN_MEM_RTOL, DRYRUN_MEM_ATOL = 0.05, 64 * 2 ** 20
+
+
+def meta_copy(tree):
+    """``tree`` (tensors in dicts, lists, tuples and dataclasses: a
+    ``TrainState``, ``Moment``s, decode caches) with every tensor an
+    empty meta tensor of its shape, dtype and strides; other leaves (host
+    integers) kept."""
+    import dataclasses
+
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree, device="meta")
+    if isinstance(tree, dict):
+        return {k: meta_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(meta_copy(v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: meta_copy(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def meta_model(cfg):
+    """``cfg``'s ``Transformer`` on meta tensors: the card's buffers'
+    shapes and dtypes, built from the abstract masters."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import abstract_params
+    return T.build(abstract_params(cfg), cfg, "meta")
+
+
+def predicted_transient(step, args: tuple, grad: bool) -> int:
+    """The dry run's transient of ``step(*args)`` (``args`` meta
+    copies): ``launch.dryrun._traced``'s peak less its argument bytes."""
+    from repro_torch.launch import dryrun
+
+    argument = dryrun._local_bytes(args)
+    _, _, mem = dryrun._traced(step, args, argument, grad=grad)
+    return mem["peak"] - argument
+
+
+def card_transient(fn) -> tuple:
+    """(``fn()``, the most bytes the card's caching allocator held during
+    ``fn`` above what it held before): ``max_memory_allocated`` less
+    ``memory_allocated`` before, the peak statistics reset just before."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def dryrun_mem_check(what: str, predicted: int, measured: int) -> None:
+    """One ``[dryrun-mem]`` line; fails past the tolerance."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    tol = max(DRYRUN_MEM_RTOL * measured, DRYRUN_MEM_ATOL)
+    print(f"[dryrun-mem] {what}: predicted transient {predicted} bytes "
+          f"(launch.dryrun on a meta copy: peak - argument), measured "
+          f"{measured} bytes (max_memory_allocated - memory_allocated "
+          f"before the step), ratio {predicted / measured}, tolerance "
+          f"{tol} bytes; card total_memory {total} bytes")
+    check(abs(predicted - measured) <= tol,
+          f"[dryrun-mem] {what}: predicted {predicted} bytes against "
+          f"{measured} measured, off by more than {tol}")
+
+
+# ---------------------------------------------------------------------------
 # phase 10: model serving
 # ---------------------------------------------------------------------------
 
@@ -3634,6 +3724,14 @@ def drive_model(dev) -> dict:
     prof = profiled(lambda: T.decode_step(a.model, cfg, caches, nxt,
                                           MODEL_PROMPT + MODEL_GEN))
     gen_s = run["generate_s"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def step(model, c, tok):
+        return T.decode_step(model, cfg, c, tok, MODEL_PROMPT + MODEL_GEN)
+
+    _, measured = card_transient(lambda: step(a.model, caches, nxt))
+    predicted = predicted_transient(
+        step, (meta_model(cfg), meta_copy(caches), meta_copy(nxt)), False)
     return {
         "setup_s": setup_s, "prefill_ms": run["admit_s"] * 1e3,
         "generate_ms": gen_s * 1e3, "tok_s": MODEL_BATCH * MODEL_GEN / gen_s,
@@ -3646,7 +3744,7 @@ def drive_model(dev) -> dict:
         # norms' float32 scales too)
         "weight_bytes": sum(b.numel() * b.element_size()
                             for b in a.model.buffers()),
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_gb": peak_gb, "dryrun_mem": (predicted, measured),
         "launches": run["launches"], "sample": toks[:, :8].tolist(),
         "migration": run["migration"],
         "clock_sum": float(a.clock.clock.sum()),
@@ -3813,6 +3911,9 @@ def model_phase(dev, rate: float) -> dict:
           f"{run['sample']}; engine clock sum {run['clock_sum']}")
     for kname, n in run["launches"].items():
         check(n > 0, f"kernel {kname} was not launched on the serving path")
+    dryrun_mem_check(f"{MODEL_ARCH} full config, decode step at batch "
+                     f"{MODEL_BATCH}, position {MODEL_PROMPT + MODEL_GEN}",
+                     *run["dryrun_mem"])
     print(f"[model] migration guard on the card: B (merged A's clock) "
           f"{run['migration']['B'][0]} fp {run['migration']['B'][1]}, "
           f"adopted; C (own history) {run['migration']['C']}, refused")
@@ -3951,18 +4052,30 @@ def drive_train(dev) -> dict:
         if torch.device(dev).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         ms = []
-        for s in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_TIMED_STEPS):
+        last = TRAIN_STEPS + TRAIN_TIMED_STEPS - 1
+        for s in range(TRAIN_STEPS, last + 1):
             batch = data.batch(s, device=dev)
             batch["ev_hi"], batch["ev_lo"] = data.event_id(s)
-            sync(dev)
-            t1 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
+            if s == last and torch.device(dev).type == "cuda":
+                # the last timed step held against the dry run's
+                # estimate of it (the peak statistics reset for it)
+                step_peak = torch.cuda.max_memory_allocated()
+                predicted = predicted_transient(
+                    step_fn, (meta_copy(state), meta_copy(batch)), True)
+                sync(dev)
+                t1 = time.perf_counter()
+                (state, metrics), measured = card_transient(
+                    lambda: step_fn(state, batch))
+            else:
+                sync(dev)
+                t1 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
             sync(dev)
             ms.append((time.perf_counter() - t1) * 1e3)
         check(bool(np.isfinite(float(metrics["loss"]))),
               "[train] a timed step's loss is not finite")
-        step_peak_gb = (torch.cuda.max_memory_allocated() / 1e9
-                        if torch.device(dev).type == "cuda" else None)
+        step_peak_gb = (max(step_peak, torch.cuda.max_memory_allocated())
+                        / 1e9 if torch.device(dev).type == "cuda" else None)
         prof = (profiled(lambda: step_fn(state, batch))
                 if torch.device(dev).type == "cuda" else None)
         mgr = CheckpointManager(os.path.join(d, "timed"), keep=1)
@@ -3978,7 +4091,9 @@ def drive_train(dev) -> dict:
             "profile": prof,
             "peak_gb": peak_gb, "step_peak_gb": step_peak_gb, "snapshot_ms": mgr.last_save["snapshot_s"] * 1e3,
             "write_ms": mgr.last_save["write_s"] * 1e3,
-            "ckpt_bytes": ckpt_bytes, "clock_sum": clock_sum}
+            "ckpt_bytes": ckpt_bytes, "clock_sum": clock_sum,
+            "dryrun_mem": ((predicted, measured)
+                           if torch.device(dev).type == "cuda" else None)}
 
 
 def move_state(state, device):
@@ -4240,6 +4355,9 @@ def train_phase(dev, rate: float) -> dict:
           f"checkpoint "
           f"({run['ckpt_bytes']} bytes): host snapshot {run['snapshot_ms']} "
           f"ms, write {run['write_ms']} ms")
+    dryrun_mem_check(f"{MODEL_ARCH} full config, train step at batch "
+                     f"{run['batch']} x {run['seq']} (float32 masters and "
+                     f"AdamW moments)", *run["dryrun_mem"])
     if not CHILDREN_BATCHED:
         with tempfile.TemporaryDirectory() as d:
             run_launchers([train_launcher(d)])
@@ -5003,6 +5121,17 @@ def drive_encdec(dev) -> dict:
     kv_bytes = (2 * k[:, :, 0].numel() * k.element_size()
                 * (MODEL_PROMPT + MODEL_GEN // 2 + 1))
     decode_s = sum(timed["ms"]) / 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def prefill(m, toks, fr):
+        return T.prefill(m, cfg, toks, enc_frames=fr,
+                         buf_len=MODEL_PROMPT + MODEL_GEN + 8)
+
+    out, measured = card_transient(lambda: prefill(model, prompts, frames))
+    del out
+    predicted = predicted_transient(
+        prefill, (meta_model(cfg), meta_copy(prompts), meta_copy(frames)),
+        False)
     return {"params": cfg.n_params(), "frames": list(frames.shape),
             "setup_s": setup_s,
             "encode_ms": encode_ms, "prefill_ms": timed["prefill_ms"],
@@ -5011,7 +5140,7 @@ def drive_encdec(dev) -> dict:
             "tok_s": MODEL_BATCH * MODEL_GEN / decode_s, "profile": prof,
             "weight_bytes": weight_bytes, "cross_bytes": cross_bytes,
             "kv_bytes": kv_bytes, "sample": toks[:, :8].tolist(),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_gb": peak_gb, "dryrun_mem": (predicted, measured)}
 
 
 def drive_encdec_train(dev) -> dict:
@@ -5188,6 +5317,9 @@ def encdec_phase(dev, rate: float) -> dict:
           f"({prof['idle_share_with_copies']} with copies), top "
           f"{json.dumps(prof['top_device_ms'])}; peak memory "
           f"{run['peak_gb']} GB")
+    dryrun_mem_check(f"{ENCDEC_ARCH} full config, prefill at batch "
+                     f"{MODEL_BATCH} x {MODEL_PROMPT} with frames "
+                     f"{run['frames']} (float32)", *run["dryrun_mem"])
     del run
     torch.cuda.empty_cache()
     tr = drive_encdec_train(dev)

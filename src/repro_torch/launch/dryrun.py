@@ -10,16 +10,32 @@ For each cell:
 The mesh spans a process group on the ``"fake"`` backend of 512 ranks,
 set up by ``main`` before anything else (the counterpart of the
 reference's 512 forced host devices); this process is rank 0, and the
-fake group's collectives move nothing.  There is no compiler and no
-allocator on meta tensors, so the record differs from the reference's
-where those are its source:
+fake group's collectives move nothing.  The step runs once, eagerly,
+under a dispatch mode that counts rank 0's local ops (``_traced``):
 
   - ``bytes_per_device.argument`` / ``.output``: exact sums of rank 0's
-    local shards of the inputs and of the outputs;
-  - ``bytes_per_device.temp``, ``.peak``, ``.generated_code``: null;
+    local shards of the inputs (those the step reads) and of the
+    outputs;
+  - ``bytes_per_device.peak``: argument + the most bytes that storages
+    the step created held at once (each storage counted once, however
+    many views share it, until its last reference dies: autograd's
+    saved tensors, remat's recompute, collectives' outputs; views,
+    in-place and ``out=`` ops create none).  The caller holds the
+    inputs throughout: the port's train step is functional, so its new
+    state is created beside the old one, where the reference's ``jit``
+    donates it;
+  - ``bytes_per_device.temp``: peak - argument - the bytes of the
+    output's storages the step created (a cache written in place adds
+    0), as XLA's peak = argument + output + temp;
+  - ``bytes_per_device.generated_code``: null: eager PyTorch builds no
+    executable for a cell, and the CUDA kernels are built once for
+    every cell;
   - ``cost.flops``: the FLOPs of the local ops rank 0 runs
     (``torch.utils.flop_counter``'s formulas, forward and backward);
-    ``cost.bytes_accessed``: null;
+  - ``cost.bytes_accessed``: every tensor input and output of each local
+    op but the views and ``_NO_TRAFFIC``, at numel x element size: the
+    unfused eager traffic the port issues, not comparable to XLA's count
+    after fusion;
   - ``collectives``: the functional collectives the DTensor ops issue,
     under the reference's five kind names, each the sum of the output
     bytes of its local ops, plus ``counts`` (``CommDebugMode``'s);
@@ -27,6 +43,11 @@ where those are its source:
     to replication (a dim that does not divide its axis), and the
     sharded tensors the step gathered to run an op on replicated
     operands (``sharding.to_local``).
+
+The card's caching allocator is the check on ``peak``: ``chip_smoke.py``
+traces a meta copy of three full-config steps with ``_traced`` and
+holds each transient (peak - argument) against ``max_memory_allocated``
+above the step's start (``[dryrun-mem]``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1_5_0_5b --shape train_4k
@@ -39,6 +60,7 @@ import json
 import os
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -83,16 +105,77 @@ def init_fake_group(world_size: int = 512) -> None:
                             world_size=world_size)
 
 
-class _LocalCounter(TorchDispatchMode):
-    """FLOPs and collective bytes of the local ops of one rank: a DTensor
-    op is passed on to DTensor (which runs it as local ops, counted
-    here), and the fake tensors of DTensor's shape propagation are not
-    counted."""
+#: functional collectives' wrappers: on the card each returns its input
+#: (wrapped), while its meta kernel allocates a new tensor, so the
+#: output takes over the input's live bytes
+_PASS_THROUGH = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
+#: local ops whose bytes are not counted (besides the views that create
+#: no storage): they rename, synchronise, read metadata or read one
+#: value to the host
+_NO_TRAFFIC = _PASS_THROUGH | {"_unsafe_view", "_reshape_alias", "sym_size",
+                               "sym_stride", "sym_numel",
+                               "sym_storage_offset", "is_same_size",
+                               "_local_scalar_dense"}
 
-    def __init__(self):
+
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+class _LocalCounter(TorchDispatchMode):
+    """FLOPs, collective bytes, live bytes and bytes accessed of the local
+    ops of one rank on ``device`` (the traced device: ``meta`` in the dry
+    run): a DTensor op is passed on to DTensor (which runs it as local
+    ops, counted here), and the fake tensors of DTensor's shape
+    propagation are not counted.
+
+    Live bytes: each storage an op creates on ``device`` (a result on
+    no input's storage: views, in-place and ``out=`` ops create none),
+    once however many views share it, from that op until its last
+    reference dies (``weakref.finalize`` on the storage); ``high`` is
+    the most live at any op boundary.  Bytes accessed: every tensor
+    input and output on ``device`` of each op that creates a storage or
+    is not a view, and is not in ``_NO_TRAFFIC``, at its numel x element
+    size."""
+
+    def __init__(self, device="meta"):
         super().__init__()
+        self.device = torch.device(device).type
         self.flops = 0
         self.coll = {k: 0 for k in _COLLECTIVES}
+        self.bytes_accessed = 0
+        self.live = 0
+        self.high = 0
+        self._sizes = {}                    # live storage key -> nbytes
+
+    def _on_device(self, tree) -> list:
+        return [t for t in _tensors(tree) if t.device.type == self.device]
+
+    def _created(self, st) -> None:
+        key = st._cdata
+        if key in self._sizes:
+            return
+        self._sizes[key] = n = st.nbytes()
+        self.live += n
+        weakref.finalize(st, self._freed, key).atexit = False
+
+    def _freed(self, key) -> None:
+        self.live -= self._sizes.pop(key, 0)
+
+    def _handed_over(self, src, dst) -> None:
+        """``dst`` takes over ``src``'s live bytes (nothing when the step
+        did not create ``src``)."""
+        n = self._sizes.pop(src._cdata, None)
+        if n is not None:
+            self.live -= n
+            self._created(dst)
+
+    def created_bytes(self, tree) -> int:
+        """Bytes of the storages under ``tree`` (DTensors: their local
+        shards) that the counted ops created and that are still live."""
+        keys = {(t.to_local() if isinstance(t, DTensor) else t)
+                .untyped_storage()._cdata for t in _leaves(tree)}
+        return sum(self._sizes.get(k, 0) for k in keys)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -107,9 +190,43 @@ class _LocalCounter(TorchDispatchMode):
         kind = _KIND.get(packet.__name__)
         if kind is not None:
             self.coll[kind] += sum(t.numel() * t.element_size()
-                                   for t in tree_leaves(out)
-                                   if isinstance(t, torch.Tensor))
+                                   for t in _tensors(out))
+        ins, outs = self._on_device((args, kwargs)), self._on_device(out)
+        fresh = []
+        if packet.__name__ in _PASS_THROUGH:
+            for i, o in zip(ins, outs):
+                self._handed_over(i.untyped_storage(), o.untyped_storage())
+        else:
+            read = {t.untyped_storage()._cdata for t in ins}
+            fresh = [t for t in outs if t.untyped_storage()._cdata not in read]
+            for t in fresh:
+                self._created(t.untyped_storage())
+        # a view's schema may also copy (``contiguous`` of a strided
+        # shard): it moves bytes when it creates a storage
+        if (fresh or not func.is_view) and packet.__name__ not in _NO_TRAFFIC:
+            self.bytes_accessed += sum(t.numel() * t.element_size()
+                                       for t in ins + outs)
+        self.high = max(self.high, self.live)
         return out
+
+
+def _traced(step, args: tuple, argument: int, device="meta",
+            grad: bool = True):
+    """``step(*args)`` once under a ``_LocalCounter`` on ``device``
+    (under ``torch.no_grad()`` unless ``grad``), the step's inputs of
+    ``argument`` bytes held by the caller throughout.  Returns (out,
+    counter, memory): ``peak`` = argument + the most bytes the step's
+    own storages held at once, ``temp`` = peak - argument - the bytes of
+    the output's storages the step created (an output aliasing an
+    input, such as a cache written in place, adds 0)."""
+    with _LocalCounter(device) as count:
+        if grad:
+            out = step(*args)
+        else:
+            with torch.no_grad():
+                out = step(*args)
+    return out, count, {"temp": count.high - count.created_bytes(out),
+                        "peak": argument + count.high}
 
 
 def _leaves(tree) -> list:
@@ -219,19 +336,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                     shape.seq_len - 1)
         read = ((_decode_params(args[0], cfg),) + args[1:]
                 if shape.kind == "decode" else args)
-        rec["bytes_per_device"] = {"argument": _local_bytes(read)}
+        argument = _local_bytes(read)
+        rec["bytes_per_device"] = {"argument": argument}
         SH.FALLBACKS.clear()
-        with CommDebugMode() as comm, _LocalCounter() as count:
-            if shape.kind == "train":
-                out = step(*args)
-            else:
-                with torch.no_grad():
-                    out = step(*args)
+        with CommDebugMode() as comm:
+            out, count, mem = _traced(step, args, argument,
+                                      grad=shape.kind == "train")
         rec["trace_s"] = round(time.time() - t0, 1)
-        rec["bytes_per_device"].update(
-            output=_local_bytes(out), temp=None, peak=None,
-            generated_code=None)
-        rec["cost"] = {"flops": count.flops, "bytes_accessed": None}
+        rec["bytes_per_device"].update(output=_local_bytes(out), **mem,
+                                       generated_code=None)
+        rec["cost"] = {"flops": count.flops,
+                       "bytes_accessed": count.bytes_accessed}
         counts = {k: 0 for k in _COLLECTIVES}
         for op, n in comm.get_comm_counts().items():
             kind = _KIND.get(getattr(op, "__name__", str(op)).split(".")[-1])

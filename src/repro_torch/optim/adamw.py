@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.sharding import placed_as
+from repro_torch.sharding import _dense_stride, placed_as
 
 __all__ = ["OptConfig", "Moment", "init_opt_state", "adamw_update",
            "cosine_lr", "global_norm"]
@@ -100,9 +100,8 @@ def _rows(t: DTensor) -> tuple:
 
 def _from_rows(local: torch.Tensor, mesh, pl: tuple, shape) -> DTensor:
     shape = torch.Size(shape)
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
-                              stride=stride)
+                              stride=_dense_stride(shape))
 
 
 @dataclasses.dataclass

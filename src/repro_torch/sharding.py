@@ -327,8 +327,28 @@ def assign(buf: torch.Tensor, key, value: torch.Tensor) -> torch.Tensor:
 _REFUSED: set = set()
 
 
+def _dense_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, computed without
+    a tensor (the dry run counts every tensor a step creates)."""
+    out, step = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(d, 1)
+    return tuple(reversed(out))
+
+
+def _view_shape(size, shape) -> torch.Size:
+    """What ``reshape(*shape)`` of a tensor of ``size`` gives (a -1
+    resolved), computed without a tensor."""
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
+        shape = tuple(shape[0])
+    known = math.prod(d for d in shape if d != -1)
+    return torch.Size(math.prod(size) // known if d == -1 else d
+                      for d in shape)
+
+
 def _reshape(x: DTensor, shape) -> DTensor:
-    new = torch.empty(x.shape, device="meta").reshape(*shape).shape
+    new = _view_shape(x.shape, shape)
     key = (tuple(x.shape), x.placements, tuple(new))
     if key not in _REFUSED:
         try:
@@ -416,9 +436,8 @@ def einsum(equation: str, *operands) -> torch.Tensor:
         return DTensor.from_local(y, mesh, out_pl, run_check=False)
     size = {c: d for sub, o in zip(subs, ops) for c, d in zip(sub, o.shape)}
     shape = torch.Size(size[c] for c in out)
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(y.contiguous(), mesh, out_pl, run_check=False,
-                              shape=shape, stride=stride)
+                              shape=shape, stride=_dense_stride(shape))
 
 
 def pad(x: torch.Tensor, widths: tuple, value: float = 0.0) -> torch.Tensor:

@@ -1654,6 +1654,45 @@ def test_cuda_train_step_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_train_step_transient_matches_dry_run(cuda):
+    """The dry run's transient of the qwen smoke config's train step
+    (``launch.dryrun._traced`` on a meta copy: peak less argument)
+    against the card's (``max_memory_allocated`` less
+    ``memory_allocated`` before the step, after two warm-up steps),
+    within ``chip_smoke.py``'s ``DRYRUN_MEM_RTOL``/``DRYRUN_MEM_ATOL``."""
+    import os
+    import sys
+
+    from repro_torch.checkpoint.manager import _rebuild
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.clock_runtime import ClockConfig
+    from repro_torch.runtime.training import make_train_step
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as C
+
+    cfg, state = smoke_train_state()
+    state = _rebuild(state, lambda key, t: t.to(cuda))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    step = make_train_step(cfg, OptConfig(lr=1e-3, total_steps=10),
+                           ClockConfig(m=64))
+    batches = [dict(data.batch(s, device=cuda), ev_hi=data.event_id(s)[0],
+                    ev_lo=data.event_id(s)[1]) for s in range(3)]
+    for batch in batches[:2]:
+        state, _ = step(state, batch)
+    batch = batches[2]
+    predicted = C.predicted_transient(
+        step, (C.meta_copy(state), C.meta_copy(batch)), True)
+    (_, metrics), measured = C.card_transient(lambda: step(state, batch))
+    assert np.isfinite(float(metrics["loss"]))
+    assert predicted > 0 and measured > 0
+    tol = max(C.DRYRUN_MEM_RTOL * measured, C.DRYRUN_MEM_ATOL)
+    assert abs(predicted - measured) <= tol, (predicted, measured)
+
+
+@pytest.mark.gpu
 def test_cuda_checkpoint_restores_on_cpu(cuda, tmp_path):
     """An int8-moment state on the card, saved asynchronously (one host
     snapshot), restored on the CPU and back on the card: every leaf
