@@ -258,7 +258,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     grad norms, clock cells, params and moments bit-identical (an op
     that DTensor rewrites is named and held to the bfloat16 tolerance),
     one tick a train step with the launch counts reset just before and
-    read just after; the DTensor decode and train steps beside the
+    read just after, the loss one vocab-parallel ``local_map``
+    (``runtime.training.vocab_parallel_ce``) a train step, counted; the DTensor decode and train steps beside the
     plain ones, one DTensor decode step under the profiler; then the
     explicit collectives on the same mesh: (a) Qwen1.5-0.5B's full
     config with ``decode_attn="split_kv"`` (owner-writes cache update,
@@ -5523,6 +5524,7 @@ def mesh_phase(dev, rate: float) -> dict:
     from repro_torch.launch import train as launch
     from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import Moment
+    from repro_torch.runtime import training as TR
     from repro_torch.runtime.training import init_train_state
 
     t0 = time.perf_counter()
@@ -5555,10 +5557,14 @@ def mesh_phase(dev, rate: float) -> dict:
             mesh, rules, cfg, S.abstract_state(cfg, opt_cfg, clock_cfg)))
         want = mesh_train(dev, state, cfg, opt_cfg, clock_cfg, data)
         ops.reset_launches()
-        got = mesh_train(dev, dstate, cfg, opt_cfg, clock_cfg, data, mesh)
+        with counted(TR, "vocab_parallel_ce") as ce_calls:
+            got = mesh_train(dev, dstate, cfg, opt_cfg, clock_cfg, data, mesh)
         launches = {"bloom_tick": ops.LAUNCHES["bloom_tick"]}
         check(launches["bloom_tick"] == MESH_TRAIN_STEPS,
               f"[mesh] {launches['bloom_tick']} tick launches in "
+              f"{MESH_TRAIN_STEPS} DTensor train steps")
+        check(ce_calls.n == MESH_TRAIN_STEPS,
+              f"[mesh] {ce_calls.n} vocab-parallel losses in "
               f"{MESH_TRAIN_STEPS} DTensor train steps")
         for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
             for k in ("loss", "grad_norm", "clock_sum"):
@@ -5588,7 +5594,8 @@ def mesh_phase(dev, rate: float) -> dict:
           f"greedy tokens of prefill + {MODEL_GEN} decode steps identical to "
           f"the plain path; {MESH_TRAIN_STEPS} train steps at launch.train's "
           f"defaults (batch {args.batch}, seq {args.seq}): losses "
-          f"{losses}")
+          f"{losses}; the loss a local_map (vocab_parallel_ce) "
+          f"{ce_calls.n} times in {MESH_TRAIN_STEPS} DTensor train steps")
     print(f"[mesh] bit-identical to the plain path: logits, losses, grad "
           f"norms, clock cells, params and moments, except "
           f"{json.dumps(held) if held else 'nothing'}")

@@ -24,10 +24,11 @@ new arrays).  ``length`` and ``pos`` are host integers, so a decode step
 reads nothing back from the card.
 
 Under the model mesh (``sharding.use_mesh_rules``) the block runs on
-DTensors: the tensors made inside it (positions' masks, the running max
-and sum) follow the mesh replicated, and the cache write, which has no
-DTensor strategy into a sharded slice, runs on replicated operands
-(``sharding.assign``), as GSPMD writes it.  With
+DTensors: the positions' masks made inside it follow the mesh
+replicated, the running max, sum and accumulator are built on each rank
+at the local shape of the queries' shard (``_stat_like``), and the
+cache write, which has no DTensor strategy into a sharded slice, runs
+on replicated operands (``sharding.assign``), as GSPMD writes it.  With
 ``decode_attn="split_kv"`` decode takes the reference's two explicit
 paths instead, each a ``local_map`` over the mesh: the owner-writes
 slot update (``_sharded_slot_update``), in which only the shard that
@@ -44,7 +45,7 @@ import math
 
 import torch
 import torch.distributed._functional_collectives as fc
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import sharding as SH
@@ -131,6 +132,23 @@ def decode_attention_split_kv(q, k, v, *, kv_valid: int, window: int,
     return out.full_tensor() if plain else out
 
 
+def _stat_like(qg: DTensor, last: tuple, fill: float,
+               dtype: torch.dtype) -> DTensor:
+    """A running stat of the grouped queries ``qg`` [B, Sq, KV, G, Dh]:
+    ``fill`` over qg's leading dims + ``last``, placed as qg on those
+    dims (replicated where qg shards its last), each rank making only
+    its local shard, so no rank holds the global shape."""
+    lead = qg.ndim - 1
+    pl = tuple(p if isinstance(p, Shard) and p.dim < lead else Replicate()
+               for p in qg.placements)
+    loc = qg.to_local()
+    shape = torch.Size(tuple(qg.shape[:lead]) + last)
+    local = torch.full(tuple(loc.shape[:lead]) + last, fill, dtype=dtype,
+                       device=loc.device)
+    return DTensor.from_local(local, qg.device_mesh, pl, run_check=False,
+                              shape=shape, stride=SH._dense_stride(shape))
+
+
 def attention_core(
     q: torch.Tensor,          # [B, Sq, H, Dh]
     k: torch.Tensor,          # [B, Skv, KV, Dh]
@@ -163,13 +181,15 @@ def attention_core(
     n_chunks = (Skv + pad) // chunk
 
     q_pos = q_offset + torch.arange(Sq, device=dev)
-    # the running stats follow q's mesh (replicated) under a mesh
-    acc = SH.replicated(
-        torch.zeros((B, Sq, KV, G, Dv), dtype=acc_dtype, device=dev), q)
-    m_run = SH.replicated(torch.full((B, Sq, KV, G), NEG_INF,
-                                     dtype=torch.float32, device=dev), q)
-    l_run = SH.replicated(
-        torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev), q)
+    if isinstance(qg, DTensor):   # each rank builds its shard of qg's dims
+        acc = _stat_like(qg, (Dv,), 0.0, acc_dtype)
+        m_run = _stat_like(qg, (), NEG_INF, torch.float32)
+        l_run = _stat_like(qg, (), 0.0, torch.float32)
+    else:
+        acc = torch.zeros((B, Sq, KV, G, Dv), dtype=acc_dtype, device=dev)
+        m_run = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev)
     for c in range(n_chunks):
         start = c * chunk
         kc = k[:, start:start + chunk].to(acc_dtype)

@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
@@ -156,10 +157,15 @@ def _ssd_chunked(cfg: ModelConfig, xh, dtv, A, Bm, Cm, init_state=None):
     decay_out = torch.exp(chunk_sum[:, :, None, :] - cum)  # [B,nc,Q,H]
     states = SH.einsum("bcjhp,bcjn->bchpn", xdt * decay_out[..., None], Bc)
 
-    # inter-chunk recurrence (the reference's lax.scan)
-    st = (SH.replicated(torch.zeros((Bb, H, Pd, N), dtype=torch.float32,
-                                    device=xh.device), states)
-          if init_state is None else init_state.float())
+    # inter-chunk recurrence (the reference's lax.scan); under a mesh
+    # the zero state is placed as the chunk states, each rank making
+    # only its shard
+    if init_state is not None:
+        st = init_state.float()
+    elif isinstance(states, DTensor):
+        st = torch.zeros_like(states[:, 0])
+    else:
+        st = torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=xh.device)
     prev = []
     for c in range(nc):
         prev.append(st)
@@ -206,7 +212,8 @@ def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         out = _gated_norm(params, cfg, y, z) @ params["out_proj"].to(dt)
         conv = (xBC_pre[:, S - w1:] if S >= w1
                 else SH.pad(xBC_pre, (0, 0, w1 - S, 0)))
-        return out, SSMCache(conv=conv.to(dt), state=final)
+        # a copy: a view would keep the whole in_proj output alive
+        return out, SSMCache(conv=conv.to(dt, copy=True), state=final)
 
     # ---- decode: O(1) recurrent update (S == 1) ----
     xBC_c, new_conv = _causal_conv(params, cfg, xBC, cache.conv)

@@ -508,17 +508,21 @@ class Transformer(nn.Module):
         return self.encoder(frames)
 
     def run_stack(self, x, *, positions, caches=None, remat: bool = False,
-                  enc_out=None):
+                  enc_out=None, keep_new: bool = True):
         """Every layer in turn.  Returns (x, new, aux): without caches
-        the per-layer dicts of ``DecoderLayer.forward``, with them the
-        caches dict, its attention cache advanced (the SSM cache is
-        updated in place, the cross cache only read); aux the layers'
-        load-balance losses summed in layer order (float32, 0 without a
-        router).  ``remat``: run each layer under ``cfg.remat_policy``
-        when grad is enabled (the train mode).  ``enc_out``: the
-        encoder's output, for an enc-dec stack without caches."""
+        the per-layer dicts of ``DecoderLayer.forward`` (an empty list
+        with ``keep_new=False``, so that no layer's new K/V or SSM cache,
+        nor the storage a view of it holds, outlives the layer), with
+        them the caches dict, its attention cache advanced (the SSM
+        cache is updated in place, the cross cache only read); aux the
+        layers' load-balance losses summed in layer order (float32, 0
+        without a router).  ``remat``: run each layer under
+        ``cfg.remat_policy`` when grad is enabled (the train mode).
+        ``enc_out``: the encoder's output, for an enc-dec stack without
+        caches."""
         return _run_layers(self.layers, self.cfg, x, positions=positions,
-                           caches=caches, remat=remat, enc_out=enc_out)
+                           caches=caches, remat=remat, enc_out=enc_out,
+                           keep_new=keep_new)
 
     def unembed(self, h) -> torch.Tensor:
         """Logits of final-normed hidden states ``h``."""
@@ -527,7 +531,7 @@ class Transformer(nn.Module):
 
 
 def _run_layers(layers, cfg: ModelConfig, x, *, positions, caches=None,
-                remat: bool = False, enc_out=None):
+                remat: bool = False, enc_out=None, keep_new: bool = True):
     """``layers`` (``DecoderLayer``s) in turn: ``Transformer.run_stack``."""
     angles = None
     if cfg.use_mla:      # MLA rotates qk_rope_dim lanes, whatever pos
@@ -548,7 +552,9 @@ def _run_layers(layers, cfg: ModelConfig, x, *, positions, caches=None,
                          angles=angles, enc_out=enc_out)
         if a is not None:
             aux = a if aux is None else aux + a
-        news.append(new)
+        if keep_new or caches is not None:
+            news.append(new)
+        del new
     aux = _zero_aux(x) if aux is None else aux
     if caches is None:
         return x, news, aux
@@ -753,7 +759,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
     x, _, aux = model.run_stack(
         x, positions=_positions(0, x.shape[1], x.device), remat=True,
-        enc_out=enc_out)
+        enc_out=enc_out, keep_new=False)
     return model.norm_f(x), aux
 
 

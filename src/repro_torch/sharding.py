@@ -294,11 +294,12 @@ def to_local(t, site: str = "op"):
     """The full value of ``t`` on this rank: a DTensor gathered to
     replicated and unwrapped (differentiably), a plain tensor as it is.
     A gather of a tensor sharded over more than one rank counts in
-    ``FALLBACKS[site]``."""
+    ``FALLBACKS[site]``; a partial sum's reduction (a step's loss
+    metric) is no gather and does not count."""
     if not isinstance(t, DTensor):
         return t
     mesh = t.device_mesh
-    if any(not p.is_replicate() and n > 1
+    if any(isinstance(p, Shard) and n > 1
            for p, n in zip(t.placements, mesh.shape)):
         FALLBACKS[site] += 1
     return t.redistribute(mesh, _all_replicated(mesh)).to_local()
@@ -500,21 +501,36 @@ def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _Cumsum.apply(x, dim % x.ndim)
 
 
+def _owned(y: DTensor, x: DTensor) -> DTensor:
+    """``y``, ``x`` placed anew: its local shard copied out where it is a
+    view into a storage of more than twice its bytes (a chunk of a whole
+    gathered or replicated on this rank), so that the whole can be
+    freed.  ``y`` as it is when the placements did not change."""
+    loc = y.to_local()
+    if (y.placements == x.placements
+            or loc.untyped_storage().nbytes() <= 2 * loc.nbytes):
+        return y
+    return DTensor.from_local(loc.clone(memory_format=torch.contiguous_format),
+                              y.device_mesh, y.placements, run_check=False,
+                              shape=y.shape, stride=y.stride())
+
+
 class _Redistribute(torch.autograd.Function):
     """``x.redistribute`` whose backward places the gradient as ``x``
     was, but ``Replicate()`` where ``x`` was ``Partial``: the gradient
     of a sum is each summand's, and some DTensor releases cannot turn a
-    sharded gradient back into a partial one."""
+    sharded gradient back into a partial one.  Both directions keep no
+    gathered whole alive behind a shard (``_owned``)."""
 
     @staticmethod
     def forward(ctx, x, pl):
         ctx.back = tuple(Replicate() if p.is_partial() else p
                          for p in x.placements)
-        return x.redistribute(x.device_mesh, pl)
+        return _owned(x.redistribute(x.device_mesh, pl), x)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(g.device_mesh, ctx.back), None
+        return _owned(g.redistribute(g.device_mesh, ctx.back), g), None
 
 
 def redistribute(x: DTensor, pl) -> DTensor:

@@ -2146,7 +2146,13 @@ def test_cuda_four_card_nccl_2x2_mesh_within_tolerance(cuda, tmp_path):
     moments within ``MOMENT_RTOL``; ``adamw_update`` alone on sharded
     float32 and int8 moments within ``ADAMW_RTOL``
     (``test_torch_model_mesh_ranks.check_four_rank``); the dense run's
-    checkpoint round trip.  Skips with fewer than four cards."""
+    checkpoint round trip.  Then Qwen's smoke widths at Qwen1.5-0.5B's
+    vocab (``test_torch_loss_parallel._memory_step``): the 2x2 train
+    step's loss within 2e-2 of the plain step's on the same card, and
+    its ``max_memory_allocated`` above the step's start below one rank's
+    logits at the full vocab in float32 (the vocab-parallel loss keeps
+    them on their shards).  Skips with fewer than four cards."""
+    import test_torch_loss_parallel as LP
     import test_torch_model_mesh_ranks as R
 
     if torch.cuda.device_count() < 4:
@@ -2161,6 +2167,13 @@ def test_cuda_four_card_nccl_2x2_mesh_within_tolerance(cuda, tmp_path):
         R.check_four_rank(arch, res)
         if ckpt:
             assert res["round_trip"] == [True, True]
+    out = str(tmp_path / "memory.json")
+    res = LP.result(LP.ranks(out, 4, [2, 2], backend="nccl", mode="memory"),
+                    out)
+    print(f"[four-card] 2x2 train step at vocab {LP.MEM_VOCAB}: {res}")
+    mesh_loss, plain_loss = res["loss"]
+    assert abs(mesh_loss - plain_loss) <= R.LOSS_RTOL * abs(plain_loss), res
+    assert res["transient"] < res["full_vocab_logits"], res
 
 
 @pytest.mark.gpu
