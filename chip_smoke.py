@@ -5522,6 +5522,9 @@ def mesh_phase(dev, rate: float) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import specs as S
     from repro_torch.launch import train as launch
+    from repro_torch.models import attention as A
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import Moment
     from repro_torch.runtime import training as TR
@@ -5537,7 +5540,16 @@ def mesh_phase(dev, rate: float) -> dict:
         prompts = model_prompts(cfg.vocab)
         mesh_serve(params, cfg, prompts)          # cuBLAS and NCCL set-up
         plain = mesh_serve(params, cfg, prompts)
-        dt = mesh_serve(dparams, cfg, prompts, mesh, timed_step=True)
+        with counted(T, "embed_lookup") as looks, \
+                counted(A, "attn_heads") as heads, \
+                counted(SSM, "ssm_heads") as ssds:
+            dt = mesh_serve(dparams, cfg, prompts, mesh, timed_step=True)
+        check(looks.n >= 1 + MODEL_GEN,
+              f"[mesh] {looks.n} vocab-parallel lookups in a prefill and "
+              f"{MODEL_GEN} decode steps")
+        check(heads.n == ssds.n == 0,
+              f"[mesh] head-split blocks on a model axis of one rank: "
+              f"{heads.n} attention, {ssds.n} SSD")
         check_equal(dt["tokens"].numpy(), plain["tokens"].numpy(),
                     "[mesh] greedy tokens, DTensor vs plain")
         held: list = []
@@ -5557,7 +5569,8 @@ def mesh_phase(dev, rate: float) -> dict:
             mesh, rules, cfg, S.abstract_state(cfg, opt_cfg, clock_cfg)))
         want = mesh_train(dev, state, cfg, opt_cfg, clock_cfg, data)
         ops.reset_launches()
-        with counted(TR, "vocab_parallel_ce") as ce_calls:
+        with counted(TR, "vocab_parallel_ce") as ce_calls, \
+                counted(T, "embed_lookup") as train_looks:
             got = mesh_train(dev, dstate, cfg, opt_cfg, clock_cfg, data, mesh)
         launches = {"bloom_tick": ops.LAUNCHES["bloom_tick"]}
         check(launches["bloom_tick"] == MESH_TRAIN_STEPS,
@@ -5565,6 +5578,9 @@ def mesh_phase(dev, rate: float) -> dict:
               f"{MESH_TRAIN_STEPS} DTensor train steps")
         check(ce_calls.n == MESH_TRAIN_STEPS,
               f"[mesh] {ce_calls.n} vocab-parallel losses in "
+              f"{MESH_TRAIN_STEPS} DTensor train steps")
+        check(train_looks.n == MESH_TRAIN_STEPS,
+              f"[mesh] {train_looks.n} vocab-parallel lookups in "
               f"{MESH_TRAIN_STEPS} DTensor train steps")
         for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
             for k in ("loss", "grad_norm", "clock_sum"):
@@ -5596,6 +5612,14 @@ def mesh_phase(dev, rate: float) -> dict:
           f"defaults (batch {args.batch}, seq {args.seq}): losses "
           f"{losses}; the loss a local_map (vocab_parallel_ce) "
           f"{ce_calls.n} times in {MESH_TRAIN_STEPS} DTensor train steps")
+    print(f"[mesh] the new local_maps: the vocab-parallel lookup "
+          f"(embed_lookup) {looks.n} times in serving (prefill, "
+          f"{MODEL_GEN} decode steps and the profiled one) and "
+          f"{train_looks.n} in {MESH_TRAIN_STEPS} train steps; the "
+          f"head-split attention (attn_heads) {heads.n} and SSD (ssm_heads) "
+          f"{ssds.n} times: a model axis of one rank keeps every head "
+          f"local, so they run only where it splits them (the four-card "
+          f"gpu case test_cuda_four_card_nccl_1x4_head_views)")
     print(f"[mesh] bit-identical to the plain path: logits, losses, grad "
           f"norms, clock cells, params and moments, except "
           f"{json.dumps(held) if held else 'nothing'}")

@@ -24,28 +24,32 @@ new arrays).  ``length`` and ``pos`` are host integers, so a decode step
 reads nothing back from the card.
 
 Under the model mesh (``sharding.use_mesh_rules``) the block runs on
-DTensors: the positions' masks made inside it follow the mesh
-replicated, the running max, sum and accumulator are built on each rank
-at the local shape of the queries' shard (``_stat_like``), and the
-cache write, which has no DTensor strategy into a sharded slice, runs
-on replicated operands (``sharding.assign``), as GSPMD writes it.  With
-``decode_attn="split_kv"`` decode takes the reference's two explicit
-paths instead, each a ``local_map`` over the mesh: the owner-writes
-slot update (``_sharded_slot_update``), in which only the shard that
-holds the slot writes, in place and with no collective, and split-KV
-decode (``decode_attention_split_kv``), in which each seq shard of the
-cache computes the partial softmax stats over its slice and the shards
-combine them with functional all-reduces (max, then sums) over the
-model axis.
+DTensors.  Where the model axis has more than one rank, train and
+prefill run ``attn_heads``, a ``local_map`` in which each rank projects,
+attends over and out-projects only its heads (``torch.chunk``'s split
+of them, the KV heads they read), so that no view into heads gathers
+the heads; prefill's new K/V leave it placed as the decode cache.
+Elsewhere the positions' masks made inside the block follow the mesh
+replicated and the running max, sum and accumulator are built on each
+rank at the local shape of the queries' shard (``_stat_like``).
+Decode takes a seq-sharded cache as it is: the slot's owner writes it
+(``_sharded_slot_update``, in place and with no collective) and the
+scores and ``p . v`` contract over the seq shards
+(``sharding.einsum``); a cache placed otherwise is written on
+replicated operands (``sharding.assign``), as GSPMD writes it.  With
+``decode_attn="split_kv"`` decode attention takes the reference's
+explicit path (``decode_attention_split_kv``), in which each seq shard
+of the cache computes the partial softmax stats over its slice and the
+shards combine them with functional all-reduces (max, then sums) over
+the model axis.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.distributed._functional_collectives as fc
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import sharding as SH
@@ -56,17 +60,6 @@ __all__ = ["attention_core", "attn_block", "KVCache", "CrossCache",
            "init_cache", "cache_update", "decode_attention_split_kv"]
 
 NEG_INF = -1e30
-
-
-def _dp_axes(mesh, batch: int):
-    """The mesh's dp axes ("pod", "data") that shard a batch of
-    ``batch``, or None where the batch does not divide their extent (the
-    batch is then replicated, as in the reference)."""
-    sizes = SH.axis_sizes(mesh)
-    dp = tuple(a for a in ("pod", "data") if a in sizes)
-    if batch % max(1, math.prod(sizes[a] for a in dp)) or not dp:
-        return None
-    return dp
 
 
 def _on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -97,7 +90,7 @@ def decode_attention_split_kv(q, k, v, *, kv_valid: int, window: int,
     B, Sq, H, Dh = q.shape
     KV, Dv = k.shape[2], v.shape[-1]
     G = H // KV
-    dp = _dp_axes(mesh, B)
+    dp = SH.dp_axes(mesh, B)
     q_pl = SH.placements(mesh, SH.P(dp, None, None, None))
     kv_pl = SH.placements(mesh, SH.P(dp, axis, None, None))
     group = mesh.get_group(axis)
@@ -192,8 +185,12 @@ def attention_core(
         l_run = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev)
     for c in range(n_chunks):
         start = c * chunk
-        kc = k[:, start:start + chunk].to(acc_dtype)
-        vc = v[:, start:start + chunk].to(acc_dtype)
+        # decode's one chunk is the whole buffer: not sliced, so a
+        # seq-sharded cache stays on its shards
+        kc = (k if chunk == k.shape[1] else k[:, start:start + chunk]).to(
+            acc_dtype)
+        vc = (v if chunk == v.shape[1] else v[:, start:start + chunk]).to(
+            acc_dtype)
         kv_pos = start + torch.arange(chunk, device=dev)
         s = SH.einsum("bqkgd,bckd->bqkgc", qg, kc.float()) * scale
         mask = (kv_pos < kv_valid)[None, :]
@@ -210,6 +207,8 @@ def attention_core(
         acc = acc * corr.to(acc_dtype)[..., None] + SH.einsum(
             "bqkgc,bckd->bqkgd", p.to(acc_dtype), vc)
         m_run = m_new
+        # this chunk's scores freed before the next chunk's are made
+        del s, p
     out = acc.float() / torch.clamp(l_run, min=1e-30)[..., None]
     return SH.reshape(out, B, Sq, H, Dv).to(q.dtype)
 
@@ -260,6 +259,171 @@ def init_cache(cfg: ModelConfig, batch: int, buf_len: int, kv_heads: int,
                    length=0, pos=0, ring=ring)
 
 
+def attn_heads(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+               positions, causal: bool, window: int, angles=None,
+               xa: torch.Tensor | None = None, kv=None, keep_kv: bool = True,
+               acc_dtype: torch.dtype | None = None):
+    """``attn_block`` without a decode cache on a model mesh whose model
+    axis has more than one rank (``sharding.model_split``): a
+    ``local_map`` that keeps the heads on their shards.  The model axis's
+    rank r takes the q heads ``sharding.head_range(H, model, r)`` (at
+    most ceil(H / model); the last ranks fewer or none where the heads
+    do not divide the axis) and the KV heads they read (q head h reads
+    KV head h // G), projects only those (a weight whose model shard
+    holds whole heads of this split, wq/wo where H divides the axis and
+    wk/wv where KV does, is read as its shard; another is gathered over
+    the axis and its heads' columns taken), attends over them with
+    ``attention_core`` on local tensors, and multiplies its heads' rows
+    of wo: the output [B, Sq, D] is ``Partial`` (a sum over the model
+    axis), its batch on the dp axes.  ``kv``: a given (k, v) [B, Skv,
+    KV, Dh] (decode's cross cache) in place of projecting ``xa``;
+    ``acc_dtype``: attention's accumulator (default by
+    ``cfg.attn_acc``).
+
+    With ``keep_kv`` (and no ``kv``) it also returns the new (k, v)
+    placed as the cache's rule axes (("act_batch", "act_seq_cache",
+    "act_kv_cache", None)) place them: each KV head's first reader owns
+    it, and one all-to-all a tensor over the model axis moves the owned
+    heads to the seq chunks (or, where the seq does not divide the axis,
+    to every rank); where KV divides the axis each rank's heads are
+    already its shard.  No rank holds a whole but its heads' q, K, V and
+    scores."""
+    mesh = x.device_mesh
+    dt = cfg.compute_dtype
+    B, Sq, D = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+    mi, M, r = SH.model_axis(mesh)
+    group = mesh.get_group("model")
+    h0, h1 = SH.head_range(H, M, r)
+    nh = h1 - h0
+    g0 = h0 // G
+    g1 = -(-h1 // G) if nh else g0
+    q_whole, kv_whole = H % M == 0, KV % M == 0
+    bat = SH.dp_axes(mesh, B)
+    src = xa if xa is not None else x
+    Skv = (kv[0] if kv is not None else src).shape[1]
+
+    def pl(*spec):
+        return SH.placements(mesh, SH.P(*spec))
+
+    x_pl = pl(bat, None, None)
+    names = ["wq", "wk", "wv", "wo"] + [b for b in ("bq", "bk", "bv")
+                                         if b in params]
+    w_pl = {"wq": pl(None, "model" if q_whole else None),
+            "wo": pl("model" if q_whole else None, None),
+            "bq": pl("model" if q_whole else None)}
+    for n in ("wk", "wv"):
+        w_pl[n] = pl(None, "model" if kv_whole else None)
+    for n in ("bk", "bv"):
+        w_pl[n] = pl("model" if kv_whole else None)
+    if kv is not None:
+        names = [n for n in names if n not in ("wk", "wv", "bk", "bv")]
+    kv_in_pl = pl(bat, None, "model" if kv_whole else None, None)
+    # the new (k, v) leave placed as the cache: seq chunks, whole heads
+    # of this split, or every head on every rank
+    p = SH.logical_placements(
+        ("act_batch", "act_seq_cache", "act_kv_cache", None),
+        (B, Skv, KV, Dh))[mi]
+    mode = ("seq" if p == Shard(1) else "heads" if p == Shard(2)
+            and kv_whole else None)
+    kv_out_pl = pl(bat, "model" if mode == "seq" else None,
+                   "model" if mode == "heads" else None, None)
+    # the KV heads each rank owns: those whose first reader it holds
+    own = []
+    for s in range(M):
+        a, b = SH.head_range(H, M, s)
+        own.append(max(0, (-(-b // G) if b > a else 0) - (-(-a // G))))
+
+    def cols(w, lo, hi, whole, dim=-1):
+        return w if whole else w.narrow(dim, lo * Dh, (hi - lo) * Dh)
+
+    def local(x_l, *rest):
+        rest = list(rest)
+        cos_sin = None
+        if angles is not None:
+            cos_sin = (rest.pop(0), rest.pop(0))
+        xa_l = rest.pop(0) if xa is not None else None
+        kv_l = (rest.pop(0), rest.pop(0)) if kv is not None else None
+        w = dict(zip(names, rest))
+        Bl = x_l.shape[0]
+        q = x_l @ cols(w["wq"], h0, h1, q_whole)
+        if "bq" in w:
+            q = q + cols(w["bq"], h0, h1, q_whole)
+        q = q.reshape(Bl, Sq, nh, Dh)
+        if kv_l is None:
+            s_l = xa_l if xa_l is not None else x_l
+            k = s_l @ cols(w["wk"], g0, g1, kv_whole)
+            v = s_l @ cols(w["wv"], g0, g1, kv_whole)
+            if "bk" in w:
+                k = k + cols(w["bk"], g0, g1, kv_whole)
+                v = v + cols(w["bv"], g0, g1, kv_whole)
+            k = k.reshape(Bl, Skv, g1 - g0, Dh)
+            v = v.reshape(Bl, Skv, g1 - g0, Dh)
+        else:
+            k, v = (t if kv_whole else t[:, :, g0:g1] for t in kv_l)
+        if cfg.pos == "rope" and xa is None and kv is None:
+            q = rope(q, positions, cfg, angles=cos_sin)
+            k = rope(k, positions, cfg, angles=cos_sin)
+        if nh:
+            counts = torch.bincount(
+                torch.arange(h0, h1) // G - g0, minlength=g1 - g0)
+            ka, va = k, v
+            if int(counts.min()) != int(counts.max()):
+                # this rank's heads split the groups unevenly: each q
+                # head reads a copy of its KV head
+                ka = k.repeat_interleave(counts.to(k.device), dim=2)
+                va = v.repeat_interleave(counts.to(v.device), dim=2)
+            acc = acc_dtype or (torch.bfloat16 if cfg.attn_acc == "bf16"
+                                else torch.float32)
+            o = attention_core(
+                q, ka, va, causal=causal, window=window,
+                q_offset=positions[0] if causal else 0, kv_valid=Skv,
+                chunk=cfg.attn_chunk, acc_dtype=acc)
+        else:
+            # no heads here: an empty result that still reads every
+            # input, so that each rank's backward runs the same
+            # collectives
+            o = q + 0 * (k.sum() + v.sum())
+        wo = cols(w["wo"], h0, h1, q_whole, dim=0)
+        out = o.reshape(Bl, Sq, nh * Dh) @ wo
+        if not keep_kv or kv is not None:
+            return out
+        lo = -(-h0 // G) - g0 if nh else 0
+        k_own = k.narrow(2, lo, own[r])
+        v_own = v.narrow(2, lo, own[r])
+        if mode != "heads":
+            seq = M if mode == "seq" else None
+            k_own = SH.exchange(k_own, own, 2, seq, group)
+            v_own = SH.exchange(v_own, own, 2, seq, group)
+        return out, k_own, v_own
+
+    ins, in_pl = [x], [x_pl]
+    if angles is not None:
+        ins += [SH.replicated(a, x) for a in angles]
+        in_pl += [pl(*([None] * a.ndim)) for a in angles]
+    if xa is not None:
+        ins.append(SH.replicated(xa, x))
+        in_pl.append(x_pl)
+    if kv is not None:
+        ins += [SH.replicated(t, x) for t in kv]
+        in_pl += [kv_in_pl] * 2
+    ins += [SH.replicated(params[n], x) for n in names]
+    in_pl += [w_pl[n] for n in names]
+    out_pl = tuple(Partial() if i == mi else p for i, p in enumerate(x_pl))
+    outs = [out_pl] if not keep_kv or kv is not None else \
+        [out_pl, kv_out_pl, kv_out_pl]
+    res = local_map(local, out_placements=tuple(outs) if len(outs) > 1
+                    else list(outs[0]),
+                    in_placements=tuple(in_pl),
+                    in_grad_placements=tuple(SH.summed_grads(mesh, p)
+                                             for p in in_pl),
+                    device_mesh=mesh, redistribute_inputs=True)(*ins)
+    if not keep_kv or kv is not None:
+        return res, None
+    return res[0], (res[1], res[2])
+
+
 def _sharded_slot_update(buf: torch.Tensor, new_row: torch.Tensor,
                          slot: int, mesh, axis: str = "model") -> torch.Tensor:
     """Owner-writes update of a seq-sharded buffer [..., B, S_buf, ...]
@@ -274,7 +438,7 @@ def _sharded_slot_update(buf: torch.Tensor, new_row: torch.Tensor,
     ``slot`` is a host integer, so only the owner writes, and the buffer
     equals the plain write's bit for bit."""
     lead = (None,) * (buf.ndim - 4)
-    dp = _dp_axes(mesh, buf.shape[-4])
+    dp = SH.dp_axes(mesh, buf.shape[-4])
     b_pl = SH.placements(mesh, SH.P(*lead, dp, axis, None, None))
     n_pl = SH.placements(mesh, SH.P(*lead, dp, None, None, None))
 
@@ -291,6 +455,16 @@ def _sharded_slot_update(buf: torch.Tensor, new_row: torch.Tensor,
                     redistribute_inputs=True)(
         buf, _on_mesh(new_row, mesh))
     return buf if tuple(buf.placements) == b_pl else out
+
+
+def _seq_sharded(cache_k: torch.Tensor, mesh) -> bool:
+    """Whether a decode cache buffer [..., B, S_buf, KV, Dh] is a DTensor
+    whose seq dim the mesh's model axis shards (as
+    ``launch.specs.cache_shardings`` places it)."""
+    if not isinstance(cache_k, DTensor) or not _owner_writes(cache_k, mesh):
+        return False
+    mi = tuple(mesh.mesh_dim_names).index("model")
+    return cache_k.placements[mi] == Shard(cache_k.ndim - 3)
 
 
 def _owner_writes(cache_k: torch.Tensor, mesh) -> bool:
@@ -331,20 +505,42 @@ def attn_block(
     cache: KVCache | None = None,
     angles=None,                  # layers.rope_angles of ``positions``
     xa: torch.Tensor | None = None,   # cross-attention source [B, Se, D]
+    keep_kv: bool = True,         # return prefill's new (k, v)
 ):
     """Full GQA block: qkv proj, rope, core, out proj.
 
     Returns (out [B,Sq,D], new_cache): in prefill (and with ``xa``) the
-    new (k, v), in decode the updated cache.
+    new (k, v) (None without ``keep_kv``), in decode the updated cache.
+    On the model mesh, train and prefill run ``attn_heads``; decode
+    takes a seq-sharded cache as it is: the token's q, k and v are
+    gathered over the model axis (a [B, 1, H, Dh] view gathers no
+    heads), the owner of the slot writes it, and attention contracts
+    over the cache's seq shards (``sharding.einsum``).
     """
     dt = cfg.compute_dtype
     B, Sq, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    mesh = SH.current_mesh()
+    if (cache is None or xa is not None) and SH.model_split(x):
+        return attn_heads(params, cfg, x, positions=positions,
+                          causal=causal and xa is None, window=window,
+                          angles=angles, xa=xa, keep_kv=keep_kv)
+    seq_cache = (cache is not None and xa is None
+                 and _seq_sharded(cache.k, mesh))
+
+    def heads_whole(t):
+        # a decode step's [B, 1, heads x Dh] gathered over the model
+        # axis, so that its view into heads gathers nothing
+        if not seq_cache or not isinstance(t, DTensor):
+            return t
+        return SH.redistribute(t, tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == t.ndim - 1
+            else p for p in t.placements))
 
     q = x @ params["wq"].to(dt)
     if "bq" in params:
         q = q + params["bq"].to(dt)
-    q = SH.reshape(q, B, Sq, H, Dh)
+    q = SH.reshape(heads_whole(q), B, Sq, H, Dh)
     kv_src = xa if xa is not None else x
     Skv = kv_src.shape[1]
     k = kv_src @ params["wk"].to(dt)
@@ -352,8 +548,8 @@ def attn_block(
     if "bk" in params:
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    k = SH.reshape(k, B, Skv, KV, Dh)
-    v = SH.reshape(v, B, Skv, KV, Dh)
+    k = SH.reshape(heads_whole(k), B, Skv, KV, Dh)
+    v = SH.reshape(heads_whole(v), B, Skv, KV, Dh)
 
     if cfg.pos == "rope" and xa is None:
         q = rope(q, positions, cfg, angles=angles)
@@ -361,13 +557,14 @@ def attn_block(
 
     acc = torch.bfloat16 if cfg.attn_acc == "bf16" else torch.float32
     if cache is not None and xa is None:
-        mesh = SH.current_mesh() if cfg.decode_attn == "split_kv" else None
-        new_cache = cache_update(cache, k, v, sharded_axis_mesh=mesh)
+        split = cfg.decode_attn == "split_kv"
+        new_cache = cache_update(cache, k, v, sharded_axis_mesh=mesh
+                                 if split or seq_cache else None)
         # linear cache: slot == absolute position, so the window mask
         # applies; ring cache: the buffer is the window, and positions
         # in it are not absolute, so the mask stays off
         w_eff = 0 if cache.ring else window
-        if _owner_writes(new_cache.k, mesh):
+        if split and _owner_writes(new_cache.k, mesh):
             out = decode_attention_split_kv(
                 q, new_cache.k, new_cache.v, kv_valid=new_cache.length,
                 window=w_eff, q_pos=new_cache.pos - 1, mesh=mesh)
@@ -377,7 +574,8 @@ def attn_block(
                 q_offset=new_cache.pos - 1, kv_valid=new_cache.length,
                 chunk=cfg.attn_chunk, acc_dtype=acc)
     else:
-        new_cache = (k, v)   # prefill: the stack builds the cache from it
+        # prefill: the stack builds the cache from it
+        new_cache = (k, v) if keep_kv else None
         out = attention_core(
             q, k, v, causal=causal and xa is None, window=window,
             q_offset=positions[0] if causal else 0, kv_valid=Skv,

@@ -23,6 +23,11 @@ diagonal before ``exp``: the forward's values are the same bit for bit,
 and the backward is the true derivative of the same function, finite
 where the reference's is NaN.
 
+On a model mesh whose model axis has more than one rank, train and
+prefill run ``ssm_heads``: each rank its SSM heads' columns of in_proj,
+their channels of the conv, the SSD over them and its rows of
+out_proj, the gated norm's mean of squares summed over the axis.
+
 The decode cache is written in place, as ``attention.KVCache`` is: a
 decode step stores the new conv tail and state into the cache's buffers
 (a layer's view of a stacked cache) and returns an ``SSMCache`` over
@@ -34,7 +39,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
@@ -103,10 +109,18 @@ def _causal_conv(params, cfg: ModelConfig, xBC, conv_state=None):
     return F.silu(y + b), new_state
 
 
-def _gated_norm(params, cfg: ModelConfig, y, z):
-    """Mamba2 output: RMSNorm(y * silu(z)) with learned scale."""
+def _gated_norm(params, cfg: ModelConfig, y, z, group=None):
+    """Mamba2 output: RMSNorm(y * silu(z)) with learned scale.  With
+    ``group``, ``y`` and ``z`` hold this rank's heads' channels (and
+    ``params["norm"]`` their scales): the mean of squares over all
+    ``cfg.d_inner_ssm`` channels sums the ranks' sums over the group."""
     gf = (y * F.silu(z)).float()
-    out = gf * torch.rsqrt(gf.square().mean(-1, keepdim=True) + 1e-6)
+    if group is None:
+        ms = gf.square().mean(-1, keepdim=True)
+    else:
+        ms = SH.all_reduce_sum(gf.square().sum(-1, keepdim=True), group,
+                               sum_grads=True) / cfg.d_inner_ssm
+    out = gf * torch.rsqrt(ms + 1e-6)
     return (out * params["norm"].float()).to(y.dtype)
 
 
@@ -181,20 +195,136 @@ def _ssd_chunked(cfg: ModelConfig, xh, dtv, A, Bm, Cm, init_state=None):
     return y, st
 
 
+def _conv_tail(xBC_pre, w1: int):
+    """The trailing ``w1`` pre-conv rows [B, w1, ch] (left-padded with
+    zeros when S < w1), copied: a view would keep the whole in_proj
+    output alive."""
+    S = xBC_pre.shape[1]
+    conv = (xBC_pre[:, S - w1:] if S >= w1
+            else SH.pad(xBC_pre, (0, 0, w1 - S, 0)))
+    return conv.to(xBC_pre.dtype, copy=True)
+
+
+def ssm_heads(params: dict, cfg: ModelConfig, x: torch.Tensor,
+              keep_cache: bool = True):
+    """``ssm_block`` without a cache on a model mesh whose model axis has
+    more than one rank (``sharding.model_split``): a ``local_map`` that
+    keeps the SSM heads on their shards.  The model axis's rank r
+    takes the heads ``sharding.head_range(H, model, r)`` (torch.chunk's
+    split: where H does not divide the axis the last ranks hold fewer or
+    none) and projects only their columns of in_proj (z, x and dt of its
+    heads, the shared B and C: the weight's columns are split, not its
+    output), convolves their channels, runs the SSD over them and the
+    gated norm (the mean of squares over all heads: one all-reduce of
+    [B, S, 1] over the model axis), and multiplies its heads' rows of
+    out_proj: the output [B, S, D] is ``Partial`` over the model axis.
+    With ``keep_cache`` it also returns the ``SSMCache`` placed as the
+    cache's rule axes place it: the state's heads on their shards
+    where H divides the axis, else gathered (one all-to-all of the
+    heads' states); the conv tail's channel shard (or the whole tail)
+    projected from the last w - 1 rows."""
+    mesh = x.device_mesh
+    dt = cfg.compute_dtype
+    B, S, _ = x.shape
+    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    di, w1 = cfg.d_inner_ssm, cfg.ssm_conv - 1
+    ch = di + 2 * N
+    mi, M, r = SH.model_axis(mesh)
+    group = mesh.get_group("model")
+    h0, h1 = SH.head_range(H, M, r)
+    nh = h1 - h0
+    whole = H % M == 0
+    bat = SH.dp_axes(mesh, B)
+
+    def pl(*spec):
+        return SH.placements(mesh, SH.P(*spec))
+
+    names = ["in_proj", "conv_w", "conv_b", "dt_bias", "a_log", "d_skip",
+             "norm", "out_proj"]
+    w_pl = {n: pl(*([None] * params[n].ndim)) for n in names}
+    w_pl["out_proj"] = pl("model" if whole else None, None)
+    state_pl = SH.logical_placements(("act_batch", "act_ssm_heads", None,
+                                      None), (B, H, Pd, N))
+    conv_pl = SH.logical_placements(("act_batch", None, "act_mlp"),
+                                    (B, w1, ch))
+    state_split = state_pl[mi] == Shard(1)
+    conv_split = conv_pl[mi] == Shard(2)
+    x_pl = pl(bat, None, None)
+    out_pls = [tuple(Partial() if i == mi else p for i, p in enumerate(x_pl))]
+    if keep_cache:
+        out_pls += [pl(bat, None, "model" if conv_split else None),
+                    pl(bat, "model" if state_split else None, None, None)]
+    own = [SH.head_range(H, M, s)[1] - SH.head_range(H, M, s)[0]
+           for s in range(M)]
+    # this rank's channels of xBC (its heads' x, then B and C) and of
+    # in_proj (its heads' z, xBC and dt)
+    x_ch = [(h0 * Pd, h1 * Pd), (di, ch)]
+    in_cols = [(h0 * Pd, h1 * Pd)] + [(di + a, di + b) for a, b in x_ch] \
+        + [(di + ch + h0, di + ch + h1)]
+
+    def take(w, spans, dim=-1):
+        return torch.cat([w.narrow(dim, a, b - a) for a, b in spans], dim)
+
+    def local(x_l, *ws):
+        w = dict(zip(names, ws))
+        Bl = x_l.shape[0]
+        proj = x_l @ take(w["in_proj"], in_cols)
+        z, xBC, dt_raw = proj.split([nh * Pd, nh * Pd + 2 * N, nh], dim=-1)
+        dtv = _softplus(dt_raw.float() + w["dt_bias"][h0:h1].float())
+        A_ = -torch.exp(w["a_log"][h0:h1].float())
+        d_skip = w["d_skip"][h0:h1].float()
+        conv = {"conv_w": take(w["conv_w"], x_ch),
+                "conv_b": take(w["conv_b"], x_ch)}
+        xBC_c, _ = _causal_conv(conv, cfg, xBC)
+        xs, Bm, Cm = xBC_c.split([nh * Pd, N, N], dim=-1)
+        xh = xs.reshape(Bl, S, nh, Pd)
+        y, final = _ssd_chunked(cfg, xh, dtv, A_, Bm, Cm)
+        y = y + d_skip[None, None, :, None] * xh.float()
+        y = y.reshape(Bl, S, nh * Pd).to(dt)
+        norm = {"norm": take(w["norm"], x_ch[:1])}
+        wo = w["out_proj"] if whole else take(w["out_proj"], x_ch[:1], 0)
+        out = _gated_norm(norm, cfg, y, z, group) @ wo
+        if not keep_cache:
+            return out
+        # the conv tail's channels as the cache places them, projected
+        # from the last w - 1 rows
+        c0, c1 = (r * ch // M, (r + 1) * ch // M) if conv_split else (0, ch)
+        rows = x_l[:, max(0, S - w1):]
+        tail = _conv_tail(rows @ w["in_proj"][:, di + c0:di + c1], w1)
+        if not state_split:
+            final = SH.exchange(final, own, 1, None, group)
+        return out, tail, final
+
+    res = local_map(local, out_placements=tuple(out_pls) if keep_cache
+                    else list(out_pls[0]),
+                    in_placements=(x_pl, *[w_pl[n] for n in names]),
+                    in_grad_placements=(SH.summed_grads(mesh, x_pl), *[
+                        SH.summed_grads(mesh, w_pl[n]) for n in names]),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        x, *[SH.replicated(params[n], x) for n in names])
+    if not keep_cache:
+        return res, None
+    return res[0], SSMCache(conv=res[1], state=res[2])
+
+
 def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
-              cache: SSMCache | None = None):
+              cache: SSMCache | None = None, keep_cache: bool = True):
     """Full Mamba2 block: in_proj, conv, SSD, gated norm, out_proj.
 
     Returns (out [B,S,D], cache): without ``cache`` (train, prefill) a
     new ``SSMCache`` ready for decode (conv tail = the trailing pre-conv
-    inputs, left-padded with zeros when S < w - 1; the final state);
-    with it (decode, S == 1) the same cache, updated in place.
+    inputs, left-padded with zeros when S < w - 1; the final state;
+    None without ``keep_cache``); with it (decode, S == 1) the same
+    cache, updated in place.  On the model mesh train and prefill run
+    ``ssm_heads``.
     """
     dt = cfg.compute_dtype
     B, S, _ = x.shape
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = cfg.d_inner_ssm
     w1 = cfg.ssm_conv - 1
+    if cache is None and SH.model_split(x):
+        return ssm_heads(params, cfg, x, keep_cache)
 
     z, xBC, dt_raw = _split_proj(params, cfg, x)
     dtv = _softplus(dt_raw.float() + params["dt_bias"].float())
@@ -210,10 +340,9 @@ def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         y = y + d_skip[None, None, :, None] * xh.float()
         y = SH.reshape(y, B, S, di).to(dt)
         out = _gated_norm(params, cfg, y, z) @ params["out_proj"].to(dt)
-        conv = (xBC_pre[:, S - w1:] if S >= w1
-                else SH.pad(xBC_pre, (0, 0, w1 - S, 0)))
-        # a copy: a view would keep the whole in_proj output alive
-        return out, SSMCache(conv=conv.to(dt, copy=True), state=final)
+        if not keep_cache:
+            return out, None
+        return out, SSMCache(conv=_conv_tail(xBC_pre, w1), state=final)
 
     # ---- decode: O(1) recurrent update (S == 1) ----
     xBC_c, new_conv = _causal_conv(params, cfg, xBC, cache.conv)

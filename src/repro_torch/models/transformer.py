@@ -17,14 +17,18 @@ Under the model mesh (``sharding.use_mesh_rules``, params placed as
 DTensors by ``launch.specs``) the same code runs on DTensors: ``shard``
 marks the activations at the reference's eight sites (a no-op without a
 mesh), the tensors made inside the forward (positions' RoPE angles, the
-zero ``aux``, a plain token batch) follow the mesh replicated, and a
-decode step's cache writes run on replicated operands
-(``sharding.assign``), so the stacked caches are restacked from the
-layers' results (``_restacked``) where the plain path writes them in
-place.  The reference's explicit collectives run where its config asks
-for them: with ``decode_attn="split_kv"`` the owner of a slot writes it
-in place (nothing is restacked) and decode attention combines partial
-stats across the seq shards (``models.attention``); with ``moe_impl =
+zero ``aux``) follow the mesh replicated, and the tokens are looked up
+on their batch shards (``embed_lookup``, vocab-parallel over the model
+axis).  Where the model axis splits the heads, attention and the SSD
+keep each rank's heads (``attention.attn_heads``, ``ssm.ssm_heads``)
+and prefill's new caches leave placed as the decode cache; a decode
+step writes a seq-sharded cache in place, its slot's owner only, and
+other DTensor caches on replicated operands (``sharding.assign``), so
+those are restacked from the layers' results (``_restacked``) where
+the plain path writes them in place.  The reference's explicit
+collectives run where its config asks for them: with
+``decode_attn="split_kv"`` decode attention combines partial stats
+across the seq shards (``models.attention``); with ``moe_impl =
 "alltoall"`` the MoE layer passes the mesh and its dp axes to
 ``moe_ffn``, which exchanges expert buckets with all-to-alls
 (``models.moe``).
@@ -79,7 +83,8 @@ import functools
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import sharding as SH
@@ -103,6 +108,7 @@ __all__ = [
     "prefill",
     "decode_step",
     "init_decode_caches",
+    "embed_lookup",
 ]
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -239,11 +245,12 @@ class Attention(Weights):
         self.window = window
         self.causal = causal
 
-    def forward(self, x, *, positions, cache=None, angles=None, xa=None):
+    def forward(self, x, *, positions, cache=None, angles=None, xa=None,
+                keep_kv: bool = True):
         return attn_mod.attn_block(
             self.weights, self.cfg, x, positions=positions,
             causal=self.causal, window=self.window, cache=cache,
-            angles=angles, xa=xa)
+            angles=angles, xa=xa, keep_kv=keep_kv)
 
 
 class MLA(Weights):
@@ -284,8 +291,9 @@ class SSM(Weights):
         super().__init__(params, cfg.compute_dtype, device)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, cache=None):
-        return ssm_mod.ssm_block(self.weights, self.cfg, x, cache=cache)
+    def forward(self, x: torch.Tensor, cache=None, keep_cache: bool = True):
+        return ssm_mod.ssm_block(self.weights, self.cfg, x, cache=cache,
+                                 keep_cache=keep_cache)
 
 
 def _fuse_paths(gains: dict, a_out: torch.Tensor,
@@ -311,6 +319,12 @@ def _cross_from_cache(params: dict, cfg: ModelConfig, x: torch.Tensor,
     dt = cfg.compute_dtype
     B, Sq, _ = x.shape
     H, Dh = cfg.n_heads, cfg.d_head
+    if SH.model_split(x):
+        # each rank its heads of q and of the cross cache
+        out, _ = attn_mod.attn_heads(params, cfg, x, positions=None,
+                                     causal=False, window=0, kv=(ck, cv),
+                                     acc_dtype=torch.float32)
+        return out
     q = x @ params["wq"].to(dt)
     if "bq" in params:
         q = q + params["bq"].to(dt)
@@ -340,7 +354,7 @@ class EncoderLayer(nn.Module):
         self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
 
     def forward(self, x, *, positions):
-        a, _ = self.attn(self.norm1(x), positions=positions)
+        a, _ = self.attn(self.norm1(x), positions=positions, keep_kv=False)
         x = x + a
         return x + self.mlp(self.norm2(x))
 
@@ -366,8 +380,8 @@ class Encoder(nn.Module):
         """frames [B, Se, D] -> the encoder's output [B, Se, D]."""
         x = SH.replicated(frames, self.pos).to(device=self.pos.device,
                                               dtype=self.cfg.compute_dtype)
-        x = x + self.pos[: x.shape[1]]
         x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
+        x = x + _whole(self.pos[: x.shape[1]])
         positions = torch.arange(x.shape[1], device=x.device)
         for layer in self.layers:
             x = layer(x, positions=positions)
@@ -411,10 +425,12 @@ class DecoderLayer(nn.Module):
                 self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
 
     def forward(self, x, *, positions, cache=None, angles=None,
-                enc_out=None):
+                enc_out=None, keep_new: bool = True):
         """``cache``: the layer's {"attn": ..., "ssm": ..., "cross": ...}
         in decode, else None; ``enc_out``: the encoder's output, which
-        the cross-attention reads where the cache has no "cross".
+        the cross-attention reads where the cache has no "cross";
+        ``keep_new``: without it a layer without a cache makes no new
+        caches (None in their place: the train forward drops them).
         Returns (x', new, aux): ``new`` has the layer's "attn" (the new
         (k, v) (MLA: (ckv, k_rope)) without a cache, else the updated
         cache), "ssm" (an ``SSMCache``) and "cross" (the new cross
@@ -425,16 +441,21 @@ class DecoderLayer(nn.Module):
         new = {}
         h = SH.shard(self.norm1(x), ("act_batch", "act_seq", "act_embed"))
         if self.attn is not None:
+            kw = {} if self.cfg.use_mla else {"keep_kv": keep_new}
             a, new["attn"] = self.attn(h, positions=positions,
-                                       cache=cache.get("attn"), angles=angles)
+                                       cache=cache.get("attn"), angles=angles,
+                                       **kw)
         if self.ssm is not None:
-            s, new["ssm"] = self.ssm(h, cache=cache.get("ssm"))
+            s, new["ssm"] = self.ssm(h, cache=cache.get("ssm"),
+                                     keep_cache=keep_new)
         if self.attn is None:
             x = x + s
         elif self.ssm is None:
             x = x + a
         else:
             x = x + _fuse_paths(self.fuse.weights, a, s)
+        # the paths' input and outputs freed before the next norm
+        h = a = s = None
         if self.cross is not None:
             hc = self.norm_cross(x)
             cc = cache.get("cross")
@@ -446,8 +467,9 @@ class DecoderLayer(nn.Module):
                 raise _needs_frames(self.cfg)
             else:
                 c, new["cross"] = self.cross(hc, positions=positions,
-                                             xa=enc_out)
+                                             xa=enc_out, keep_kv=keep_new)
             x = x + c
+            hc = c = None
         x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
         if self.norm2 is None:
             return x, new, None
@@ -490,14 +512,18 @@ class Transformer(nn.Module):
         return self.embed.tokens.device
 
     def embed_input(self, tokens, prefix_embeds=None) -> torch.Tensor:
-        """tokens [B, St] (+ prefix embeds [B, Pfx, D]) -> [B, S, D]."""
+        """tokens [B, St] (+ prefix embeds [B, Pfx, D]) -> [B, S, D]; on
+        the model mesh on the batch shards (``embed_lookup``), the
+        prefix and the learned positions' rows placed alike."""
         table = _one_use(self.embed.tokens)
-        x = table[SH.replicated(tokens, table).to(self.device)]
+        x = embed_lookup(table, tokens)
         if prefix_embeds is not None:
-            x = torch.cat([SH.replicated(prefix_embeds, x).to(
-                device=x.device, dtype=x.dtype), x], dim=1)
+            pfx = SH.replicated(prefix_embeds, x).to(device=x.device,
+                                                     dtype=x.dtype)
+            pfx = SH.shard(pfx, ("act_batch", "act_seq", "act_embed"))
+            x = torch.cat([pfx, x], dim=1)
         if self.cfg.pos == "learned":
-            x = x + self.embed.pos[: x.shape[1]]
+            x = x + _whole(self.embed.pos[: x.shape[1]])
         return x
 
     def encode(self, frames) -> torch.Tensor:
@@ -549,7 +575,8 @@ def _run_layers(layers, cfg: ModelConfig, x, *, positions, caches=None,
         ins.append(cache)
         call = _remat(layer, cfg) if remat else layer
         x, new, a = call(x, positions=positions, cache=cache,
-                         angles=angles, enc_out=enc_out)
+                         angles=angles, enc_out=enc_out,
+                         keep_new=keep_new or caches is not None)
         if a is not None:
             aux = a if aux is None else aux + a
         if keep_new or caches is not None:
@@ -596,6 +623,78 @@ def _one_use(w: torch.Tensor) -> torch.Tensor:
     if not isinstance(w, DTensor):
         return w
     return SH.redistribute(w, w.placements)
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A weight's rows (learned positions) gathered to every rank, as
+    every use of a weight gathers its FSDP dim; a plain tensor as it
+    is."""
+    if not isinstance(w, DTensor):
+        return w
+    return SH.redistribute(w, [Replicate()] * w.device_mesh.ndim)
+
+
+def embed_lookup(table: torch.Tensor, tokens) -> torch.Tensor:
+    """``table[tokens]``, [B, S] ids -> [B, S, D].  On the model mesh a
+    vocab-parallel lookup, the mirror of the loss's
+    (``runtime.training.vocab_parallel_ce``): a ``local_map`` over the
+    mesh in which each rank of the model axis looks up the ids in its
+    vocab shard and writes zero elsewhere, and one all-reduce over the
+    model axis adds the shards (one value and zeros at each position:
+    the plain lookup bit for bit); the backward is each shard's own
+    index-add.  Of two placements it takes the one that moves fewer
+    bytes: a batch of more tokens than the table's local rows (train,
+    prefill) is placed by ("act_batch", "act_seq") and the table's FSDP
+    dim gathered, as every use of a weight gathers it, so that no rank
+    holds more than its batch shard; a smaller one (decode) reads the
+    table as it is placed, its FSDP dim split, with every token on every
+    rank, and its rows then cross the data axis.  The output is placed
+    by ("act_batch", "act_seq", "act_embed").  A vocab the rules
+    replicate takes the plain lookup."""
+    mesh = SH.current_mesh()
+    if not isinstance(table, DTensor) or mesh is None:
+        return table[SH.replicated(tokens, table).to(table.device)]
+    if not isinstance(tokens, DTensor):
+        tokens = tokens.to(table.device)
+    tokens = SH.shard(tokens, ("act_batch", "act_seq"))
+    mi, M, _ = SH.model_axis(mesh)
+    split = M > 1 and table.placements[mi] == Shard(0)
+    vocab = tuple(Shard(0) if i == mi and split else Replicate()
+                  for i in range(mesh.ndim))
+    rows, width = table.to_local().shape
+    if tokens.numel() * width < rows * table.shape[1]:
+        tab_pl = tuple(v if i == mi else p
+                       for i, (v, p) in enumerate(zip(vocab,
+                                                      table.placements)))
+        tok_pl = (Replicate(),) * mesh.ndim
+        out_pl = tuple(Shard(2) if p == Shard(1) else Replicate()
+                       for p in tab_pl)
+        grad_pl = tab_pl       # every token on every rank: whole blocks
+    else:
+        dp = SH.dp_axes(mesh, tokens.shape[0])
+        tab_pl = vocab
+        tok_pl = SH.placements(mesh, SH.P(dp, None))
+        out_pl = SH.placements(mesh, SH.P(dp, None, None))
+        # each batch shard's rows are a summand of the table's gradient
+        grad_pl = tuple(Partial() if t.is_shard() else p
+                        for p, t in zip(tab_pl, tok_pl))
+    group = mesh.get_group("model") if split else None
+
+    def local(tab, ids):
+        if not split:
+            return tab[ids]
+        V = tab.shape[0]
+        off = mesh.get_local_rank("model") * V
+        own = (ids >= off) & (ids < off + V)
+        x = tab[torch.where(own, ids - off, 0)]
+        return SH.all_reduce_sum(torch.where(own[..., None], x, 0), group,
+                                 sum_grads=False)
+
+    x = local_map(local, out_placements=list(out_pl),
+                  in_placements=(tab_pl, tok_pl),
+                  in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                  redistribute_inputs=True)(table, tokens)
+    return SH.shard(x, ("act_batch", "act_seq", "act_embed"))
 
 
 def _zero_aux(like: torch.Tensor) -> torch.Tensor:
@@ -867,10 +966,9 @@ def decode_step(params, cfg: ModelConfig, caches: dict, token, pos):
     in place (``models.attention``, ``models.ssm``)."""
     model = build(params, cfg)
     pos = int(pos)
-    table = model.embed.tokens
-    x = table[SH.replicated(token, table).to(model.device)[:, None]]
+    x = embed_lookup(model.embed.tokens, token[:, None])
     if cfg.pos == "learned":
-        x = x + model.embed.pos[min(max(pos, 0), cfg.max_seq - 1)]
+        x = x + _whole(model.embed.pos[min(max(pos, 0), cfg.max_seq - 1)])
     x, caches, _ = model.run_stack(
         x, positions=_positions(pos, 1, x.device), caches=caches)
     return model.unembed(model.norm_f(x))[:, 0], caches

@@ -46,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as fc
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["DEFAULT_RULES", "FALLBACKS", "FLEET_AXIS", "NamedSharding", "P",
@@ -389,19 +390,59 @@ def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
     return _Reshape.apply(x, shape)
 
 
+def logical_placements(axes: tuple, shape) -> Optional[tuple]:
+    """The placements ``shard(x, axes)`` gives a tensor of ``shape`` on
+    the active mesh by the active rules; None without a mesh."""
+    ctx = _ACTIVE.get()
+    if ctx is None or ctx.mesh is None:
+        return None
+    return placements(ctx.mesh, logical_to_pspec(ctx.mesh, ctx.rules, axes,
+                                                 tuple(shape)))
+
+
+def _einsum_plan(subs: list, out: str, ops: list, mesh) -> dict:
+    """{mesh dim: the letter it shards} of ``einsum``: on each mesh dim
+    of more than one rank, of the letters some operand shards there, the
+    one that gathers the fewest bytes (the operands sharded there by
+    another letter are gathered); on a tie an output letter before a
+    contracted one, then the first operand's."""
+    plan = {}
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            continue
+        held = []                  # (sub, local bytes, letter sharded)
+        for sub, o in zip(subs, ops):
+            p = o.placements[i]
+            loc = o.to_local()
+            held.append((sub, loc.numel() * loc.element_size(),
+                         sub[p.dim] if isinstance(p, Shard) else None))
+        cands = list(dict.fromkeys(c for _, _, c in held if c is not None))
+        if not cands:
+            continue
+
+        def cost(c):
+            moved = sum(b for _, b, s in held if s is not None and s != c)
+            return (moved, c not in out, cands.index(c))
+        plan[i] = min(cands, key=cost)
+    return plan
+
+
 def einsum(equation: str, *operands) -> torch.Tensor:
     """``torch.einsum``; on DTensors as a ``local_map``: each mesh dim
-    that shards an output letter of some operand shards that letter in
-    every operand that has it (a local chunk where one holds it whole),
-    every other dim of the mesh is gathered, and each rank runs the
-    einsum on its local tensors; the gradient of an operand without such
-    a letter is ``Partial`` on that mesh dim (each rank's sum over its
-    shard of the letter).  DTensor's own einsum flattens groups
-    of dims into views that may hold a sharded dim inside, which it
-    splits chunk by chunk (a strided shard) or refuses; the local
-    einsum needs no view of a DTensor, and its backward is the local
-    einsum's.  A gather of a sharded dim counts in
-    ``FALLBACKS["einsum"]``."""
+    shards one letter of those some operand shards there
+    (``_einsum_plan``: the one that gathers least) in every operand
+    that has it (a local chunk where one holds it whole), every other
+    dim of the mesh is gathered, and each rank runs the einsum on its
+    local tensors.  Where the letter is contracted the result is
+    ``Partial`` (each rank's sum over its shard of the letter), reduced
+    where the next op needs it: decode's ``p . v`` over a seq-sharded
+    cache reduces [B, 1, H, Dv] and gathers no cache.  The gradient of
+    an operand without the letter is ``Partial`` on that mesh dim.
+    DTensor's own einsum flattens groups of dims into views that may
+    hold a sharded dim inside, which it splits chunk by chunk (a strided
+    shard) or refuses; the local einsum needs no view of a DTensor, and
+    its backward is the local einsum's.  A gather of a sharded dim
+    counts in ``FALLBACKS["einsum"]``."""
     if not any(isinstance(o, DTensor) for o in operands):
         return torch.einsum(equation, *operands)
     like = next(o for o in operands if isinstance(o, DTensor))
@@ -409,15 +450,7 @@ def einsum(equation: str, *operands) -> torch.Tensor:
     ops = [replicated(o, like) for o in operands]
     ins, out = equation.split("->")
     subs = ins.split(",")
-    plan = {}                      # mesh dim -> the letter it shards
-    for i, n in enumerate(mesh.shape):
-        if n == 1:
-            continue
-        for sub, o in zip(subs, ops):
-            p = o.placements[i]
-            if isinstance(p, Shard) and sub[p.dim] in out:
-                plan[i] = sub[p.dim]
-                break
+    plan = _einsum_plan(subs, out, ops, mesh)
     local = []
     for sub, o in zip(subs, ops):
         pl = tuple(Shard(sub.index(plan[i])) if i in plan and plan[i] in sub
@@ -431,8 +464,9 @@ def einsum(equation: str, *operands) -> torch.Tensor:
                      for i, p in enumerate(pl))
         local.append(o.redistribute(mesh, pl).to_local(grad_placements=grad))
     y = torch.einsum(equation, *local)
-    out_pl = tuple(Shard(out.index(plan[i])) if i in plan else Replicate()
-                   for i in range(mesh.ndim))
+    out_pl = tuple(Replicate() if i not in plan
+                   else Shard(out.index(plan[i])) if plan[i] in out
+                   else Partial() for i in range(mesh.ndim))
     if not plan:
         return DTensor.from_local(y, mesh, out_pl, run_check=False)
     size = {c: d for sub, o in zip(subs, ops) for c, d in zip(sub, o.shape)}
@@ -550,6 +584,112 @@ def shard(x: torch.Tensor, axes: tuple):
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, _all_replicated(mesh), run_check=False)
     return redistribute(x, pl)
+
+
+# ---------------------------------------------------------------------------
+# the model axis's explicit collectives: the local_maps that split the
+# heads (models.attention, models.ssm) and the vocab (the lookup)
+# ---------------------------------------------------------------------------
+
+def model_axis(mesh) -> tuple:
+    """(mesh dim index of "model", its size, this rank on it); (None, 1,
+    0) where the mesh has no model axis."""
+    names = tuple(mesh.mesh_dim_names)
+    if "model" not in names:
+        return None, 1, 0
+    i = names.index("model")
+    return i, mesh.size(i), mesh.get_local_rank("model")
+
+
+def model_split(x) -> bool:
+    """Whether ``x`` is a DTensor under the model mesh whose model axis
+    has more than one rank (the head-split blocks run there; on a model
+    axis of one rank every head is local, and the blocks' DTensor ops
+    gather nothing)."""
+    mesh = current_mesh()
+    return (isinstance(x, DTensor) and mesh is not None
+            and model_axis(mesh)[1] > 1)
+
+
+def dp_axes(mesh, batch: int):
+    """The mesh's dp axes ("pod", "data") that shard a batch of
+    ``batch``, or None where the batch does not divide their extent (the
+    batch is then replicated, as in the reference)."""
+    sizes = axis_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    if batch % max(1, math.prod(sizes[a] for a in dp)) or not dp:
+        return None
+    return dp
+
+
+def head_range(n_heads: int, size: int, rank: int) -> tuple[int, int]:
+    """Heads [h0, h1) of ``rank`` when ``n_heads`` split over ``size``
+    ranks as ``torch.chunk`` (and DTensor's ``Shard``) splits a dim:
+    ceil(n_heads / size) a rank, the last ranks short or empty."""
+    c = -(-n_heads // size)
+    h0 = min(n_heads, rank * c)
+    return h0, min(n_heads, h0 + c)
+
+
+def summed_grads(mesh, pl) -> tuple:
+    """The gradient placements of a ``local_map`` input placed ``pl``
+    whose local use on each rank is one summand: ``Partial`` where it is
+    replicated."""
+    return tuple(Partial() if q.is_replicate() and n > 1 else q
+                 for q, n in zip(pl, mesh.shape))
+
+
+def exchange(t: torch.Tensor, own: list, dim: int, seq: int | None,
+             group) -> torch.Tensor:
+    """This rank's owned heads ``t`` [B, S, n_own, ...] (head dim
+    ``dim``) made whole over the model group, where rank s owns
+    ``own[s]`` heads in rank order: with ``seq`` the group's ranks, rank
+    j receives seq chunk j of every rank's heads ([B, S / seq, sum(own),
+    ...]); without it every rank receives all of them.  One
+    ``all_to_all_single`` (functional, with autograd)."""
+    M = len(own)
+    if seq:
+        parts = t.unflatten(1, (M, t.shape[1] // M)).movedim(1, 0)
+    else:
+        parts = t.unsqueeze(0).expand((M,) + tuple(t.shape))
+    shape = list(parts.shape[1:])
+    shape[dim] = 1
+    row = math.prod(shape)                 # elements of one head a part
+    got = fc.all_to_all_single_autograd(
+        parts.contiguous().reshape(-1), [row * n for n in own],
+        [parts[0].numel()] * M, group)
+    pieces = []
+    for n, piece in zip(own, got.split([row * n for n in own])):
+        shape[dim] = n
+        pieces.append(piece.view(shape))
+    return torch.cat(pieces, dim=dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce_sum``'s forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, sum_grads):
+        ctx.group, ctx.sum_grads = group, sum_grads
+        return fc.wait_tensor(fc.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grads:
+            g = fc.wait_tensor(fc.all_reduce(g.contiguous(), "sum",
+                                             ctx.group))
+        return g, None, None
+
+
+def all_reduce_sum(x: torch.Tensor, group, *,
+                   sum_grads: bool) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks (a functional all-reduce)
+    with autograd.  ``sum_grads``: each rank then uses the sum in its own
+    way (the gated norm's mean of squares over the heads' channels), so
+    the backward sums the ranks' gradients too; without it the sum is
+    one value replicated over the group (the vocab shards' lookups), so
+    each rank's gradient is already the whole one and passes on."""
+    return _AllReduceSum.apply(x, group, sum_grads)
 
 
 def shard_rows(slot: int, rows: int) -> tuple[int, int]:

@@ -631,9 +631,19 @@ def test_dryrun_split_kv_writes_the_cache_in_place(runs):
     dry = _dry(runs, "port_dry")
     plain = dry[(QWEN, "decode_32k", "{}")]
     split = dry[(QWEN, "decode_32k", json.dumps({"decode_attn": "split_kv"}))]
-    assert plain[3].get("assign", 0) > 0
+    # the owner writes a seq-sharded cache's slot with either decode
+    # attention: neither gathers the cache, to write it or to attend
+    # (all-gathers below one layer's K for a rank's batch rows)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.shapes import SHAPES
+
+    cfg, shape = get_smoke_config(QWEN), SHAPES["decode_32k"]
+    layer_k = (shape.global_batch // 16 * shape.seq_len * cfg.n_kv_heads
+               * cfg.d_head * 2)
+    assert "assign" not in plain[3], plain[3]
     assert "assign" not in split[3], split[3]
-    assert split[2]["all-gather"] < plain[2]["all-gather"], (split[2], plain[2])
+    for rec in (plain, split):
+        assert rec[2]["all-gather"] < layer_k, (rec[2], layer_k)
     assert split[2]["counts"]["all-reduce"] > 0
 
 

@@ -2197,6 +2197,44 @@ def test_cuda_four_card_nccl_2x2_explicit_collectives(cuda, tmp_path):
                          npz=npz).result())
 
 
+@pytest.mark.gpu
+def test_cuda_four_card_nccl_1x4_head_views(cuda, tmp_path):
+    """Four ranks, one card each, NCCL: ``test_torch_head_views``' four
+    rank checks on real shards from the port's own weights.  On a (1, 4)
+    mesh the four smoke configs whose heads the model axis splits each
+    way (qwen1.5-110b's KV groups, whisper's 6 heads, mamba2's 6 SSM
+    heads, hymba's 6 q, 3 KV and 6 SSM heads): the forward within the
+    bfloat16 tolerance of the plain port on each card, one train step
+    within the four-rank tolerances (and in float32 within 1e-5, its
+    moments within 1e-4), the mesh prefill's caches within the bfloat16
+    tolerance of the plain prefill's and decode from them (each step's
+    logits on the plain port's tokens, and the float32 greedy tokens
+    identical), no ``reshape`` gather and no score chunk of more than
+    ceil(H / 4) heads; on (2, 2) the vocab-parallel lookup and its gradient
+    bit-identical to the plain lookup, with no whole [B, S, D] on a
+    rank; on (1, 4) Qwen's greedy decode from a seq-sharded cache
+    identical to the plain port, no ``einsum`` gather and no local
+    tensor of the cache's global seq extent, and the prefill's K/V
+    placed as the cache.  Skips with fewer than four cards."""
+    import test_torch_head_views as HV
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA devices, has {torch.cuda.device_count()}")
+    res = HV.card_cases(tmp_path, "nccl")
+    for arch in HV.CONFIGS:
+        HV.check_forward(res["heads"][arch])
+        HV.check_train(arch, res["heads"][arch])
+        HV.check_prefill_cache(arch, res["heads"][arch])
+        HV.check_decode_from_prefill(res["heads"][arch])
+        HV.check_heads(arch, res["heads"][arch])
+    for V in HV.EMBED_VOCABS:
+        HV.check_lookup(res["embed"], V)
+    for arch in HV.EMBED_ARCHS:
+        assert res["embed"][arch] == 0.0, arch
+    HV.check_decode(res["decode"])
+    assert res["decode"]["prefill_placed"] == [True, True]
+
+
 # ---------------------------------------------------------------------------
 # the reference's keywords on the card
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ on the CPU.
   full-vocab float32 logits below that record's; and the prefill of two
   smoke configs (dense, and MLA, whose value head differs from its
   query head) creates no local tensor of the global running-stat shapes
-  (B, Sq, KV, G[, Dv]) and does create their local shards.
+  (B, Sq, KV, G[, Dv]) and does create their local shards (a GQA rank
+  holds its heads of the model axis's split, MLA all of them).
 """
 import contextlib
 import json
@@ -319,10 +320,15 @@ _DRY = """
         G = cfg.n_heads // cfg.n_kv_heads
         Dv = cfg.v_head_dim if cfg.use_mla else cfg.d_head
         lead = (shape.seq_len + (cfg.n_prefix or 0), cfg.n_kv_heads, G)
+        # GQA keeps a rank's heads (attention.attn_heads): rank 0 holds
+        # ceil(H / 16) of them and the KV heads they read
+        h = -(-cfg.n_heads // 16)
+        kv = -(-h // G)
+        mine = lead if cfg.use_mla else (lead[0], kv, h // kv)
         out[arch] = {{"status": rec["status"],
                       "global": [list((shape.global_batch,) + lead + last)
                                  for last in ((Dv,), ())],
-                      "local": [list((shape.global_batch // 16,) + lead + last)
+                      "local": [list((shape.global_batch // 16,) + mine + last)
                                 for last in ((Dv,), ())],
                       "seen": [list(s) for s in mode.seen if len(s) in (4, 5)]}}
     print(json.dumps(out), flush=True)
