@@ -275,7 +275,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     capacity is the global one and both all-to-alls are identities, so
     the logits are bit-identical (an op that differs is named and held
     to the bfloat16 tolerance), one all-to-all path a layer and a
-    forward counted; the group is torn down after;
+    forward counted; and with the gather path on the same DTensor
+    parameters, greedy tokens identical and logits held alike, the
+    experts-on-shards ``local_map`` (``moe._moe_on_shards``) counted: 0
+    on a model axis of one rank; the group is torn down after;
 16. the examples (``[examples]`` lines): the four
     ``examples/torch_*.py`` (``torch_train_100m.py`` at ``--small``) as
     child processes on the card, beside the same four with ``--device
@@ -5648,7 +5651,13 @@ def mesh_phase(dev, rate: float) -> dict:
           f"{moe['layers']} layer); one decode step's collectives "
           f"{json.dumps(moe['comm'])}; decode step (median of steps "
           f"2-{MODEL_GEN}): alltoall DTensor {moe['ms']} ms, gather plain "
-          f"{moe['plain_ms']} ms; peak {moe['peak_gb']} GB")
+          f"{moe['plain_ms']} ms; peak {moe['peak_gb']} GB; the gather path "
+          f"on the same DTensor parameters {moe['gathers']} times, greedy "
+          f"tokens identical, of them on the experts' shards (the "
+          f"_moe_on_shards local_map) {moe['on_shards']}: a model axis of "
+          f"one rank keeps the gather path's DTensor ops, so it runs only "
+          f"where the axis splits the experts (the four-card gpu case "
+          f"test_cuda_four_card_nccl_moe_experts_on_shards)")
     print(f"[mesh] the phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -5679,9 +5688,12 @@ def mesh_split_kv(dparams, cfg, prompts, mesh, plain: dict) -> dict:
 
 def mesh_alltoall(dev, mesh) -> dict:
     """Phase 15 (b): DeepSeek-V2 at full widths and depth 1 served on
-    the mesh with ``moe_impl="alltoall"`` against the plain gather path
-    from the same weights: greedy tokens identical, logits bit-identical
-    (a difference is named and held to the bfloat16 tolerance)."""
+    the mesh with ``moe_impl="alltoall"``, and with the gather path,
+    against the plain gather path from the same weights: greedy tokens
+    identical, logits bit-identical (a difference is named and held to
+    the bfloat16 tolerance).  On a model axis of one rank the gather
+    path keeps its DTensor ops: the experts-on-shards ``local_map``
+    (``moe._moe_on_shards``) runs 0 times."""
     import dataclasses
     import torch
     from repro_torch import sharding as SH
@@ -5700,7 +5712,15 @@ def mesh_alltoall(dev, mesh) -> dict:
     a2a = dataclasses.replace(cfg, moe_impl="alltoall")
     with counted(M, "_moe_alltoall") as calls:
         run = mesh_serve(dparams, a2a, prompts, mesh, comm_step=True)
+    with counted(M, "_moe_gather") as gathers, \
+            counted(M, "_moe_on_shards") as shards:
+        gat = mesh_serve(dparams, cfg, prompts, mesh)
     del params, dparams
+    check(gathers.n == (MODEL_GEN + 1) * cfg.n_layers and shards.n == 0,
+          f"[mesh] {gathers.n} gather paths in prefill + {MODEL_GEN} steps, "
+          f"{shards.n} of them on the experts' shards")
+    check_equal(gat["tokens"].numpy(), plain["tokens"].numpy(),
+                "[mesh] greedy tokens, gather on the mesh vs plain")
     n = calls.n
     check(n == (MODEL_GEN + 2) * cfg.n_layers,
           f"[mesh] {n} all-to-all paths in prefill + {MODEL_GEN + 1} steps")
@@ -5711,7 +5731,10 @@ def mesh_alltoall(dev, mesh) -> dict:
     held: list = []
     for i, (g, w) in enumerate(zip(run["logits"], plain["logits"])):
         same_tensor(g, w, f"alltoall logits of step {i}", held)
+    for i, (g, w) in enumerate(zip(gat["logits"], plain["logits"])):
+        same_tensor(g, w, f"gather logits of step {i}", held)
     return {"arch": arch, "experts": cfg.n_experts * cfg.moe_replicas,
+            "gathers": gathers.n, "on_shards": shards.n,
             "layers": cfg.n_layers, "calls": n - cfg.n_layers, "held": held,
             "comm": run["comm"], "ms": float(np.median(run["ms"][1:])),
             "plain_ms": float(np.median(plain["ms"][1:])),

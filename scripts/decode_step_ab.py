@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Times the bare plain-path decode step of two checkouts in turn on one
-card: Qwen1.5-0.5B's full config, random weights from a seed, batch 4,
-a 32-token prompt, then greedy decode steps, each on the host clock to a
-synchronise.  One JSON line a run, the card's name and power limit
-first.
+card: Qwen1.5-0.5B's full config (``--arch``; ``--layers`` cuts its
+depth), random weights from a seed, batch 4, a 32-token prompt, then
+greedy decode steps, each on the host clock to a synchronise.  One JSON
+line a run, the card's name and power limit first.
 
     python3 scripts/decode_step_ab.py A B [--rounds 2] [--steps 64]
+        [--arch deepseek_v2_236b --layers 4]
         runs A, B, B, A (``--rounds`` times), each in a process of its
         own that imports ``repro_torch`` from that checkout's ``src``;
         a run's line holds its median, 10th and 90th percentile step ms
@@ -23,6 +24,7 @@ ported can be timed.  Run from the root of a checkout.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,7 +46,9 @@ def child(args) -> None:
     from repro_torch.models.params import init_params
 
     dev = torch.device(args.device)
-    cfg = (get_smoke_config if args.smoke else get_config)(ARCH)
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
     def sync():
         if dev.type == "cuda":
@@ -106,6 +110,9 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this depth (0: its own)")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -120,7 +127,8 @@ def main() -> None:
             check=True).stdout.splitlines()[0]
         print(json.dumps({"card": card}), flush=True)
     a, b = args.trees
-    extra = ["--steps", str(args.steps), "--device", args.device] + (
+    extra = ["--steps", str(args.steps), "--device", args.device,
+             "--arch", args.arch, "--layers", str(args.layers)] + (
         ["--smoke"] if args.smoke else [])
     for _ in range(args.rounds):
         for tree in (a, b, b, a):

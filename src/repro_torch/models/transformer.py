@@ -10,8 +10,12 @@ attention, MLP, decoder layer, the model) hold the weights cast to the
 compute dtype once, when they are built: the reference casts under
 ``jit``, and eagerly that would cast every float32 master on every
 decode step.  Callers that run many steps build once (``build``) and
-pass the model; the values are the same either way.  The layer loop
-is a Python loop over the layers (the reference's ``lax.scan``).
+pass the model.  A model built under the model mesh casts each
+layer's leaves when the layer runs (a stacked leaf's rows, views after
+one ``unbind``), so that one layer's copies are live a device at a
+time, as the reference's scan casts one layer's slice in its body.  The values are the same either
+way.  The layer loop is a Python loop over the layers (the reference's
+``lax.scan``).
 
 Under the model mesh (``sharding.use_mesh_rules``, params placed as
 DTensors by ``launch.specs``) the same code runs on DTensors: ``shard``
@@ -39,7 +43,10 @@ as a dict (tensors that require grad), ``forward_hidden`` and
 the compute dtype are in the autograd graph, as the reference's are
 under ``jit``, and the gradients land in float32 on the masters
 themselves.  A stacked leaf is cast once and split with one ``unbind``
-(one cast and one stack in the backward a leaf, not one a layer).  A
+(one cast and one stack in the backward a leaf, not one a layer);
+under the model mesh it is split as it is and each layer's rows are
+cast inside the layer's remat function, which the backward
+recomputes.  A
 ``Transformer`` built earlier holds copies: it serves, it does not
 train.  With grad enabled the stack runs each layer under
 ``cfg.remat_policy`` (the reference's ``_remat``): ``"nothing"``
@@ -156,15 +163,16 @@ def held_f32(name: str) -> bool:
 
 
 def _layer_dicts(params: dict, cfg: ModelConfig, prefix: str = "layers",
-                 n_layers: int | None = None) -> list[dict]:
+                 n_layers: int | None = None, cast: bool = True) -> list[dict]:
     """Every layer's flat dict (``n_layers`` of them, the decoder's
     ``cfg.n_layers`` by default).  A stacked leaf is cast once to the
-    dtype its block holds (``held_f32``) and split by one ``unbind``."""
+    dtype its block holds (``held_f32``) and split by one ``unbind``;
+    without ``cast`` it is split as it is (each layer's rows a view)."""
     n = cfg.n_layers if n_layers is None else n_layers
     if not cfg.scan_layers:
         return [L.sub(params, f"{prefix}_{i}") for i in range(n)]
-    split = {k: v.to(torch.float32 if held_f32(k)
-                     else cfg.compute_dtype).unbind(0)
+    split = {k: (v.to(torch.float32 if held_f32(k) else cfg.compute_dtype)
+                 if cast else v).unbind(0)
              for k, v in L.sub(params, prefix).items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
@@ -202,23 +210,36 @@ class Weights(nn.Module):
     """One block's weights as buffers under the reference's names, cast
     once to ``dtype``, but the leaves the reference reads as float32
     (``held_f32``) to float32; ``weights`` is the flat dict the
-    ``layers`` functions read."""
+    ``layers`` functions read.  ``per_use``: the leaves are held as
+    given and ``weights`` casts them at each read (a functional step's
+    layers under the model mesh: a layer's copies live while its blocks
+    run)."""
 
-    def __init__(self, params: dict, dtype: torch.dtype, device=None):
+    def __init__(self, params: dict, dtype: torch.dtype, device=None,
+                 per_use: bool = False):
         super().__init__()
+        self._dtype, self._device, self._given = dtype, device, None
+        if per_use:
+            self._given = dict(params)
+            return
         for name, t in params.items():
-            self.register_buffer(name, t.to(
-                device=device,
-                dtype=torch.float32 if held_f32(name) else dtype))
+            self.register_buffer(name, self._held(name, t))
+
+    def _held(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t.to(device=self._device,
+                    dtype=torch.float32 if held_f32(name) else self._dtype)
 
     @property
     def weights(self) -> dict:
-        return self._buffers
+        if self._given is None:
+            return self._buffers
+        return {n: self._held(n, t) for n, t in self._given.items()}
 
 
 class Norm(Weights):
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
-        super().__init__(params, torch.float32, device)
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
+        super().__init__(params, torch.float32, device, per_use)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -226,8 +247,9 @@ class Norm(Weights):
 
 
 class MLP(Weights):
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
-        super().__init__(params, cfg.compute_dtype, device)
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
+        super().__init__(params, cfg.compute_dtype, device, per_use)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -239,8 +261,8 @@ class Attention(Weights):
     and cross-attention given ``xa``)."""
 
     def __init__(self, params: dict, cfg: ModelConfig, window: int,
-                 device=None, causal: bool = True):
-        super().__init__(params, cfg.compute_dtype, device)
+                 device=None, causal: bool = True, per_use: bool = False):
+        super().__init__(params, cfg.compute_dtype, device, per_use)
         self.cfg = cfg
         self.window = window
         self.causal = causal
@@ -257,8 +279,9 @@ class MLA(Weights):
     """MLA's weights in the compute dtype, its two norm scales in
     float32 (``mla._rms`` reads them so)."""
 
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
-        super().__init__(params, cfg.compute_dtype, device)
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
+        super().__init__(params, cfg.compute_dtype, device, per_use)
         self.cfg = cfg
 
     def forward(self, x, *, positions, cache=None, angles=None):
@@ -270,8 +293,9 @@ class MLA(Weights):
 class MoE(Weights):
     """The router, the experts and the shared experts."""
 
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
-        super().__init__(params, cfg.compute_dtype, device)
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
+        super().__init__(params, cfg.compute_dtype, device, per_use)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor):
@@ -287,8 +311,9 @@ class SSM(Weights):
     ``out_proj`` in the compute dtype, ``norm``, ``dt_bias``, ``a_log``
     and ``d_skip`` in float32."""
 
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
-        super().__init__(params, cfg.compute_dtype, device)
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
+        super().__init__(params, cfg.compute_dtype, device, per_use)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor, cache=None, keep_cache: bool = True):
@@ -345,16 +370,20 @@ class EncoderLayer(nn.Module):
     """norm -> non-causal self-attention -> residual -> norm -> MLP ->
     residual."""
 
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
         super().__init__()
-        self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
+        self.norm1 = Norm(L.sub(params, "norm1"), cfg, device, per_use)
         self.attn = Attention(L.sub(params, "attn"), cfg, 0, device,
-                              causal=False)
-        self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
-        self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
+                              causal=False, per_use=per_use)
+        self.norm2 = Norm(L.sub(params, "norm2"), cfg, device, per_use)
+        self.mlp = MLP(L.sub(params, "mlp"), cfg, device, per_use)
 
     def forward(self, x, *, positions):
         a, _ = self.attn(self.norm1(x), positions=positions, keep_kv=False)
+        # the blocks' partial sums added as DTensor adds them (unlike the
+        # decoder's): reduced first, the encoder's attention output held
+        # more a device at whisper-large-v3 train_4k's peak (the dry run)
         x = x + a
         return x + self.mlp(self.norm2(x))
 
@@ -363,17 +392,19 @@ class Encoder(nn.Module):
     """The whisper encoder over precomputed frame embeddings (the conv
     frontend is a stub): the frames cast to the compute dtype, plus
     ``encoder/pos``, ``cfg.n_enc_layers`` ``EncoderLayer``s, then
-    ``encoder/norm_f``.  Without remat, as the reference runs it."""
+    ``encoder/norm_f``.  Without remat, as the reference runs it.
+    ``per_use``: as ``Transformer``'s."""
 
-    def __init__(self, params: dict, cfg: ModelConfig, device=None):
+    def __init__(self, params: dict, cfg: ModelConfig, device=None,
+                 per_use: bool = False):
         super().__init__()
         self.cfg = cfg
         self.register_buffer("pos", params["encoder/pos"].to(
             device=device, dtype=cfg.compute_dtype))
         self.layers = nn.ModuleList(
-            EncoderLayer(lp, cfg, device)
+            EncoderLayer(lp, cfg, device, per_use)
             for lp in _layer_dicts(params, cfg, "enc_layers",
-                                   cfg.n_enc_layers))
+                                   cfg.n_enc_layers, cast=not per_use))
         self.norm_f = Norm(L.sub(params, "encoder/norm_f"), cfg, device)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
@@ -396,33 +427,34 @@ class DecoderLayer(nn.Module):
     -> MLP (MoE in the ``moe`` family) -> residual."""
 
     def __init__(self, params: dict, cfg: ModelConfig, window: int,
-                 device=None):
+                 device=None, per_use: bool = False):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         fam = cfg.family
-        self.norm1 = Norm(L.sub(params, "norm1"), cfg, device)
+        sub = functools.partial(L.sub, params)
+        self.norm1 = Norm(sub("norm1"), cfg, device, per_use)
         self.attn = self.ssm = self.fuse = self.norm2 = self.moe = None
         self.mlp = self.norm_cross = self.cross = None
         if cfg.attends:
-            self.attn = (MLA(L.sub(params, "attn"), cfg, device) if cfg.use_mla
-                         else Attention(L.sub(params, "attn"), cfg, window,
-                                        device))
+            self.attn = (MLA(sub("attn"), cfg, device, per_use) if cfg.use_mla
+                         else Attention(sub("attn"), cfg, window, device,
+                                        per_use=per_use))
         if fam in ("ssm", "hybrid"):
-            self.ssm = SSM(L.sub(params, "ssm"), cfg, device)
+            self.ssm = SSM(sub("ssm"), cfg, device, per_use)
         if fam == "hybrid":
-            self.fuse = Weights(L.sub(params, "fuse"), cfg.compute_dtype,
-                                device)
+            self.fuse = Weights(sub("fuse"), cfg.compute_dtype, device,
+                                per_use)
         if cfg.is_encdec:
-            self.norm_cross = Norm(L.sub(params, "norm_cross"), cfg, device)
-            self.cross = Attention(L.sub(params, "cross"), cfg, 0, device,
-                                   causal=False)
+            self.norm_cross = Norm(sub("norm_cross"), cfg, device, per_use)
+            self.cross = Attention(sub("cross"), cfg, 0, device,
+                                   causal=False, per_use=per_use)
         if fam != "ssm":       # a pure mamba stack has no MLP (d_ff = 0)
-            self.norm2 = Norm(L.sub(params, "norm2"), cfg, device)
+            self.norm2 = Norm(sub("norm2"), cfg, device, per_use)
             if fam == "moe":
-                self.moe = MoE(L.sub(params, "moe"), cfg, device)
+                self.moe = MoE(sub("moe"), cfg, device, per_use)
             else:
-                self.mlp = MLP(L.sub(params, "mlp"), cfg, device)
+                self.mlp = MLP(sub("mlp"), cfg, device, per_use)
 
     def forward(self, x, *, positions, cache=None, angles=None,
                 enc_out=None, keep_new: bool = True):
@@ -449,9 +481,9 @@ class DecoderLayer(nn.Module):
             s, new["ssm"] = self.ssm(h, cache=cache.get("ssm"),
                                      keep_cache=keep_new)
         if self.attn is None:
-            x = x + s
+            x = x + SH.summed(s)
         elif self.ssm is None:
-            x = x + a
+            x = x + SH.summed(a)
         else:
             x = x + _fuse_paths(self.fuse.weights, a, s)
         # the paths' input and outputs freed before the next norm
@@ -468,7 +500,7 @@ class DecoderLayer(nn.Module):
             else:
                 c, new["cross"] = self.cross(hc, positions=positions,
                                              xa=enc_out, keep_kv=keep_new)
-            x = x + c
+            x = x + SH.summed(c)
             hc = c = None
         x = SH.shard(x, ("act_batch", "act_seq", "act_embed"))
         if self.norm2 is None:
@@ -476,20 +508,29 @@ class DecoderLayer(nn.Module):
         h = self.norm2(x)
         if self.moe is None:
             h = SH.shard(h, ("act_batch", "act_seq", "act_embed"))
-            x, aux = x + self.mlp(h), None
+            x, aux = x + SH.summed(self.mlp(h)), None
         else:
             y, aux = self.moe(h)
-            x = x + y
+            x = x + SH.summed(y)
         return SH.shard(x, ("act_batch", "act_seq", "act_embed")), new, aux
 
 
 class Transformer(nn.Module):
     """The whole decoder, built once from a flat param dict on
-    ``device`` (None = the params' own device)."""
+    ``device`` (None = the params' own device).  Built under the model
+    mesh, the layers hold their leaves as given (a stacked leaf's rows
+    as views) and cast each when its block runs (``per_use``), so that
+    one layer's compute-dtype copies are live at a time (inside a
+    layer's remat function in the train step).  Elsewhere every weight
+    is cast once, here: the serving engine's model serves many steps,
+    and the plain train step's peak sits in the optimizer's update, not
+    in the copies, while the per-layer casts add launches (the card's
+    ``[train]`` phase)."""
 
     def __init__(self, params: dict, cfg: ModelConfig, device=None):
         super().__init__()
         check_ported(cfg)
+        per_use = SH.current_mesh() is not None
         self.cfg = cfg
         dt = cfg.compute_dtype
         device = params["embed/tokens"].device if device is None else device
@@ -497,12 +538,13 @@ class Transformer(nn.Module):
         if cfg.pos == "learned":
             self.embed.register_buffer(
                 "pos", params["embed/pos"].to(device=device, dtype=dt))
-        self.encoder = (Encoder(params, cfg, device) if cfg.is_encdec
-                        else None)
+        self.encoder = (Encoder(params, cfg, device, per_use)
+                        if cfg.is_encdec else None)
         windows = layer_windows(cfg)
         self.layers = nn.ModuleList(
-            DecoderLayer(lp, cfg, windows[i], device)
-            for i, lp in enumerate(_layer_dicts(params, cfg)))
+            DecoderLayer(lp, cfg, windows[i], device, per_use)
+            for i, lp in enumerate(_layer_dicts(params, cfg,
+                                                cast=not per_use)))
         self.norm_f = Norm(L.sub(params, "norm_f"), cfg, device)
         head = {} if cfg.tie_embeddings else {"lm_head": params["lm_head"]}
         self.head = Weights(head, dt, device)

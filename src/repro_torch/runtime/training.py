@@ -267,7 +267,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
     def loss_fn(params, batch):
         # the modules are built from the masters inside the
-        # differentiated function, so the casts are in the graph
+        # differentiated function, so the casts are in the graph (under
+        # the model mesh each layer's inside its remat function)
         model = T.build(params, cfg)
         if cfg.ce_chunk:
             hidden, aux = T.forward_hidden(

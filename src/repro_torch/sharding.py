@@ -54,7 +54,7 @@ __all__ = ["DEFAULT_RULES", "FALLBACKS", "FLEET_AXIS", "NamedSharding", "P",
            "current_mesh", "einsum", "logical_to_pspec", "make_rules", "mark",
            "pad", "param_pspecs", "placed_as", "placements", "redistribute",
            "replicated", "reshape", "send_to", "shard", "shard_rows", "slot_groups",
-           "split_rows", "to_local", "use_mesh_rules"]
+           "split_rows", "summed", "to_local", "use_mesh_rules"]
 
 #: mesh axis the fleet registry shards its peer slab over; kept out of
 #: DEFAULT_RULES because the slab is placed by hand, not by logical axes
@@ -572,6 +572,21 @@ def redistribute(x: DTensor, pl) -> DTensor:
     return _Redistribute.apply(x, tuple(pl))
 
 
+def summed(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its partial sums reduced: a DTensor ``Partial`` on some
+    mesh dim (a block's output whose products each rank summed over its
+    shard) redistributed to ``Replicate()`` there; any other tensor as
+    it is.  A residual add reduces the block's output first: DTensor
+    adds a replicated tensor to a partial sum by halving it on each
+    rank, a rounding in each summand that the plain path does not
+    make."""
+    if not isinstance(t, DTensor) or not any(p.is_partial()
+                                             for p in t.placements):
+        return t
+    return redistribute(t, [Replicate() if p.is_partial() else p
+                            for p in t.placements])
+
+
 def shard(x: torch.Tensor, axes: tuple):
     """Activation sharding by logical names; the identity without a
     mesh.  A plain tensor is taken as the same global value on every
@@ -631,12 +646,14 @@ def head_range(n_heads: int, size: int, rank: int) -> tuple[int, int]:
     return h0, min(n_heads, h0 + c)
 
 
-def summed_grads(mesh, pl) -> tuple:
+def summed_grads(mesh, pl, dims=None) -> tuple:
     """The gradient placements of a ``local_map`` input placed ``pl``
     whose local use on each rank is one summand: ``Partial`` where it is
-    replicated."""
-    return tuple(Partial() if q.is_replicate() and n > 1 else q
-                 for q, n in zip(pl, mesh.shape))
+    replicated (on the mesh dims ``dims`` only, where given: on the
+    others every rank's use is the whole one)."""
+    return tuple(Partial() if q.is_replicate() and n > 1
+                 and (dims is None or i in dims) else q
+                 for i, (q, n) in enumerate(zip(pl, mesh.shape)))
 
 
 def exchange(t: torch.Tensor, own: list, dim: int, seq: int | None,

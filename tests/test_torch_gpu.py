@@ -2235,6 +2235,46 @@ def test_cuda_four_card_nccl_1x4_head_views(cuda, tmp_path):
     assert res["decode"]["prefill_placed"] == [True, True]
 
 
+@pytest.mark.gpu
+def test_cuda_four_card_nccl_moe_experts_on_shards(cuda, tmp_path):
+    """Four ranks, one card each, NCCL on a (1, 4) mesh:
+    ``test_torch_moe_mesh``'s checks on real shards from the port's own
+    weights.  grok-1's and DeepSeek-V2's smoke MoE (4 experts over the
+    model axis: each rank builds only its experts' buckets), grok-1's
+    with 6 experts (the axis splits their hidden dim), grok-1's with 6
+    experts and d_ff 66 (the axis splits neither: the replicated body)
+    and DeepSeek-V2's at capacity factor 0.6 (drops): ``moe_ffn``'s y and aux within the
+    bfloat16 tolerance of the plain port on each card (float32 within
+    1e-5), the kept slots identical, no [T * k, D] slab and no bucket
+    past ceil(E / 4) * C rows, one train step as
+    ``test_torch_moe_mesh.check_train`` holds it (bfloat16 within the
+    four-rank tolerances, its grad norm and moments where the routes
+    agree; float32 within 1e-5).  Then one routed layer of DeepSeek-V2's routing shape
+    (160 experts, top-6) at d_model 5,120 over 4,096 tokens: y within
+    the bfloat16 tolerance of the plain layer on the same card, and the
+    mesh layer's ``max_memory_allocated`` above its start below one
+    rank's whole bucket [E * C, D].  Skips with fewer than four
+    cards."""
+    import test_torch_moe_mesh as MM
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA devices, has {torch.cuda.device_count()}")
+    res = MM.card_cases(tmp_path, "nccl")
+    for name, r in res.items():
+        print(f"[four-card] {name}: bfloat16 train step routes as the "
+              f"plain step's {r['train']['routes_agree']}, metrics "
+              f"{r['train']['metrics']}; float32 {r['train']['f32']['metrics']}")
+        MM.check_forward(name, r["forward"])
+        MM.check_bounds(name, r["forward"])
+        MM.check_train(name, r["train"])
+    out = str(tmp_path / "memory.json")
+    mem = MM.result(MM.ranks(out, [1, 4], backend="nccl",
+                             memory=list(MM.CARD_MEMORY)), out)["memory"]
+    print(f"[four-card] routed MoE layer on (1, 4), {MM.CARD_MEMORY}: {mem}")
+    assert mem["inside_tol"], mem
+    assert mem["transient"] < mem["whole_bucket"], mem
+
+
 # ---------------------------------------------------------------------------
 # the reference's keywords on the card
 # ---------------------------------------------------------------------------
