@@ -278,7 +278,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
     forward counted; and with the gather path on the same DTensor
     parameters, greedy tokens identical and logits held alike, the
     experts-on-shards ``local_map`` (``moe._moe_on_shards``) counted: 0
-    on a model axis of one rank; the group is torn down after;
+    on a model axis of one rank, as are MLA's decode on the latent
+    shards (``mla._absorbed_on_shards``) and its owner writes
+    (``attention._sharded_slot_update``); the group is torn down after;
 16. the examples (``[examples]`` lines): the four
     ``examples/torch_*.py`` (``torch_train_100m.py`` at ``--small``) as
     child processes on the card, beside the same four with ``--device
@@ -5657,7 +5659,13 @@ def mesh_phase(dev, rate: float) -> dict:
           f"_moe_on_shards local_map) {moe['on_shards']}: a model axis of "
           f"one rank keeps the gather path's DTensor ops, so it runs only "
           f"where the axis splits the experts (the four-card gpu case "
-          f"test_cuda_four_card_nccl_moe_experts_on_shards)")
+          f"test_cuda_four_card_nccl_moe_experts_on_shards); MLA's decode "
+          f"on the latent shards (the _absorbed_on_shards local_map) "
+          f"{moe['absorbed']} times and its owner writes "
+          f"(_sharded_slot_update) {moe['owner']}: a model axis of one rank "
+          f"places the latents Replicate(), so they run only where it "
+          f"shards their slots (test_cuda_four_card_nccl_1x4_mla_latent_"
+          f"shards)")
     print(f"[mesh] the phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -5693,11 +5701,16 @@ def mesh_alltoall(dev, mesh) -> dict:
     identical, logits bit-identical (a difference is named and held to
     the bfloat16 tolerance).  On a model axis of one rank the gather
     path keeps its DTensor ops: the experts-on-shards ``local_map``
-    (``moe._moe_on_shards``) runs 0 times."""
+    (``moe._moe_on_shards``) runs 0 times, and so do MLA's decode on the
+    latent shards (``mla._absorbed_on_shards``) and its owner writes
+    (``attention._sharded_slot_update``): one rank places the latents
+    ``Replicate()``."""
     import dataclasses
     import torch
     from repro_torch import sharding as SH
     from repro_torch.launch import specs as S
+    from repro_torch.models import attention as A
+    from repro_torch.models import mla as MLA
     from repro_torch.models import moe as M
     from repro_torch.models.params import init_params
 
@@ -5713,12 +5726,17 @@ def mesh_alltoall(dev, mesh) -> dict:
     with counted(M, "_moe_alltoall") as calls:
         run = mesh_serve(dparams, a2a, prompts, mesh, comm_step=True)
     with counted(M, "_moe_gather") as gathers, \
-            counted(M, "_moe_on_shards") as shards:
+            counted(M, "_moe_on_shards") as shards, \
+            counted(MLA, "_absorbed_on_shards") as absorbed, \
+            counted(A, "_sharded_slot_update") as owner:
         gat = mesh_serve(dparams, cfg, prompts, mesh)
     del params, dparams
     check(gathers.n == (MODEL_GEN + 1) * cfg.n_layers and shards.n == 0,
           f"[mesh] {gathers.n} gather paths in prefill + {MODEL_GEN} steps, "
           f"{shards.n} of them on the experts' shards")
+    check(absorbed.n == owner.n == 0,
+          f"[mesh] on a model axis of one rank: {absorbed.n} MLA attentions "
+          f"on the latent shards, {owner.n} owner writes")
     check_equal(gat["tokens"].numpy(), plain["tokens"].numpy(),
                 "[mesh] greedy tokens, gather on the mesh vs plain")
     n = calls.n
@@ -5735,6 +5753,7 @@ def mesh_alltoall(dev, mesh) -> dict:
         same_tensor(g, w, f"gather logits of step {i}", held)
     return {"arch": arch, "experts": cfg.n_experts * cfg.moe_replicas,
             "gathers": gathers.n, "on_shards": shards.n,
+            "absorbed": absorbed.n, "owner": owner.n,
             "layers": cfg.n_layers, "calls": n - cfg.n_layers, "held": held,
             "comm": run["comm"], "ms": float(np.median(run["ms"][1:])),
             "plain_ms": float(np.median(plain["ms"][1:])),

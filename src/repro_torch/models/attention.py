@@ -425,28 +425,32 @@ def attn_heads(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def _sharded_slot_update(buf: torch.Tensor, new_row: torch.Tensor,
-                         slot: int, mesh, axis: str = "model") -> torch.Tensor:
-    """Owner-writes update of a seq-sharded buffer [..., B, S_buf, ...]
-    (seq at dim -3, the batch before it): the rows of ``new_row`` go to
-    slots ``slot ..`` of the one shard of ``axis`` that holds them, in
-    its local tensor, and every other shard keeps its own.  A write
-    through ``sharding.assign`` gathers the whole buffer to write one
-    token; this one issues no collective.  A ``local_map`` over
-    ``mesh``; a ``buf`` placed so already (seq sharded over ``axis``,
-    the batch over the dp axes that divide it) is written in place and
-    returned, any other is redistributed first and the copy returned.
-    ``slot`` is a host integer, so only the owner writes, and the buffer
-    equals the plain write's bit for bit."""
-    lead = (None,) * (buf.ndim - 4)
-    dp = SH.dp_axes(mesh, buf.shape[-4])
-    b_pl = SH.placements(mesh, SH.P(*lead, dp, axis, None, None))
-    n_pl = SH.placements(mesh, SH.P(*lead, dp, None, None, None))
+                         slot: int, mesh, axis: str = "model",
+                         seq_dim: int = -3) -> torch.Tensor:
+    """Owner-writes update of a seq-sharded buffer, seq at ``seq_dim`` (a
+    negative dim, the batch just before it: -3 for K/V [..., B, S_buf,
+    KV, Dh], -2 for MLA's latents [..., B, S_buf, L]): the rows of
+    ``new_row`` go to slots ``slot ..`` of the one shard of ``axis``
+    that holds them, in its local tensor, and every other shard keeps
+    its own.  A write through ``sharding.assign`` gathers the whole
+    buffer to write one token; this one issues no collective.  A
+    ``local_map`` over ``mesh``; a ``buf`` placed so already (seq
+    sharded over ``axis``, the batch over the dp axes that divide it)
+    is written in place and returned, any other is redistributed first
+    and the copy returned.  ``slot`` is a host integer, so only the
+    owner writes, and the buffer equals the plain write's bit for
+    bit."""
+    seq = buf.ndim + seq_dim
+    lead, tail = (None,) * (seq - 1), (None,) * (-seq_dim - 1)
+    dp = SH.dp_axes(mesh, buf.shape[seq - 1])
+    b_pl = SH.placements(mesh, SH.P(*lead, dp, axis, *tail))
+    n_pl = SH.placements(mesh, SH.P(*lead, dp, None, *tail))
 
     def local(b_loc, n_loc):
-        S_loc = b_loc.shape[-3]
+        S_loc = b_loc.shape[seq]
         at = slot - mesh.get_local_rank(axis) * S_loc
         if 0 <= at < S_loc:
-            b_loc[..., at:at + n_loc.shape[-3], :, :] = n_loc
+            b_loc.narrow(seq, at, n_loc.shape[seq]).copy_(n_loc)
         return b_loc
 
     buf = _on_mesh(buf, mesh)
@@ -457,21 +461,24 @@ def _sharded_slot_update(buf: torch.Tensor, new_row: torch.Tensor,
     return buf if tuple(buf.placements) == b_pl else out
 
 
-def _seq_sharded(cache_k: torch.Tensor, mesh) -> bool:
-    """Whether a decode cache buffer [..., B, S_buf, KV, Dh] is a DTensor
+def _seq_sharded(cache_k: torch.Tensor, mesh, seq_dim: int = -3) -> bool:
+    """Whether a decode cache buffer (seq at ``seq_dim``: K/V [..., B,
+    S_buf, KV, Dh], MLA's latents [..., B, S_buf, L] at -2) is a DTensor
     whose seq dim the mesh's model axis shards (as
     ``launch.specs.cache_shardings`` places it)."""
-    if not isinstance(cache_k, DTensor) or not _owner_writes(cache_k, mesh):
+    if not isinstance(cache_k, DTensor) or not _owner_writes(
+            cache_k, mesh, seq_dim):
         return False
     mi = tuple(mesh.mesh_dim_names).index("model")
-    return cache_k.placements[mi] == Shard(cache_k.ndim - 3)
+    return cache_k.placements[mi] == Shard(cache_k.ndim + seq_dim)
 
 
-def _owner_writes(cache_k: torch.Tensor, mesh) -> bool:
+def _owner_writes(cache_k: torch.Tensor, mesh, seq_dim: int = -3) -> bool:
     """The reference's condition for the owner-writes cache write: the
-    mesh has a model axis that divides the buffer's slots."""
+    mesh has a model axis that divides the buffer's slots (its dim
+    ``seq_dim``)."""
     sizes = {} if mesh is None else SH.axis_sizes(mesh)
-    return "model" in sizes and cache_k.shape[-3] % sizes["model"] == 0
+    return "model" in sizes and cache_k.shape[seq_dim] % sizes["model"] == 0
 
 
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,

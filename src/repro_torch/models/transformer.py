@@ -749,9 +749,11 @@ def _restacked(buf: torch.Tensor, news: list[dict], ins: list[dict],
                kind: str, field: str) -> torch.Tensor:
     """A stacked decode cache after the step: a plain buffer was written
     in place by every layer, and so was a DTensor whose layers each
-    returned the view they were given (the owner-writes update); other
-    DTensor layers were written out of place (``sharding.assign``) and
-    are stacked anew."""
+    returned the view they were given (the owner-writes update of a
+    seq-sharded K/V or latent cache, ``sharding.assign``'s whole-buffer
+    write of an SSM cache), and is returned as it is; other DTensor
+    layers were written out of place (``sharding.assign`` into a slot)
+    and are stacked anew."""
     if not isinstance(buf, DTensor) or all(
             getattr(n[kind], field) is getattr(c[kind], field)
             for n, c in zip(news, ins)):

@@ -308,13 +308,19 @@ def to_local(t, site: str = "op"):
 
 def assign(buf: torch.Tensor, key, value: torch.Tensor) -> torch.Tensor:
     """``buf[key] = value``; returns the buffer written.  A plain ``buf``
-    is written in place and returned.  DTensor has no sharding strategy
-    for an in-place write into a slice of a sharded dim, so a DTensor
-    ``buf`` is written on replicated operands, as GSPMD writes it: both
-    gathered, the write made on this rank's full copy, and the result
-    placed as ``buf`` was (in place where ``buf`` was replicated)."""
+    is written in place and returned, and so is a DTensor ``buf`` whose
+    ``key`` is ``...`` (the whole buffer): ``value`` placed as ``buf``
+    is and copied into its local tensor, nothing gathered.  DTensor has
+    no sharding strategy for an in-place write into a slice of a sharded
+    dim, so for any other key a DTensor ``buf`` is written on replicated
+    operands, as GSPMD writes it: both gathered, the write made on this
+    rank's full copy, and the result placed as ``buf`` was (in place
+    where ``buf`` was replicated)."""
     if not isinstance(buf, DTensor):
         buf[key] = value
+        return buf
+    if key is Ellipsis:
+        buf.to_local().copy_(placed_as(replicated(value, buf), buf).to_local())
         return buf
     mesh = buf.device_mesh
     full = to_local(buf, "assign")

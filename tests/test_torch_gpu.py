@@ -2275,6 +2275,44 @@ def test_cuda_four_card_nccl_moe_experts_on_shards(cuda, tmp_path):
     assert mem["transient"] < mem["whole_bucket"], mem
 
 
+@pytest.mark.gpu
+def test_cuda_four_card_nccl_1x4_mla_latent_shards(cuda, tmp_path):
+    """Four ranks, one card each, NCCL: ``test_torch_mla_mesh``'s checks
+    on real shards from the port's own weights.  DeepSeek-V2's smoke
+    decode on (1, 4) and (2, 2) from a latent cache whose seq the model
+    axis shards: the latents written in place by each slot's owner,
+    bit-identical to the plain port's write of the same rows, logits
+    within the bfloat16 tolerance of the plain port on each card while
+    the routes agree (float32 within 1e-5 and greedy tokens identical),
+    no ``assign`` or ``einsum`` gather, no collective of a cache (on (1,
+    4) no all-gather); mamba2's SSM caches written as placed.  Then one
+    MLA layer at DeepSeek-V2's full attention widths (d_model 5,120, 128
+    heads, kv_lora 512, qk_rope 64), batch 4 over a latent cache of
+    4,096 slots on (1, 4): each decode step's output within the bfloat16
+    tolerance of the plain layer's on the same card, the caches
+    bit-identical, no all-gather under ``CommDebugMode``, and a step's
+    ``max_memory_allocated`` above its start below one whole layer's
+    ckv.  Skips with fewer than four cards."""
+    import test_torch_mla_mesh as MLA
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA devices, has {torch.cuda.device_count()}")
+    res = MLA.card_cases(tmp_path, "nccl")
+    for m, r in res.items():
+        print(f"[four-card] MLA decode on {m}: steps held while the routes "
+              f"agree {MLA.held(r['mla']['steps'])} of {MLA.N_DECODE}")
+        MLA.check_writes(r["mla"])
+        MLA.check_logits(r["mla"])
+        MLA.check_no_cache_gather(r["mla"], model_only=m == "1x4")
+    MLA.check_ssm(res["1x4"]["ssm"])
+    mem = res["1x4"]["memory"]
+    print(f"[four-card] MLA layer at full widths on (1, 4), batch and slots "
+          f"{MLA.CARD_MEMORY}: transient {mem['transient']} bytes against "
+          f"one layer's ckv {mem['layer_ckv']}; output gaps {mem['gaps']}; "
+          f"collectives {mem['collectives']}")
+    MLA.check_memory(mem)
+
+
 # ---------------------------------------------------------------------------
 # the reference's keywords on the card
 # ---------------------------------------------------------------------------
